@@ -11,7 +11,8 @@ semantics (reference `data/datasets/datasets.py`):
 - `target = prognostic[1:]`, returned from `context_size` on;
 - the biweekly Monday/Thursday 11:00 UTC init-date rule.
 
-Batches are stacked per item in numpy (`batches`); the evaluator moves
+Batches are stacked per item in numpy (`batches`, optionally shuffled
+with the JAX package's permutation); the evaluator and the trainer move
 each batch to the device.  The JAX package's native C++ batcher is not
 ported yet.
 """
@@ -115,12 +116,18 @@ class WindowedWeatherDataset:
             self.context_size :
         ].astype(np.float32)
 
-    def batches(self, batch_size: int) -> Iterator[tuple]:
+    def batches(self, batch_size: int, shuffle: bool = False) -> Iterator[tuple]:
         """Yield (constants, prescribed, prognostic, target) numpy arrays
-        with a leading batch dim, in item order (the last batch may be
-        short)."""
-        for i in range(0, len(self), batch_size):
-            items = [self[j] for j in range(i, min(i + batch_size, len(self)))]
+        with a leading batch dim (the last batch may be short).
+
+        `shuffle` permutes the windows with the dataset's own generator
+        (`np.random.default_rng(seed)`), so epoch after epoch the order
+        matches the JAX package's index for index."""
+        order = np.arange(len(self))
+        if shuffle:
+            self._rng.shuffle(order)
+        for i in range(0, len(order), batch_size):
+            items = [self[j] for j in order[i : i + batch_size]]
             const = None if items[0][0] is None else np.stack([it[0] for it in items])
             pres = None if items[0][1] is None else np.stack([it[1] for it in items])
             prog = np.stack([it[2] for it in items])

@@ -11,7 +11,9 @@ window, flattened time-major onto channels; each step predicts the residual
 `window[:, -1] + delta`.  Teacher forcing covers the first `context_size`
 frames, the rest is closed-loop.  The JAX package scans the steps with
 `lax.scan`; here they are a Python loop (PyTorch runs eagerly).
-Rematerialisation waits for the training slice.
+With `remat`, each step runs under `torch.utils.checkpoint` (the per-step
+counterpart of `wrap_remat`, `:59-78`): its activations are recomputed in
+the backward pass instead of kept.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+REMAT_POLICIES = ("full",)
 
 
 def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -42,11 +47,29 @@ class RolloutModel(nn.Module):
     `step(x, state[, aux])` maps the assembled input [B, H, W, Cin] to the
     prognostic increment [B, H, W, Cq] and the next model state (None for
     stateless nets).
+
+    `remat=True` rematerialises each rollout step in the backward pass;
+    `remat_policy` "full" saves nothing of the step.  The JAX package's
+    "dots" policies keep matmul outputs and are not ported (ROADMAP
+    queue A, item 3).
     """
 
-    def __init__(self, context_size: int = 1):
+    def __init__(self, context_size: int = 1, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r} is not ported to PyTorch; only "
+                f"{REMAT_POLICIES} (ROADMAP queue A, item 3)"
+            )
         self.context_size = context_size
+        self.remat = bool(remat)
+        self.remat_policy = remat_policy
+
+    def _step(self, x_t: torch.Tensor, state: Any, aux: Any):
+        if aux is None:
+            return self.step(x_t, state)
+        return self.step(x_t, state, aux)
 
     def step(self, x: torch.Tensor, state: Any, aux: Any = None):
         raise NotImplementedError
@@ -77,7 +100,8 @@ class RolloutModel(nn.Module):
 
         window = prog[:, :ctx]
         state = None  # stateful models (ConvLSTM) bring their state when ported
-        aux = self.precompute()
+        aux = self.precompute()  # once per rollout, outside any checkpoint
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for t in range(steps):
             parts = [] if const is None else [const]
@@ -85,10 +109,10 @@ class RolloutModel(nn.Module):
                 parts.append(_flatten_window(pres[:, t : t + ctx]))
             parts.append(_flatten_window(window))
             x_t = torch.cat(parts, dim=-1)
-            if aux is None:
-                delta, state = self.step(x_t, state)
+            if remat:
+                delta, state = checkpoint(self._step, x_t, state, aux, use_reentrant=False)
             else:
-                delta, state = self.step(x_t, state, aux)
+                delta, state = self._step(x_t, state, aux)
             out = window[:, -1] + delta  # residual prediction
             window = torch.cat([window[:, 1:], out[:, None]], dim=1)
             outs.append(out)

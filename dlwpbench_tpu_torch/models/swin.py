@@ -5,8 +5,9 @@
   PRECOMPUTED once per rollout (relative-position bias expanded from its
   table, plus the -100 shift mask on shifted blocks), output Dense.  The
   flash route (`use_flash_attention: true`, or auto for N >= 1024) goes
-  through the hand-written CUDA kernel (`ops/flash_attention.py`); the
-  other route is plain einsum attention, as in the JAX package.
+  through the hand-written CUDA kernels (`ops/flash_attention.py`,
+  differentiable: forward and fused backward); the other route is plain
+  einsum attention, as in the JAX package.
 - SwinBlock: pre-norm attention with cyclic shift (-sh, -sw) before and
   (sh, sw) after, then a tanh-GELU MLP, both residual.
 - PatchMerging between stages (2x2 gather -> LayerNorm -> Linear 4C->2C).
@@ -218,9 +219,11 @@ class SwinTransformer(RolloutModel):
         use_flash_attention: Any = None,
         exact_gelu: bool = False,
         window_size: Optional[Sequence[int]] = None,
+        remat: bool = False,
+        remat_policy: str = "full",
         seed: int = 0,
     ):
-        super().__init__(context_size)
+        super().__init__(context_size, remat, remat_policy)
         if mesh != "equirectangular":
             raise NotImplementedError(
                 f"Swin mesh {mesh!r} is not ported to PyTorch yet (ROADMAP queue A)"

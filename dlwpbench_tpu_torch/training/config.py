@@ -153,6 +153,12 @@ def load_config(
     return _resolve_interpolations(cfg)
 
 
+def save_config(cfg: Config, path: str):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(to_plain(cfg), f, sort_keys=False)
+
+
 def to_plain(obj: Any) -> Any:
     if isinstance(obj, Mapping):
         return {k: to_plain(v) for k, v in obj.items()}

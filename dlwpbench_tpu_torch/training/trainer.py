@@ -1,0 +1,375 @@
+"""Training harness: AdamW + cosine LR, clipping to the LR, accumulation,
+lat-weighted validation, best/last checkpoints.
+
+The port's counterpart of `dlwpbench_tpu/training/trainer.py:36-456,
+463-549` (reference `scripts/train.py:33-503`):
+
+- AdamW(lr, weight_decay) with the epoch's cosine LR set on every param
+  group before the epoch (`inject_hyperparams`, `:121-123`, `:253`).
+  `torch.optim.AdamW` with betas (0.9, 0.999) and eps 1e-8 computes what
+  `optax.adamw` does with its defaults: decoupled decay of every
+  parameter, eps outside the square root;
+- unweighted fp32 MSE training loss over the whole rollout (`:167-173`);
+  latitude-weighted MSE validation per lead time and per channel
+  (`:258-268`);
+- the global gradient norm clipped to the current LR (`:41-45`, `:251-252`);
+- gradient accumulation by splitting the batch into `accum` micro-batches
+  weighted `n_full / B`, plus a remainder chunk weighted `rem / B`
+  (`:214-249`), so accumulation equals the big-batch step;
+- best/last checkpoints every `checkpoint_every` epochs, written by a
+  background thread from a snapshot taken on the calling thread.
+
+PyTorch runs eagerly: a train step is the model's forward, `backward()`
+and `optimizer.step()`, which updates the parameters in place.  The
+diffusion objective, bf16 compute and data parallelism are not ported
+(they raise and name their ROADMAP item).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import threading
+import time
+from typing import Any, Callable, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from dlwpbench_tpu_torch import weights as W
+from dlwpbench_tpu_torch.training.losses import mse_loss
+
+
+def cosine_lr(epoch: int, base_lr: float, total_epochs: int) -> float:
+    """torch CosineAnnealingLR(T_max=total_epochs), eta_min=0."""
+    return base_lr * 0.5 * (1.0 + math.cos(math.pi * epoch / total_epochs))
+
+
+def clip_grads_to(grads: list[torch.Tensor], max_norm) -> torch.Tensor:
+    """Scale `grads` in place so their global norm is at most `max_norm`
+    (torch clip_grad_norm_ semantics, `max_norm / (gnorm + 1e-6)` capped at
+    1); returns the norm before clipping."""
+    gnorm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    )
+    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return gnorm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a checkpoint holds: the model and optimizer (parameters and
+    AdamW moments live there) and the loop counters."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    epoch: int = 0
+    iteration: int = 0
+    best_val_error: float = math.inf
+
+
+class Trainer:
+    """Drives training of a port model on a `WindowedWeatherDataset`."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        learning_rate: float = 1e-3,
+        weight_decay: float = 1e-5,
+        epochs: int = 30,
+        clip_gradients: bool = True,
+        gradient_accumulation_steps: int = 1,
+        lat_weights: np.ndarray | None = None,
+        training_type: str = "regular",
+        compute_dtype: str | None = None,
+    ):
+        if training_type != "regular":
+            raise NotImplementedError(
+                f"training.type {training_type!r} (v-prediction diffusion with EMA) "
+                "is not ported to PyTorch yet (ROADMAP queue A, item 10)"
+            )
+        if compute_dtype not in (None, "float32"):
+            raise NotImplementedError(
+                f"compute_dtype {compute_dtype!r} (bf16 compute over fp32 master "
+                "weights) is not ported to PyTorch yet (ROADMAP queue A, item 5)"
+            )
+        if gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.base_lr = learning_rate
+        self.weight_decay = weight_decay
+        self.epochs = epochs
+        self.clip_gradients = clip_gradients
+        self.accum = gradient_accumulation_steps
+        self.lat_weights = (
+            None if lat_weights is None
+            else torch.as_tensor(np.asarray(lat_weights, np.float32), device=self.device)
+        )
+        # (samples, seconds) per optimizer step: host to device copy, the
+        # step, and a device sync (the rollout's `timings` counterpart)
+        self.timings: list[tuple[int, float]] = []
+
+    # ------------------------------------------------------------------
+    def init(self, params: Optional[Mapping[str, Any]] = None) -> TrainState:
+        """A fresh TrainState on the model's own init, or on a flax
+        parameter tree (`weights.load_flax_params`) when given."""
+        if params is not None:
+            W.load_flax_params(self.model, params)
+        opt = torch.optim.AdamW(
+            self.model.parameters(), lr=self.base_lr, betas=(0.9, 0.999),
+            eps=1e-8, weight_decay=self.weight_decay,
+        )
+        return TrainState(model=self.model, optimizer=opt)
+
+    def n_params(self, state: TrainState) -> int:
+        return sum(p.numel() for p in state.model.parameters())
+
+    def _to_device(self, batch):
+        return tuple(
+            None if x is None else torch.as_tensor(x).to(self.device, non_blocking=True)
+            for x in batch
+        )
+
+    # ------------------------------------------------------------------
+    def _loss(self, const, pres, prog, target) -> torch.Tensor:
+        out = self.model(const, pres, prog)
+        return mse_loss(out.float(), target)
+
+    def train_step(self, state: TrainState, batch, lr: float) -> torch.Tensor:
+        """One optimizer step over `accum` micro-batches (+ remainder);
+        returns the batch loss (a 0-d tensor on the device)."""
+        const, pres, prog, target = batch
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+
+        B = prog.shape[0]
+        n_full = B // self.accum
+        if n_full < 1:
+            raise ValueError(f"batch of {B} is smaller than {self.accum} accumulation steps")
+        chunks = [(i * n_full, (i + 1) * n_full) for i in range(self.accum)]
+        if n_full * self.accum < B:
+            chunks.append((n_full * self.accum, B))
+        total = torch.zeros((), device=self.device)
+        for lo, hi in chunks:
+            part = [None if x is None else x[lo:hi] for x in batch]
+            loss = self._loss(*part)
+            w = (hi - lo) / B  # 1.0 for a single chunk
+            (w * loss).backward()
+            total = total + w * loss.detach()
+
+        for p in params:  # optax decays every parameter, gradient or not
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.clip_gradients:
+            clip_grads_to([p.grad for p in params], lr)
+        state.optimizer.step()
+        return total
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train_epoch(self, state: TrainState, dataset, batch_size: int,
+                    shuffle: bool = True) -> float:
+        lr = cosine_lr(state.epoch, self.base_lr, self.epochs)
+        state.model.train()
+        losses = []
+        for batch in dataset.batches(batch_size, shuffle=shuffle):
+            t0 = time.perf_counter()
+            loss = self.train_step(state, self._to_device(batch), lr)
+            self._sync()
+            self.timings.append((batch[2].shape[0], time.perf_counter() - t0))
+            state.iteration += 1
+            losses.append(loss)
+        state.epoch += 1
+        return float(torch.stack(losses).mean()) if losses else float("nan")
+
+    @torch.no_grad()
+    def validate(self, state: TrainState, dataset, batch_size: int):
+        """(mean loss, per-lead per-channel [T', C] errors), lat-weighted
+        when the trainer has latitude weights."""
+        state.model.eval()
+        tot, n = 0.0, 0
+        per_lead = []
+        for batch in dataset.batches(batch_size):
+            const, pres, prog, target = self._to_device(batch)
+            err = (state.model(const, pres, prog) - target) ** 2
+            if self.lat_weights is not None:
+                err = err * self.lat_weights
+            reduce = (0,) + tuple(range(3, err.ndim))
+            bs = prog.shape[0]
+            tot += float(err.mean()) * bs
+            n += bs
+            per_lead.append(err.mean(dim=reduce).cpu().numpy() * bs)
+        state.model.train()
+        if n == 0:  # empty validation split
+            return float("nan"), np.zeros((0, 0))
+        return tot / n, np.sum(per_lead, axis=0) / n
+
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        state: TrainState,
+        train_ds,
+        val_ds,
+        batch_size: int,
+        val_batch_size: int | None = None,
+        run_dir: str | None = None,
+        model_name: str = "model",
+        verbose: bool = True,
+        on_epoch_end: Optional[Callable] = None,
+        checkpoint_every: int = 1,
+    ) -> TrainState:
+        val_batch_size = val_batch_size or batch_size
+        logger = None
+        if run_dir:
+            from dlwpbench_tpu_torch.utils.logging import RunLogger
+
+            logger = RunLogger(run_dir)
+        ckpt_writer = AsyncCheckpointWriter()
+        best_dirty = False
+        try:
+            while state.epoch < self.epochs:
+                t0 = time.time()
+                train_loss = self.train_epoch(state, train_ds, batch_size)
+                val_loss, per_lead = self.validate(state, val_ds, val_batch_size)
+                epoch_s = time.time() - t0
+                if verbose:
+                    print(
+                        f"epoch {state.epoch:3d}  train {train_loss:.5f}  "
+                        f"val {val_loss:.5f}  ({epoch_s:.1f}s)",
+                        flush=True,
+                    )
+                if logger:
+                    rec = {
+                        "train_loss": train_loss,
+                        "val_loss": val_loss,
+                        "epoch_s": epoch_s,
+                        "lr": cosine_lr(state.epoch - 1, self.base_lr, self.epochs),
+                    }
+                    for t in range(min(per_lead.shape[0], 64) if per_lead.ndim else 0):
+                        rec[f"val_mse/lead_{t+1}"] = float(per_lead[t].mean())
+                    logger.log(rec, step=state.epoch)
+                if run_dir:
+                    # "best" coarsens with the interval: the state written
+                    # is the best known at the interval boundary
+                    if val_loss < state.best_val_error:
+                        state.best_val_error = val_loss
+                        best_dirty = True
+                    at_interval = (
+                        state.epoch % max(1, checkpoint_every) == 0
+                        or state.epoch >= self.epochs
+                    )
+                    if at_interval:
+                        if best_dirty:
+                            ckpt_writer.submit(run_dir, model_name, state, kind="best")
+                            best_dirty = False
+                        ckpt_writer.submit(run_dir, model_name, state, kind="last")
+                if on_epoch_end:
+                    on_epoch_end(state, train_loss, val_loss, per_lead)
+        finally:
+            ckpt_writer.join()  # all checkpoints durable before fit() returns
+            if logger:
+                logger.close()
+        return state
+
+
+# ----------------------------------------------------------------------
+# Checkpointing (reference `utils/utils.py:29-57` + restore `train.py:110-123`)
+# ----------------------------------------------------------------------
+
+
+def _snapshot(obj):
+    """A copy of a state_dict tree whose tensors are detached CPU copies."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, Mapping):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v) for v in obj)
+    return obj
+
+
+def _payload(state: TrainState) -> dict:
+    return {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "epoch": state.epoch,
+        "iteration": state.iteration,
+        "best_val_error": state.best_val_error,
+    }
+
+
+class AsyncCheckpointWriter:
+    """Background checkpoint writes: the reference runs `write_checkpoint`
+    on a thread so the next epoch's compute overlaps checkpoint IO.  One
+    worker at a time: each submit joins the previous write first, so
+    best/last ordering is preserved.
+
+    `optimizer.step()` updates the parameters and moments in place, so a
+    thread that serialised the live tensors could write a later step's
+    values.  `submit` therefore snapshots every tensor as a detached CPU
+    copy on the calling thread, before the writer starts (the counterpart
+    of the JAX writer's copy before buffer donation, `trainer.py:470-496`)."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def submit(self, run_dir: str, name: str, state: TrainState, kind: str):
+        self.join()
+        snap = _snapshot(_payload(state))
+        self._thread = threading.Thread(
+            target=self._write, args=(run_dir, name, snap, kind), daemon=True,
+        )
+        self._thread.start()
+
+    def _write(self, run_dir, name, payload, kind):
+        try:
+            _write_payload(run_dir, name, payload, kind)
+        except BaseException as e:  # re-raised on the caller's thread by join()
+            self._error = e
+
+    def join(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def checkpoint_path(run_dir: str, name: str, kind: str) -> str:
+    return os.path.join(run_dir, "checkpoints", f"{name}_{kind}.ckpt")
+
+
+def _write_payload(run_dir: str, name: str, payload: dict, kind: str):
+    path = checkpoint_path(run_dir, name, kind)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(run_dir: str, name: str, state: TrainState, kind: str = "best") -> TrainState:
+    """Restore a checkpoint into `state`'s model and optimizer (in place,
+    on the model's device); returns the TrainState with the stored
+    counters."""
+    payload = torch.load(checkpoint_path(run_dir, name, kind), map_location="cpu",
+                         weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    return TrainState(
+        model=state.model,
+        optimizer=state.optimizer,
+        epoch=int(payload["epoch"]),
+        iteration=int(payload["iteration"]),
+        best_val_error=float(payload["best_val_error"]),
+    )

@@ -16,7 +16,9 @@ that submodule's type (the inverse of the mapping at
   `relative_position_bias_table_{i}_{d}`) as is.
 
 Every torch parameter must receive exactly one leaf and every leaf must
-land; anything else raises.  Trees travel as `.npz` files whose keys are
+land; anything else raises.  `to_flax_tree` is the inverse: it maps the
+port's parameters, or any same-named tensors such as their gradients,
+back to the flax layout.  Trees travel as `.npz` files whose keys are
 the `/`-joined flax paths (`save_npz` / `load_npz`).
 """
 
@@ -110,3 +112,31 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     if missing:
         raise KeyError(f"torch parameters without a flax leaf: {missing}")
     return model
+
+
+def _to_flax_leaf(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """(flax leaf name, array in flax layout): the inverse of `_convert`."""
+    if not isinstance(module, _LAYERS) or name == "bias":
+        return name, arr
+    if isinstance(module, nn.LayerNorm):
+        return "scale", arr
+    if isinstance(module, nn.Linear):
+        return "kernel", arr.T
+    if isinstance(module, nn.ConvTranspose2d):
+        return "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return "kernel", arr.transpose(2, 3, 1, 0)  # Conv2d OIHW -> HWIO
+
+
+def to_flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor] | None = None
+                 ) -> dict[str, Any]:
+    """The model's parameters (or `tensors`, keyed by the same parameter
+    names, e.g. `{n: p.grad for n, p in model.named_parameters()}`) as a
+    nested flax parameter tree of fp32 numpy arrays."""
+    source = dict(model.named_parameters()) if tensors is None else tensors
+    flat = {}
+    for full, t in source.items():
+        *mod_path, name = full.split(".")
+        module = model.get_submodule(".".join(mod_path))
+        leaf, arr = _to_flax_leaf(module, name, t.detach().float().cpu().numpy())
+        flat["/".join([*mod_path, leaf])] = np.ascontiguousarray(arr)
+    return unflatten_tree(flat)

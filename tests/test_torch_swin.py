@@ -8,7 +8,11 @@ mode on the CPU; the port's wrapper takes its plain version on CPU tensors.
 Tolerance: fp32, atol 1e-4 and rtol 1e-4 over two closed-loop steps.  The
 two sides sum in other orders (online versus two-pass softmax), and flax's
 LayerNorm takes the variance as E[x^2] - E[x]^2 where torch takes it in
-two passes.
+two passes.  Gradients are compared in the JAX layout (`to_flax_tree`),
+per tensor, as max|diff| <= GRAD_TOL * max|grad of that tensor| (fp32
+backward through two closed-loop steps of four blocks: rounding grows
+with depth, and a tensor's small entries carry its largest entry's
+absolute error).
 """
 
 import jax
@@ -22,6 +26,7 @@ from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import swin as tswin
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_TOL = 1e-4
 
 
 def _np_tree(params):
@@ -121,3 +126,92 @@ def test_npz_roundtrip(tmp_path):
     back = weights.load_npz(tmp_path / "w.npz")
     np.testing.assert_array_equal(back["A_0"]["Dense_0"]["kernel"], tree["A_0"]["Dense_0"]["kernel"])
     np.testing.assert_array_equal(back["t"], tree["t"])
+
+
+SMALL = dict(img_height=8, img_width=16, constant_channels=2, prescribed_channels=1,
+             prognostic_channels=3, embed_dim=16, depths=(2, 2), num_heads=(2, 2),
+             use_flash_attention=True)
+
+
+def _small_batch(seed, B=2, T=3):
+    rng = np.random.default_rng(seed)
+    H, W = SMALL["img_height"], SMALL["img_width"]
+    const = rng.standard_normal((B, 1, SMALL["constant_channels"], H, W)).astype(np.float32)
+    pres = rng.standard_normal((B, T, SMALL["prescribed_channels"], H, W)).astype(np.float32)
+    prog = rng.standard_normal((B, T, SMALL["prognostic_channels"], H, W)).astype(np.float32)
+    target = rng.standard_normal((B, T - 1, SMALL["prognostic_channels"], H, W)).astype(np.float32)
+    return const, pres, prog, target
+
+
+def _flat(tree, prefix=""):
+    return weights.flatten_tree(tree, prefix)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_swin_loss_and_grads_match_jax(remat):
+    """Stage 0 is N 128 (the flash panel route); the loss is the trainer's
+    unweighted MSE of the 2-step rollout."""
+    const, pres, prog, target = _small_batch(5)
+    jmodel = jswin.SwinTransformer(**SMALL, remat=remat)
+    params = jmodel.init(jax.random.PRNGKey(3), const, pres, prog)
+
+    def loss_fn(p):
+        return jnp.mean((jmodel.apply(p, const, pres, prog) - target) ** 2)
+
+    j_loss, j_grads = jax.value_and_grad(loss_fn)(params)
+
+    tmodel = tswin.SwinTransformer(**SMALL, remat=remat)
+    assert tmodel.remat is remat
+    weights.load_flax_params(tmodel, _np_tree(params))
+    out = tmodel(*map(torch.from_numpy, (const, pres, prog)))
+    loss = torch.mean((out - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+
+    got = _flat(weights.to_flax_tree(
+        tmodel, {n: p.grad for n, p in tmodel.named_parameters()}))
+    want = _flat(_np_tree(j_grads["params"]))
+    assert set(got) == set(want)
+    for path, g in got.items():
+        w = np.asarray(want[path])
+        assert g.shape == w.shape, path
+        scale = float(np.abs(w).max())
+        assert np.abs(g - w).max() <= GRAD_TOL * max(scale, 1e-6), (
+            path, float(np.abs(g - w).max()), scale)
+
+
+def test_remat_keeps_values_and_grads():
+    """Per-step checkpointing recomputes, it does not change the result."""
+    const, pres, prog, target = map(torch.from_numpy, _small_batch(6))
+    grads = []
+    for remat in (False, True):
+        model = tswin.SwinTransformer(**SMALL, remat=remat, seed=4)
+        loss = torch.mean((model(const, pres, prog) - target) ** 2)
+        loss.backward()
+        grads.append((loss.item(), [p.grad.clone() for p in model.parameters()]))
+    assert grads[0][0] == grads[1][0]
+    for a, b in zip(grads[0][1], grads[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+def test_registry_keeps_remat():
+    from dlwpbench_tpu_torch.models import registry
+
+    cfg = dict(type="SwinTransformer", name="swin", remat=True, **SMALL)
+    model = registry.build_model(cfg)
+    assert model.remat is True and model.remat_policy == "full"
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        registry.build_model({**cfg, "remat_policy": "dots"})
+
+
+def test_to_flax_tree_inverts_the_loader():
+    jmodel = jswin.SwinTransformer(**SMALL)
+    const, pres, prog, _ = _small_batch(7)
+    params = _np_tree(jmodel.init(jax.random.PRNGKey(1), const, pres, prog))
+    tmodel = tswin.SwinTransformer(**SMALL)
+    weights.load_flax_params(tmodel, params)
+    back = _flat(weights.to_flax_tree(tmodel))
+    want = _flat(params["params"])
+    assert set(back) == set(want)
+    for path, arr in back.items():
+        np.testing.assert_array_equal(arr, want[path], err_msg=path)

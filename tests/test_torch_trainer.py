@@ -1,0 +1,241 @@
+"""The port's trainer against the JAX package's, on the CPU.
+
+Both sides start from one JAX init (loaded into the port through
+`load_flax_params`) and take the same numpy batches.  The model is a small
+Swin on a 4x8 grid with plain attention on both sides (the kernels have
+their own tests); what is held here is the trainer: the loss, AdamW, the
+cosine LR, clipping to the LR, accumulation with a remainder, validation,
+checkpoints and the CLI.
+
+Tolerances, fp32:
+- per-step losses: rtol 1e-5 (the forward sums in another order);
+- parameters after 3 steps: max|diff| per tensor under 1e-5 = lr / 100.
+  Adam moves each parameter by about lr a step, so a wrong update to any
+  one tensor (a wrong sign, a missed decay, a skipped leaf) fails.  Adam
+  divides by |g|, and an element whose gradient were at rounding level in
+  both frameworks could move by up to +-lr in either direction; this
+  model has none (the worst tensor differs by 5e-7 after 3 steps), so no
+  element gets that allowance;
+- validation errors per lead and channel: rtol 1e-5.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlwpbench_tpu.data.dataset import WindowedWeatherDataset as JDataset
+from dlwpbench_tpu.models import swin as jswin
+from dlwpbench_tpu.training import trainer as jtr
+from dlwpbench_tpu_torch import weights
+from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset as TDataset
+from dlwpbench_tpu_torch.models import swin as tswin
+from dlwpbench_tpu_torch.training import trainer as ttr
+from dlwpbench_tpu_torch.training.losses import latitude_weights
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(img_height=4, img_width=8, constant_channels=2, prescribed_channels=1,
+           prognostic_channels=2, embed_dim=8, depths=(2, 2), num_heads=(2, 2),
+           use_flash_attention=False)
+LR = 1e-3
+PARAM_ATOL = LR / 100
+
+
+def _arrays(T=64, seed=0):
+    rng = np.random.default_rng(seed)
+    H, W = CFG["img_height"], CFG["img_width"]
+    prog = np.cumsum(0.3 * rng.standard_normal((T, CFG["prognostic_channels"], H, W)),
+                     axis=0).astype(np.float32)
+    pres = rng.standard_normal((T, CFG["prescribed_channels"], H, W)).astype(np.float32)
+    const = rng.standard_normal((CFG["constant_channels"], H, W)).astype(np.float32)
+    return dict(prognostic=prog, prescribed=pres, constants=const, sequence_length=3,
+                context_size=1, seed=4)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _lat_w():
+    h = CFG["img_height"]
+    return latitude_weights(np.linspace(-90 + 180 / h / 2, 90 - 180 / h / 2, h))[:, None]
+
+
+def _pair(accum=1):
+    """(JAX trainer, its state, port trainer, its state) from one init."""
+    jmodel = jswin.SwinTransformer(**CFG)
+    jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=accum,
+                     lat_weights=_lat_w())
+    jds = JDataset(**_arrays())
+    jstate = jt.init(next(iter(jds.batches(1))))
+    tt = ttr.Trainer(tswin.SwinTransformer(**CFG), learning_rate=LR, epochs=5,
+                     gradient_accumulation_steps=accum, lat_weights=_lat_w())
+    tstate = tt.init(params=_np_tree(jstate.params))
+    return jt, jstate, tt, tstate
+
+
+def test_cosine_lr_matches_jax():
+    # JAX takes the cosine in fp32: 1 + cos rounds to ~1e-7 of 2, times
+    # base_lr / 2, so atol 1e-10 absolute beside rtol 1e-6
+    for epoch in (0, 1, 7, 29, 30):
+        np.testing.assert_allclose(ttr.cosine_lr(epoch, 1e-3, 30),
+                                   float(jtr.cosine_lr(epoch, 1e-3, 30)),
+                                   rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("max_norm", [1e-3, 1e3])  # clipping, and none
+def test_clip_grads_to_matches_jax(max_norm):
+    rng = np.random.default_rng(1)
+    grads = [rng.standard_normal(s).astype(np.float32) for s in ((3, 4), (5,), (2, 2, 2))]
+    want, want_norm = jtr.clip_grads_to([jnp.asarray(g) for g in grads], max_norm)
+    ts = [torch.from_numpy(g.copy()) for g in grads]
+    norm = ttr.clip_grads_to(ts, max_norm)
+    np.testing.assert_allclose(norm.item(), float(want_norm), rtol=1e-6)
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=1e-6, atol=1e-12)
+
+
+def test_shuffled_batches_match_jax_index_for_index():
+    jds, tds = JDataset(**_arrays()), TDataset(**_arrays())
+    for _ in range(2):  # two epochs: the generator carries over
+        for jb, tb in zip(jds.batches(4, shuffle=True), tds.batches(4, shuffle=True)):
+            for a, b in zip(jb, tb):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("accum, batch", [(1, 4), (2, 5)], ids=["accum1", "accum2-rem"])
+def test_three_steps_match_jax(accum, batch):
+    jt, jstate, tt, tstate = _pair(accum)
+    ds = TDataset(**_arrays())
+    batches = list(ds.batches(batch))[:3]
+    lr = ttr.cosine_lr(0, LR, 5)
+    params, opt_state = jstate.params, jstate.opt_state
+    j_losses, t_losses = [], []
+    for b in batches:
+        params, opt_state, loss = jt._train_step(
+            params, opt_state, *(None if x is None else jnp.asarray(x) for x in b),
+            jnp.float32(lr), jax.random.PRNGKey(0))
+        j_losses.append(float(loss))
+        t_losses.append(tt.train_step(tstate, tt._to_device(b), lr).item())
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-5)
+
+    got = weights.flatten_tree(weights.to_flax_tree(tstate.model))
+    want = weights.flatten_tree(_np_tree(params["params"]))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        d = np.abs(g - want[path]).max()
+        assert d <= PARAM_ATOL, (path, float(d))
+
+
+def test_validate_matches_jax():
+    jt, jstate, tt, tstate = _pair()
+    ds = TDataset(**{**_arrays(), "sequence_length": 4})
+    jds = JDataset(**{**_arrays(), "sequence_length": 4})
+    j_loss, j_plc = jt.validate(jstate, jds, 5)
+    t_loss, t_plc = tt.validate(tstate, ds, 5)
+    assert t_plc.shape == j_plc.shape == (3, CFG["prognostic_channels"])
+    np.testing.assert_allclose(t_loss, j_loss, rtol=1e-5)
+    np.testing.assert_allclose(t_plc, j_plc, rtol=1e-5)
+
+
+def test_fit_checkpoints_and_resume(tmp_path):
+    ds = TDataset(**_arrays(T=40))
+    tt = ttr.Trainer(tswin.SwinTransformer(**CFG, seed=2), epochs=2)
+    state = tt.init()
+    tt.fit(state, ds, ds, batch_size=4, run_dir=str(tmp_path), model_name="m", verbose=False)
+    assert state.epoch == 2 and state.iteration == 2 * len(list(ds.batches(4)))
+    for kind in ("best", "last"):
+        assert (tmp_path / "checkpoints" / f"m_{kind}.ckpt").exists()
+    assert (tmp_path / "metrics.jsonl").read_text().count("\n") == 2
+
+    tt2 = ttr.Trainer(tswin.SwinTransformer(**CFG, seed=9), epochs=3)
+    restored = ttr.load_checkpoint(str(tmp_path), "m", tt2.init(), kind="last")
+    assert restored.epoch == 2 and np.isfinite(restored.best_val_error)
+    for a, b in zip(restored.model.parameters(), state.model.parameters()):
+        assert torch.equal(a, b)
+    tt2.fit(restored, ds, ds, batch_size=4, run_dir=str(tmp_path), model_name="m",
+            verbose=False)
+    assert restored.epoch == 3
+
+
+def test_submitted_checkpoint_holds_values_before_an_in_place_update(tmp_path):
+    tt = ttr.Trainer(tswin.SwinTransformer(**CFG, seed=1), epochs=1)
+    state = tt.init()
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    writer = ttr.AsyncCheckpointWriter()
+    writer.submit(str(tmp_path), "m", state, kind="last")
+    with torch.no_grad():  # what optimizer.step() does while the thread writes
+        for p in state.model.parameters():
+            p.add_(1.0)
+    writer.join()
+    payload = torch.load(tmp_path / "checkpoints" / "m_last.ckpt", weights_only=True)
+    for n, t in before.items():
+        assert torch.equal(payload["model"][n], t), n
+    # a later submit stores the updated values
+    writer.submit(str(tmp_path), "m", state, kind="best")
+    writer.join()
+    fresh = ttr.Trainer(tswin.SwinTransformer(**CFG, seed=7)).init()
+    restored = ttr.load_checkpoint(str(tmp_path), "m", fresh, kind="best")
+    for n, p in restored.model.named_parameters():
+        assert torch.equal(p, before[n] + 1.0), n
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(training_type="diffusion"), "item 10"),
+    (dict(compute_dtype="bfloat16"), "item 5"),
+])
+def test_out_of_scope_options_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ttr.Trainer(tswin.SwinTransformer(**CFG), **kw)
+
+
+TINY = ["model=swintransformer", "data=synthetic", "data.height=4", "data.width=8",
+        "data.n_time=200", "model.embed_dim=8", "model.depths=[2,2]",
+        "model.num_heads=[2,2]", "training.epochs=1", "training.batch_size=8",
+        "validation.batch_size=4"]
+
+
+def test_cli_trains_on_cpu_without_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import runpy\n"
+        "runpy.run_module('dlwpbench_tpu_torch.train', run_name='__main__')\n"
+    )
+    argv = [*TINY, f"run_dir={tmp_path}", "--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "epoch   1  train" in proc.stdout
+    assert (tmp_path / "config.yaml").exists()
+    for kind in ("best", "last"):
+        assert (tmp_path / "checkpoints" / f"swin_{kind}.ckpt").exists()
+
+
+def test_cli_honours_remat_and_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    from dlwpbench_tpu_torch import train
+
+    built = []
+    real = train.registry.build_model
+    monkeypatch.setattr(train.registry, "build_model",
+                        lambda cfg, **kw: built.append(real(cfg, **kw)) or built[-1])
+    res = train.main([*TINY, f"run_dir={tmp_path}", "training.save_model=false",
+                      "--device", "cpu"])
+    assert built[-1].remat is True
+    assert not (tmp_path / "checkpoints").exists()
+    assert len(res["train_loss"]) == 1 and np.isfinite(res["train_loss"][0])
+    assert len(res["step_seconds"]) > 0
+    train.main([*TINY, f"run_dir={tmp_path}", "model.remat=false", "training.save_model=false",
+                "--device", "cpu"])
+    assert built[-1].remat is False
+    with pytest.raises(NotImplementedError, match="item 16"):
+        train.main([*TINY, f"run_dir={tmp_path}", "training.data_parallel=2", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train.main([*TINY, f"run_dir={tmp_path}"])
