@@ -1,18 +1,22 @@
-"""Swin Transformer with global windows (counterpart of
+"""Swin Transformer on the equirectangular grid (counterpart of
 `dlwpbench_tpu/models/swin.py:41-493`).
 
 - WindowAttention: fused qkv Dense, heads of dim C/nh, a bias per block
   PRECOMPUTED once per rollout (relative-position bias expanded from its
-  table, plus the -100 shift mask on shifted blocks), output Dense.  The
-  flash route (`use_flash_attention: true`, or auto for N >= 1024) goes
-  through the hand-written CUDA kernels (`ops/flash_attention.py`,
-  differentiable: forward and fused backward); the other route is plain
-  einsum attention, as in the JAX package.
+  table, plus the -100 shift mask on shifted blocks), output Dense.  Three
+  routes, chosen as the JAX package chooses them with "on the TPU" read
+  as "on a CUDA device": the token-major route (`use_flash_attention:
+  "packed"`, or auto on the card for many small windows) through the
+  hand-written CUDA kernels of `ops/window_attention.py`; the flash route
+  (`true`, or auto for N >= 1024) through those of
+  `ops/flash_attention.py` (both differentiable: forward and fused
+  backward); otherwise plain einsum attention.
 - SwinBlock: pre-norm attention with cyclic shift (-sh, -sw) before and
   (sh, sw) after, then a tanh-GELU MLP, both residual.
 - PatchMerging between stages (2x2 gather -> LayerNorm -> Linear 4C->2C).
-- Global windows: the window is the whole stage resolution, halving at
-  each PatchMerging.
+- Windows: global by default (the whole stage resolution, halving at
+  each PatchMerging), or fixed local `window_size` clamped to each stage's
+  resolution.
 - PatchEmbed conv k=s=patch (circular-lon pad), ConvTranspose decoder over
   the per-stage normed features with skip concatenation, 1x1 conv head.
 
@@ -21,14 +25,13 @@ Submodules and parameters carry the flax auto-names of the JAX model
 `weights.load_flax_params` maps a flax tree onto them name for name.
 Tokens are [B, H*W, C], H-major, channels-last inside the model.
 
-Not ported yet: the HEALPix variant, fixed local `window_size`, the packed
-small-window kernels, and ring attention over a mesh.
+Not ported yet: the HEALPix variant and ring attention over a mesh
+(`spmd_mesh`, ROADMAP queue A item 16); both raise.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -37,8 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlwpbench_tpu_torch.models.base import RolloutModel
-from dlwpbench_tpu_torch.models.fourcastnet import Mlp, trunc_normal_init
+from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
+from dlwpbench_tpu_torch.ops.window_attention import window_attention_qkv
 
 
 def window_partition(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
@@ -86,26 +90,45 @@ def expand_relative_bias(table: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
 
 class WindowAttention(nn.Module):
     """Window attention on a precomputed bias: [nh, N, N] (shared) or
-    [G, nh, N, N] selected as window = b % G."""
+    [G, nh, N, N] selected as window = b % G.
+
+    `use_flash`: None = auto (token-major kernel on the card when
+    N < 1024, hd % 8 == 0 and B_ >= 64; flash for N >= 1024; einsum
+    otherwise), True / False force flash / einsum, "packed" forces the
+    token-major route."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Any = None):
         super().__init__()
-        if use_flash not in (None, True, False):
-            raise NotImplementedError(
-                f"use_flash={use_flash!r}: the packed small-window kernels are not "
-                "ported to PyTorch yet (ROADMAP queue B)"
-            )
+        if use_flash not in (None, True, False, "packed"):
+            raise ValueError(f"use_flash={use_flash!r}: take None, True, False or 'packed'")
         self.num_heads = num_heads
         self.use_flash = use_flash
         self.Dense_0 = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.Dense_1 = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                n_windows: Optional[int] = None) -> torch.Tensor:
+        """x [B_, N, C] with B_ = sample * nW + window; `n_windows` is nW,
+        which the token-major route needs when the bias is shared."""
         B_, N, C = x.shape
         nh = self.num_heads
         hd = C // nh
-        qkv = self.Dense_0(x).reshape(B_, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        qkv_raw = self.Dense_0(x)
+        packed = self.use_flash == "packed" or (
+            self.use_flash is None and x.is_cuda and N < 1024 and hd % 8 == 0 and B_ >= 64
+        )
+        if packed:
+            # the kernel reads the Dense output as is; the bias arrives
+            # query-major and the kernel wants it key-major
+            gb = bias if bias.ndim == 4 else bias[None]
+            nW = gb.shape[0] if gb.shape[0] > 1 else (n_windows or 1)
+            out = window_attention_qkv(
+                qkv_raw.reshape(B_ // nW, 1, nW, N, 3 * C),
+                gb.transpose(-1, -2).contiguous(), None, nh,
+            )
+            return self.Dense_1(out.reshape(B_, N, C))
+        qkv = qkv_raw.reshape(B_, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # [B_, nh, N, hd]
         flash = self.use_flash is True or (self.use_flash is None and N >= 1024)
         if flash and hd % 8 == 0:
@@ -126,7 +149,7 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: tuple[int, int],
                  shift: tuple[int, int], mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, use_flash: Optional[bool] = None,
+                 qkv_bias: bool = True, use_flash: Any = None,
                  exact_gelu: bool = False):
         super().__init__()
         self.window = tuple(window)
@@ -155,7 +178,8 @@ class SwinBlock(nn.Module):
 
         if sh or sw:
             x = torch.roll(x, (-sh, -sw), dims=(1, 2))
-        win = self.WindowAttention_0(window_partition(x, wh, ww), bias)
+        win = self.WindowAttention_0(window_partition(x, wh, ww), bias,
+                                     n_windows=(Hp // wh) * (Wp // ww))
         x = window_reverse(win, wh, ww, Hp, Wp)
         if sh or sw:
             x = torch.roll(x, (sh, sw), dims=(1, 2))
@@ -186,16 +210,11 @@ def _nchw(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
-    """flax's default conv init: variance 1/fan_in, normal truncated at
-    +-2 std (std corrected for the truncation)."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
 class SwinTransformer(RolloutModel):
     """Reference `SwinTransformer` (config `type: SwinTransformer`) on the
-    equirectangular grid with global windows.  `seed` seeds the random
+    equirectangular grid, with global windows (`window_size` None, the
+    reference's) or fixed local ones.  `use_flash_attention` routes every
+    stage, or each stage with a per-stage tuple.  `seed` seeds the random
     init (a `torch.Generator`); weights from the JAX model come in through
     `weights.load_flax_params`."""
 
@@ -222,16 +241,19 @@ class SwinTransformer(RolloutModel):
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,
+        spmd_mesh: Any = None,
     ):
         super().__init__(context_size, remat, remat_policy)
         if mesh != "equirectangular":
             raise NotImplementedError(
-                f"Swin mesh {mesh!r} is not ported to PyTorch yet (ROADMAP queue A)"
+                f"Swin mesh {mesh!r} is not ported to PyTorch yet (ROADMAP queue A, item 11)"
             )
-        if window_size is not None:
+        if spmd_mesh is not None:
             raise NotImplementedError(
-                "fixed local Swin windows are not ported to PyTorch yet (ROADMAP queue A)"
+                "ring attention over a mesh (spmd_mesh) is not ported to PyTorch yet "
+                "(ROADMAP queue A, item 16)"
             )
+        self.window_size = None if window_size is None else tuple(int(w) for w in window_size)
         self.img_height, self.img_width = int(img_height), int(img_width)
         self.patch_size = p = int(patch_size)
         self.prognostic_channels = int(prognostic_channels)
@@ -284,45 +306,28 @@ class SwinTransformer(RolloutModel):
             in_ch = ch if idx == 0 else 2 * ch
             setattr(self, f"ConvTranspose_{idx}", nn.ConvTranspose2d(in_ch, out_ch, k, stride=k))
         self.Conv_1 = nn.Conv2d(E, self.prognostic_channels, 1)
-        self.reset_parameters(torch.Generator().manual_seed(int(seed)))
-
-    def reset_parameters(self, generator: torch.Generator):
-        """Random init with the JAX model's distributions: trunc-normal 0.02
-        for Dense kernels and bias tables, lecun-normal for convs, zero
-        biases, unit LayerNorm scales."""
-        trunc = trunc_normal_init()
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    trunc(m.weight, generator)
-                elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                    kh, kw = m.kernel_size
-                    cin = m.in_channels
-                    _lecun_normal_(m.weight, kh * kw * cin, generator)
-                elif isinstance(m, nn.LayerNorm):
-                    m.weight.fill_(1.0)
-                else:
-                    continue
-                if m.bias is not None:
-                    m.bias.zero_()
-            for name, prm in self.named_parameters(recurse=False):
-                trunc(prm, generator)  # bias tables and the pos embed
+        init_like_flax_(self, torch.Generator().manual_seed(int(seed)))
 
     def _stage_plan(self):
-        """Static per-stage geometry: global windows at each resolution."""
+        """Static per-stage geometry: global windows at each resolution, or
+        the fixed local windows clamped to it."""
         p = self.patch_size
         H = -(-self.img_height // p)
         W = -(-self.img_width // p)
-        wh, ww = H, W
+        res_h, res_w = H, W
         plan = []
         for i in range(len(self.depths)):
+            if self.window_size is not None:
+                wh, ww = min(self.window_size[0], res_h), min(self.window_size[1], res_w)
+            else:
+                wh, ww = res_h, res_w
             pad_b = (wh - H % wh) % wh
             pad_r = (ww - W % ww) % ww
             plan.append(dict(H=H, W=W, Hp=H + pad_b, Wp=W + pad_r, wh=wh, ww=ww,
                              shift=(wh // 2, ww // 2)))
             if i < len(self.depths) - 1:
                 H, W = (H + 1) // 2, (W + 1) // 2
-                wh, ww = wh // 2, ww // 2
+                res_h, res_w = res_h // 2, res_w // 2
         return plan
 
     def precompute(self) -> dict[str, torch.Tensor]:
@@ -367,7 +372,7 @@ class SwinTransformer(RolloutModel):
         if self.ape:
             x = x + self.absolute_pos_embed.reshape(1, Wh * Ww, E)
 
-        # encoder stages with global windows, halving the resolution
+        # encoder stages, halving the resolution
         n = len(self.depths)
         feats = []
         blk = 0

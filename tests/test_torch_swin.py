@@ -215,3 +215,67 @@ def test_to_flax_tree_inverts_the_loader():
     assert set(back) == set(want)
     for path, arr in back.items():
         np.testing.assert_array_equal(arr, want[path], err_msg=path)
+
+
+LOCAL = dict(SMALL, use_flash_attention=None, window_size=(4, 4))
+
+
+@pytest.mark.parametrize("route", [None, "packed", ("packed", None)],
+                         ids=["einsum", "token-major", "per-stage"])
+def test_local_window_swin_matches_jax(route):
+    """Fixed (4, 4) windows at 8x16: 8 windows of N 16 at stage 0 and 2 at
+    stage 1, shared bias on unshifted blocks and the folded shift mask on
+    shifted ones.  JAX takes its einsum route (its CPU default); the port
+    its einsum or token-major route (the kernel's plain version), or one
+    per stage."""
+    const, pres, prog, target = _small_batch(8)
+    jmodel = jswin.SwinTransformer(**LOCAL)
+    params = jmodel.init(jax.random.PRNGKey(2), const, pres, prog)
+
+    def loss_fn(p):
+        return jnp.mean((jmodel.apply(p, const, pres, prog) - target) ** 2)
+
+    j_loss, j_grads = jax.value_and_grad(loss_fn)(params)
+    want = np.asarray(jmodel.apply(params, const, pres, prog))
+
+    tmodel = tswin.SwinTransformer(**{**LOCAL, "use_flash_attention": route})
+    assert [(st["wh"], st["ww"]) for st in tmodel.plan] == [(4, 4), (4, 4)]
+    weights.load_flax_params(tmodel, _np_tree(params))
+    out = tmodel(*map(torch.from_numpy, (const, pres, prog)))
+    np.testing.assert_allclose(out.detach().numpy(), want, **TOL)
+    loss = torch.mean((out - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    got = _flat(weights.to_flax_tree(tmodel, {n: p.grad for n, p in tmodel.named_parameters()}))
+    want_g = _flat(_np_tree(j_grads["params"]))
+    assert set(got) == set(want_g)
+    for path, g in got.items():
+        w = np.asarray(want_g[path])
+        scale = float(np.abs(w).max())
+        assert np.abs(g - w).max() <= GRAD_TOL * max(scale, 1e-6), (path, scale)
+
+
+def test_local_windows_clamp_to_the_stage_resolution():
+    model = tswin.SwinTransformer(**{**LOCAL, "window_size": (8, 8)})
+    assert [(st["wh"], st["ww"], st["shift"]) for st in model.plan] == [
+        (8, 8, (4, 4)), (4, 8, (2, 4))]
+
+
+def test_per_stage_route_reaches_the_token_major_wrapper(monkeypatch):
+    calls = []
+    real = tswin.window_attention_qkv
+    monkeypatch.setattr(tswin, "window_attention_qkv",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    model = tswin.SwinTransformer(**{**LOCAL, "use_flash_attention": (None, "packed")})
+    const, pres, prog, _ = _small_batch(9, T=2)
+    with torch.no_grad():
+        model(*map(torch.from_numpy, (const, pres, prog)))
+    # stage 1 only: 2 blocks, [B, 1, nW, N, 3C] with 2 windows of 16 tokens
+    assert calls == [torch.Size([2, 1, 2, 16, 96])] * 2
+
+
+def test_out_of_scope_options_raise():
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tswin.SwinTransformer(**SMALL, spmd_mesh=object())
+    with pytest.raises(ValueError, match="use_flash"):
+        tswin.SwinTransformer(**{**SMALL, "use_flash_attention": "ring"})

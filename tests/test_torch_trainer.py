@@ -239,3 +239,26 @@ def test_cli_honours_remat_and_refuses_what_is_not_ported(tmp_path, monkeypatch)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main([*TINY, f"run_dir={tmp_path}"])
+
+
+PANGU_TINY = ["model=panguweather", "data=synthetic", "data.height=8", "data.width=16",
+              "data.n_time=120", "model.embed_dim=16", "model.num_heads=[1,2,2,1]",
+              "model.window_size=[2,3,4]", "training.epochs=1", "training.batch_size=8",
+              "validation.batch_size=4", "validation.sequence_length=3"]
+
+
+def test_cli_trains_pangu_on_cpu_without_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import runpy\n"
+        "runpy.run_module('dlwpbench_tpu_torch.train', run_name='__main__')\n"
+    )
+    argv = [*PANGU_TINY, f"run_dir={tmp_path}", "--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "Model pangu has" in proc.stdout and "epoch   1  train" in proc.stdout
+    for kind in ("best", "last"):
+        assert (tmp_path / "checkpoints" / f"pangu_{kind}.ckpt").exists()
