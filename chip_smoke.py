@@ -15,11 +15,13 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
    must agree bit for bit), and times the kernel, the plain version, the
    least time the card could take (`bound_ms`) and one PyTorch library
    call computing the same function (`library_ms`, a yardstick the port
-   never calls);
-4. five paths at the shipped widths (32x64 synthetic grid, fp32, seeded
-   random weights), each with every launch counter set to 0 just before
-   and read just after, and the counts the port's routing rule derives
-   from the model's geometry and the batch sizes asserted exactly:
+   never calls); the packed kernel (B5) also against the 5D window kernel
+   on one Pangu stage-1 field, shifted and unshifted;
+4. six paths, each with every launch counter set to 0 just before and
+   read just after and the counts asserted exactly; five at the shipped
+   widths (32x64 synthetic grid, fp32, seeded random weights), with the
+   counts the port's routing rule derives from the model's geometry and
+   the batch sizes (no model routes to B5, so it launches 0 times there):
    - Swin evaluate: `python -m dlwpbench_tpu_torch.evaluate
      model=swintransformer data=synthetic` at batch 32, 16-step rollouts
      (flash forward); finite forecasts, the card against the CPU on 2
@@ -36,6 +38,10 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
    - swin_win8 train: `model.window_size=[8,8]
      model.use_flash_attention=null` for 1 epoch (the token-major
      window-attention kernels);
+   - the packed path: B5's public `packed_window_attention` has no model
+     caller, so three emulated Pangu attention steps at batch 32 drive it,
+     forward and backward at each of the shipped Pangu's 16 blocks' shapes
+     (48 launches each way, 0 of every other kernel);
 5. the card line, the `kernels` line and, last, `{"ok": true, ...}`.
 
 Every time printed stands beside the card's name and power limit.
@@ -324,6 +330,19 @@ def _window_dims(layout, shape, win):
     return B, L, nW, N, C3 // 3
 
 
+def _block_mask(lead, nW, N):
+    """[lead, nW, N, N] symmetric {0, -100} masks on the card, a different
+    cut per (l, w)."""
+    import torch
+
+    mask = torch.zeros(lead, nW, N, N, device="cuda")
+    for lo in range(lead):
+        for w in range(nW):
+            cut = (lo + w + 1) * N // (lead + nW + 1)
+            mask[lo, w, :cut, cut:] = mask[lo, w, cut:, :cut] = -100.0
+    return mask
+
+
 def _window_inputs(layout, shape, nh, win, bias_kind, mask_kind, dtype, gen):
     """qkv, key-major bias, mask (or None) and dO on the card: the models'
     own biases and shift masks where the case names them."""
@@ -350,12 +369,8 @@ def _window_inputs(layout, shape, nh, win, bias_kind, mask_kind, dtype, gen):
         groups = torch.as_tensor(shift_window_groups_3d(tuple(shape[1:4]), win,
                                                         tuple(w // 2 for w in win)), device="cuda")
         mask = torch.where(groups[:, :, None, :] != groups[:, :, :, None], -100.0, 0.0)
-    elif mask_kind == "block":  # symmetric, a different cut per (l, w)
-        mask = torch.zeros(L, nW, N, N, device="cuda")
-        for lo in range(L):
-            for w in range(nW):
-                cut = (lo + w + 1) * N // (L + nW + 1)
-                mask[lo, w, :cut, cut:] = mask[lo, w, cut:, :cut] = -100.0
+    elif mask_kind == "block":
+        mask = _block_mask(L, nW, N)
     dout = randn(*shape[:-1], C)
     return [None if t is None else t.to(dtype).contiguous() for t in (qkv, bias, mask, dout)]
 
@@ -486,10 +501,233 @@ def check_window(card: str):
     return checks
 
 
+# ---------------------------------------------------------------- packed window attention
+PANGU_WIN = (2, 6, 12)
+PANGU_SHIFT = (1, 3, 6)
+# (label, BW, nh, N, D, nW, bias kind, mask kind, nLon or the padded field
+# of the shift mask): Pangu's earth attention at batch 32 (BW = 32 x nLon x
+# nW), the round-2 shape, and a random asymmetric mask shared by the windows.
+PACKED_CASES = [
+    ("pangu stage1 shifted", 32 * 6 * 6, 6, 144, 32, 6, "earth", "pangu-shift", (2, 36, 72)),
+    ("pangu stage1", 32 * 6 * 6, 6, 144, 32, 6, "earth", None, None),
+    ("pangu stage2 shifted", 32 * 3 * 3, 12, 144, 32, 3, "earth", "pangu-shift", (2, 18, 36)),
+    ("round-2 N72 hd16", 32 * 3 * 2, 3, 72, 16, 2, "random", "block", 3),
+    ("asymmetric mask N100 hd24", 32 * 4 * 4, 4, 100, 24, 4, "random", "random", 4),
+]
+# Tolerances.  out: fp32 sums over <= 144 keys in another order (absolute;
+# |out| < 5), bf16 one rounding of the fp32 result (a share of max|ref|).
+# lse fp32 on both sides.  Backward, a share of max|ref| per output: fp32
+# sums over <= 144 keys and, for dbias, <= 192 problems in other orders;
+# bf16 one rounding.
+PACKED_TOL = {"float32": {"out": 5e-5, "lse": 5e-5, "bwd": 1e-5},
+              "bfloat16": {"out": 1e-2, "lse": 5e-5, "bwd": 1e-2}}
+
+
+def _earth_bias(nW, nh, gen):
+    """A query-major [nW, nh, N, N] bias for Pangu's window, expanded from a
+    random earth-position table as the model expands its own."""
+    import torch
+
+    from dlwpbench_tpu_torch.models.pangu import expand_earth_bias
+
+    wpl, wlat, wlon = PANGU_WIN
+    table = torch.randn(wpl**2 * wlat**2 * (2 * wlon - 1), nW, nh, device="cuda", generator=gen)
+    return expand_earth_bias(table, PANGU_WIN).transpose(-1, -2)
+
+
+def _packed_inputs(BW, nh, N, D, nW, bias_kind, mask_kind, mask_arg, dtype, gen):
+    """q, k, v, query-major bias, mask (or None) and dO on the card."""
+    import torch
+
+    from dlwpbench_tpu_torch.models.pangu import shift_window_mask
+
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    q, k, v, do = (randn(BW, nh, N, D) for _ in range(4))
+    bias = _earth_bias(nW, nh, gen) if bias_kind == "earth" else randn(nW, nh, N, N)
+    mask = None
+    if mask_kind == "pangu-shift":
+        mask = torch.as_tensor(shift_window_mask(mask_arg, PANGU_WIN, PANGU_SHIFT), device="cuda")
+    elif mask_kind == "block":
+        mask = _block_mask(mask_arg, nW, N)
+    elif mask_kind == "random":  # asymmetric, window axis 1
+        mask = 2.0 * randn(mask_arg, 1, N, N)
+        assert not torch.equal(mask, mask.transpose(-1, -2))
+    return [None if t is None else t.to(dtype).contiguous() for t in (q, k, v, bias, mask, do)]
+
+
+def _packed_bound(BW, nh, N, D, nW, mask_shape, dname, backward=False):
+    """(bound ms, what bounds it, FLOPs, bytes): each input read once and
+    each output written once.  Forward: QK^T and PV; q, k, v, bias, mask
+    read, out and lse written.  Backward: QK^T, dP, dV, dK, dQ; q, k, v,
+    out, dO, lse, bias, mask read, dq, dk, dv, dbias written."""
+    item = 4 if dname == "float32" else 2
+    head_b = BW * nh * N * D * item
+    bias_b = nW * nh * N * N * item
+    mask_b = 0 if mask_shape is None else mask_shape[0] * mask_shape[1] * N * N * item
+    if backward:
+        flops = 10 * BW * nh * N * N * D
+        nbytes = 8 * head_b + BW * nh * N * 4 + 2 * bias_b + mask_b
+    else:
+        flops = 4 * BW * nh * N * N * D
+        nbytes = 4 * head_b + BW * nh * N * 4 + bias_b + mask_b
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def _packed_sdpa_mask(bias, mask, BW):
+    """bias[p % nW] + mask[(p // nW) % nLon, p % nW or 0] as one [BW, nh, N,
+    N] float mask: `scaled_dot_product_attention` computes B5's function
+    with it (the yardstick)."""
+    import torch
+
+    nW, nh, N, _ = bias.shape
+    full = bias[None].expand(BW // nW, nW, nh, N, N)
+    if mask is not None:
+        lon = torch.arange(BW // nW, device=bias.device) % mask.shape[0]
+        full = full + mask[lon][:, :, None]
+    return full.reshape(BW, nh, N, N).contiguous()
+
+
+def check_packed(card: str):
+    """B5's forward and backward kernels against their plain versions,
+    fp32 and bf16, with repeat determinism and timings."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlwpbench_tpu_torch.ops import packed_attention as pk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    checks, failures = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = PACKED_TOL[dname]
+        for label, BW, nh, N, D, nW, bias_kind, mask_kind, mask_arg in PACKED_CASES:
+            q, k, v, bias, mask, do = _packed_inputs(BW, nh, N, D, nW, bias_kind, mask_kind,
+                                                     mask_arg, dtype, gen)
+            out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+            got = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
+            again = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
+            torch.cuda.synchronize()
+            identical = all(torch.equal(a, b) for a, b in zip(got, again))
+            f32 = [None if t is None else t.float() for t in (q, k, v, bias, mask)]
+            p_out, p_lse = pk.packed_window_attention_plain(*f32)
+            ref = pk.packed_window_attention_bwd_plain(*f32, out.float(), lse, do.float())
+            errs = {"out": (out.float() - p_out).abs().max().item(),
+                    "lse": (lse - p_lse).abs().max().item()}
+            out_scale = 1.0 if dname == "float32" else p_out.abs().max().item()
+            ok = identical and errs["out"] <= tol["out"] * out_scale \
+                and errs["lse"] <= tol["lse"] * max(1.0, p_lse.abs().max().item())
+            for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+                errs[name] = (a.float() - r).abs().max().item()
+                errs[name + "_ref_max"] = r.abs().max().item()
+                ok = ok and errs[name] <= tol["bwd"] * errs[name + "_ref_max"]
+            del again, ref, p_out, p_lse, f32
+            args = (q, k, v, bias, mask)
+            ms = cuda_ms(lambda: pk.packed_window_attention_fwd(*args), 20)
+            bwd_ms = cuda_ms(lambda: pk.packed_window_attention_bwd(*args, out, lse, do), 10)
+            plain_ms = cuda_ms(lambda: pk.packed_window_attention_plain(*args), 3)
+            plain_bwd_ms = cuda_ms(lambda: pk.packed_window_attention_bwd_plain(*args, out, lse, do), 3)
+            full = _packed_sdpa_mask(bias, mask, BW)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=full), 10)
+            lib_bwd = _sdpa_backward(q, k, v, full, 1, 1)
+            library_bwd_ms = cuda_ms(lib_bwd, 10)
+            del lib_bwd, full
+            mshape = None if mask is None else tuple(mask.shape)
+            geo = (BW, nh, N, D, nW, mshape, dname)
+            bound_ms, bound_by, flops, nbytes = _packed_bound(*geo)
+            bwd_bound_ms, bwd_bound_by, bwd_flops, bwd_bytes = _packed_bound(*geo, backward=True)
+            rec = dict(case=label, dtype=dname, q=[BW, nh, N, D], bias=list(bias.shape),
+                       mask=mshape, errors=errs, fwd_max_abs_err=max(errs["out"], errs["lse"]),
+                       bwd_max_abs_err=max(errs[n] for n in ("dq", "dk", "dv", "dbias")),
+                       tol=tol, bit_identical=identical, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                       bytes=nbytes, bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+                       library_bwd_ms=library_bwd_ms, bwd_bound_ms=bwd_bound_ms,
+                       bwd_bound_by=bwd_bound_by, bwd_flops=bwd_flops, bwd_bytes=bwd_bytes)
+            checks.append(rec)
+            print(
+                f"packed_window_attention {dname} {label} q[{BW},{nh},{N},{D}] "
+                f"bias{list(bias.shape)} mask{list(mshape) if mshape else None}: max|diff| out "
+                f"{errs['out']:.3e} lse {errs['lse']:.3e} "
+                + " ".join(f"{n} {errs[n]:.3e}/{errs[n + '_ref_max']:.3e}"
+                           for n in ("dq", "dk", "dv", "dbias"))
+                + f" (tol {tol}), two backward calls {'bit-identical' if identical else 'DIFFER'} "
+                f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
+                f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {flops / ms / 1e9:.1f} "
+                f"TFLOP/s); backward kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f}, sdpa bwd "
+                f"(q, k, v, mask) {library_bwd_ms:.4f}, bound {bwd_bound_ms:.4f} ({bwd_bound_by}, "
+                f"{bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s) [{card}]"
+            )
+            if not ok:
+                failures.append(f"packed_window_attention {dname} {label}")
+            del q, k, v, bias, mask, do, out, lse, got, args
+            torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"packed kernels disagree with their plain versions: {failures}")
+    return checks
+
+
+def check_packed_vs_5d(card: str):
+    """Two hand-written kernels of one function: B5 on the partitioned q,
+    k, v of a seeded Pangu stage-1 field against `window_attention_qkv5d`
+    on the field, shifted and unshifted, fp32, forward and backward."""
+    import torch
+
+    from dlwpbench_tpu_torch.models.pangu import shift_window_mask
+    from dlwpbench_tpu_torch.ops import packed_attention as pk
+    from dlwpbench_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    (B, Pl, Lat, Lon, C3), nh, win = (EVAL_BATCH, 2, 36, 72, 576), 6, PANGU_WIN
+    C, hd = C3 // 3, C3 // 3 // nh
+    nLon, nW, N = Lon // win[2], (Pl // win[0]) * (Lat // win[1]), win[0] * win[1] * win[2]
+    tol = PACKED_TOL["float32"]
+
+    def heads(x, parts):  # [B, Pl, Lat, Lon, parts*C] -> parts x [BW, nh, N, hd]
+        t = wa.partition_windows_5d(x, win).reshape(B, nLon, nW, N, parts, nh, hd)
+        return t.permute(4, 0, 1, 2, 5, 3, 6).reshape(parts, B * nLon * nW, nh, N, hd)
+
+    def field(*ts):  # the inverse of `heads`
+        t = torch.stack(ts).reshape(len(ts), B, nLon, nW, nh, N, hd)
+        t = t.permute(1, 2, 3, 5, 0, 4, 6).reshape(B, nLon, nW, N, len(ts) * C)
+        return wa.reverse_windows_5d(t, win, Pl, Lat, Lon)
+
+    for shifted in (True, False):
+        qkv5 = torch.randn(B, Pl, Lat, Lon, C3, device="cuda", generator=gen)
+        dout5 = torch.randn(B, Pl, Lat, Lon, C, device="cuda", generator=gen)
+        bias = _earth_bias(nW, nh, gen).contiguous()
+        mask = (torch.as_tensor(shift_window_mask((Pl, Lat, Lon), win, PANGU_SHIFT), device="cuda")
+                if shifted else None)
+        bias_km = bias.transpose(-1, -2).contiguous()
+        out5, lse5 = wa.window_attention_qkv5d_fwd(qkv5, bias_km, mask, nh, win)
+        dqkv5, dbias5 = wa.window_attention_qkv5d_bwd(qkv5, bias_km, mask, out5, lse5, dout5, win)
+        q, k, v = (t.contiguous() for t in heads(qkv5, 3))
+        out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+        dq, dk, dv, dbias = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse,
+                                                           heads(dout5, 1)[0].contiguous())
+        torch.cuda.synchronize()
+        pairs = {"out": (field(out), out5), "lse": (lse.reshape(lse5.shape), lse5),
+                 "dqkv": (field(dq, dk, dv), dqkv5), "dbias": (dbias.transpose(-1, -2), dbias5)}
+        errs = {n: (a - b).abs().max().item() for n, (a, b) in pairs.items()}
+        limits = {"out": tol["out"], "lse": tol["lse"] * max(1.0, lse5.abs().max().item()),
+                  "dqkv": tol["bwd"] * dqkv5.abs().max().item(),
+                  "dbias": tol["bwd"] * dbias5.abs().max().item()}
+        ok = all(errs[n] <= limits[n] for n in errs)
+        print(f"packed vs 5D: Pangu stage 1 {'shifted' if shifted else 'unshifted'} qkv5"
+              f"[{B},{Pl},{Lat},{Lon},{C3}] nh {nh}, fp32: max|B5 - 5D| "
+              + " ".join(f"{n} {errs[n]:.3e} (limit {limits[n]:.3e})" for n in errs)
+              + f" {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise SystemExit("the packed kernel disagrees with the 5D window kernel")
+        del qkv5, dout5, out5, lse5, dqkv5, dbias5, q, k, v, out, lse, dq, dk, dv, dbias, pairs
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- expected launches
 def counters_of():
     """Every kernel wrapper's launch counter, by kernel name."""
     from dlwpbench_tpu_torch.ops import flash_attention as fa
+    from dlwpbench_tpu_torch.ops import packed_attention as pk
     from dlwpbench_tpu_torch.ops import window_attention as wa
 
     return {"flash_window_attention": fa.flash_window_attention_fwd,
@@ -497,7 +735,9 @@ def counters_of():
             "window_attention_qkv": wa.window_attention_qkv_fwd,
             "window_attention_qkv_bwd": wa.window_attention_qkv_bwd,
             "window_attention_qkv5d": wa.window_attention_qkv5d_fwd,
-            "window_attention_qkv5d_bwd": wa.window_attention_qkv5d_bwd}
+            "window_attention_qkv5d_bwd": wa.window_attention_qkv5d_bwd,
+            "packed_window_attention": pk.packed_window_attention_fwd,
+            "packed_window_attention_bwd": pk.packed_window_attention_bwd}
 
 
 def step_calls(model, B: int) -> dict:
@@ -825,6 +1065,83 @@ def profile_train_step(cfg, train_ds, card: str):
                    "(2-step rollout, remat, backward, AdamW)", wall_us, card, 12)
 
 
+# ---------------------------------------------------------------- the packed path
+PACKED_STEPS = 3
+
+
+def run_packed_path(card: str):
+    """Three emulated Pangu attention steps at batch 32 through the public
+    `packed_window_attention`: in each, forward and backward at every one
+    of the shipped Pangu's 16 blocks' shapes (from its own block plan), the
+    shift mask on the odd blocks of each layer and none on the even, and the
+    query-major bias expanded from a per-block earth-position table, as the
+    model expands its own.  Every counter is set to 0 just before and read
+    just after; B5 must launch once per block and step each way and no
+    other kernel at all."""
+    import torch
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.models.pangu import expand_earth_bias, shift_window_mask
+    from dlwpbench_tpu_torch.ops import packed_attention as pk
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=PANGU_TRAIN_ARGV)
+    model = registry.build_model(cfg.model)  # its geometry only
+    win = model.window_size
+    N = win[0] * win[1] * win[2]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    blocks = []
+    for blk in model._block_plan():
+        pad = blk["pad_res"]
+        nW, nLon = (pad[0] // win[0]) * (pad[1] // win[1]), pad[2] // win[2]
+        nh, hd = blk["heads"], blk["dim"] // blk["heads"]
+        BW = EVAL_BATCH * nLon * nW
+        mask = None
+        if blk["shift"]:
+            shift = tuple(w // 2 for w in win)
+            mask = torch.as_tensor(shift_window_mask(pad, win, shift), device="cuda")
+        leaves = [randn(BW, nh, N, hd).requires_grad_() for _ in range(3)]
+        table = randn(win[0] ** 2 * win[1] ** 2 * (2 * win[2] - 1), nW, nh).requires_grad_()
+        blocks.append((leaves, table, mask, randn(BW, nh, N, hd)))
+    del model
+    leaves_all = [t for lv, table, _, _ in blocks for t in (*lv, table)]
+
+    counters = counters_of()
+    for fn in counters.values():
+        fn.launches = 0
+    step_s = []
+    for _ in range(PACKED_STEPS):
+        for t in leaves_all:
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [pk.packed_window_attention(
+                    *lv, expand_earth_bias(table, win).transpose(-1, -2).contiguous(), mask)
+                for lv, table, mask, _ in blocks]
+        torch.autograd.backward(outs, [g for *_, g in blocks])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        del outs
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    per_step = len(blocks)
+    want = {name: 0 for name in counters}
+    want["packed_window_attention"] = want["packed_window_attention_bwd"] = per_step * PACKED_STEPS
+    shifted = sum(m is not None for _, _, m, _ in blocks)
+    finite = all(torch.isfinite(t.grad).all().item() for t in leaves_all)
+    print(f"packed path: {PACKED_STEPS} emulated Pangu attention steps at batch {EVAL_BATCH}, "
+          f"forward + backward through packed_window_attention at each of {per_step} blocks "
+          f"({shifted} with the shift mask), fp32: step seconds "
+          f"{[round(s, 4) for s in step_s]}, steady-state {sum(step_s[1:]) / len(step_s[1:]):.4f} "
+          f"s per step; gradients finite {finite} [{card}]")
+    print(f"packed path launches {launches} (wants {want})")
+    if launches != want or not finite:
+        raise SystemExit(f"packed path: launches {launches}, want {want}; finite {finite}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -852,6 +1169,8 @@ def main() -> int:
     flash = check_flash(card)
     flash_bwd = check_flash_bwd(card)
     window = check_window(card)
+    packed = check_packed(card)
+    check_packed_vs_5d(card)
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
@@ -880,6 +1199,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
         s8, _, _ = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
     paths["swin_win8_train"] = s8["launches"]
+    paths["packed"] = run_packed_path(card)
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`
@@ -921,6 +1241,21 @@ def main() -> int:
                 library_ms=head[f"library_{pre}ms"],
                 shape=f"{head['case']} qkv{head['shape']} nh {head['nh']} {head['dtype']}",
             ))
+    fp32 = [c for c in packed if c["dtype"] == "float32"]
+    head = next(c for c in fp32 if c["case"] == "pangu stage1 shifted")
+    for kname, pre, rep, err in (("packed_window_attention", "", f"{pa}:967", "fwd_max_abs_err"),
+                                 ("packed_window_attention_bwd", "bwd_", f"{pa}:1033",
+                                  "bwd_max_abs_err")):
+        kernels.append(dict(
+            name=kname, route="cuda", source=f"{csrc}/packed_window_attention.cu",
+            replaces=rep, launches=paths["packed"][kname],
+            launches_by_path={p: c[kname] for p, c in paths.items()},
+            max_abs_err=max(c[err] for c in fp32),
+            ms=head[f"{pre}ms"], plain_ms=head[f"plain_{pre}ms"],
+            bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],
+            library_ms=head[f"library_{pre}ms"],
+            shape=f"{head['case']} q{head['q']} mask {list(head['mask'])} {head['dtype']}",
+        ))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

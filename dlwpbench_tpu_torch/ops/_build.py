@@ -7,14 +7,16 @@ Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
         -Xcompiler -fPIC -o build/cuda/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `build/cuda/` at the repository root (listed in
-`.gitignore`), named by a hash of its source so an edited kernel is never
-served from a stale build.  Nothing here runs at import time.
+`.gitignore`), named by a hash of its source and of the headers beside it
+(`csrc/*.cuh`) so an edited kernel is never served from a stale build.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -42,10 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where `csrc/<name>.cu` is built: keyed by the source's hash."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Where `csrc/<name>.cu` is built: keyed by the hash of the source and
+    of every header in `csrc/`."""
+    digest = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -64,36 +64,9 @@
 // products 46 GFLOP (0.68 ms).  The products run on the fp32 CUDA cores;
 // tensor cores (wgmma) and TMA staging are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "small_window_common.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 256;  // threads per block at most
-constexpr int kMaxRows = 128;     // rows per block at most
-constexpr int kTile = 64;         // rows per shared-memory tile
-constexpr int kChunk = 16;        // keys per online-softmax update (forward)
-constexpr int kPitch = kTile + 1; // +1: conflict-free row-wise access
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// How a row of D head dims is split over threads: TPR threads per row,
-// DPT dims each.
-template <int D>
-struct Split {
-  static constexpr int TPR = D <= 32 ? 1 : (D <= 64 ? 2 : 4);
-  static constexpr int DPT = D / TPR;
-  static_assert(DPT % 2 == 0, "head-dim slice must be float2 aligned");
-};
 
 // Shapes of one call.  Members are m = (b * L + l) * nW + w.
 struct Geom {
@@ -139,79 +112,6 @@ __device__ __forceinline__ const T* mask_ptr(const T* mask, const Geom& g,
                                              int l, int w) {
   return mask + (static_cast<size_t>(g.mL > 1 ? l : 0) * g.mW +
                  (g.mW > 1 ? w : 0)) * g.N * g.N;
-}
-
-// a . s[0:DPT], s in shared memory (a broadcast read across the block)
-template <int DPT>
-__device__ __forceinline__ float dot_s(const float (&a)[DPT], const float* s) {
-  float acc = 0.f;
-  if constexpr (DPT % 4 == 0) {
-#pragma unroll
-    for (int d = 0; d < DPT; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(s + d);
-      acc = fmaf(a[d], x.x, acc);
-      acc = fmaf(a[d + 1], x.y, acc);
-      acc = fmaf(a[d + 2], x.z, acc);
-      acc = fmaf(a[d + 3], x.w, acc);
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < DPT; d += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(s + d);
-      acc = fmaf(a[d], x.x, acc);
-      acc = fmaf(a[d + 1], x.y, acc);
-    }
-  }
-  return acc;
-}
-
-// acc[0:DPT] += c * s[0:DPT], s in shared memory
-template <int DPT>
-__device__ __forceinline__ void axpy_s(float (&acc)[DPT], float c, const float* s) {
-  if constexpr (DPT % 4 == 0) {
-#pragma unroll
-    for (int d = 0; d < DPT; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(s + d);
-      acc[d] = fmaf(c, x.x, acc[d]);
-      acc[d + 1] = fmaf(c, x.y, acc[d + 1]);
-      acc[d + 2] = fmaf(c, x.z, acc[d + 2]);
-      acc[d + 3] = fmaf(c, x.w, acc[d + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < DPT; d += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(s + d);
-      acc[d] = fmaf(c, x.x, acc[d]);
-      acc[d + 1] = fmaf(c, x.y, acc[d + 1]);
-    }
-  }
-}
-
-// Sum over the TPR adjacent lanes that share a row; every lane of the warp
-// calls it the same number of times (blocks are whole warps).
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int DPT>
-__device__ __forceinline__ void load_row(float (&r)[DPT], const T* p, bool ok,
-                                         float mul) {
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) r[d] = ok ? load_f(p + d) * mul : 0.f;
-}
-
-// 4 consecutive elements as fp32: one 16-byte (fp32) or 8-byte (bf16) load.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // Stages tokens [row0, row0 + n) of member `mb` for one head: columns
@@ -497,20 +397,6 @@ wa_bwd_dbias_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
-// ---------------------------------------------------------------- backward 3
-// dbias = sum over the chunks of part, in chunk order.
-template <typename T>
-__global__ void wa_bwd_dbias_sum_kernel(const float* __restrict__ part,
-                                        T* __restrict__ dbias, size_t n,
-                                        int n_chunks) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float acc = 0.f;
-    for (int c = 0; c < n_chunks; ++c) acc += part[c * n + i];
-    store_f(dbias + i, acc);
-  }
-}
-
 // ---------------------------------------------------------------- backward 4
 // dK + dV.  Grid (members, key tiles, heads).
 template <typename T, int D, typename Layout>
@@ -592,23 +478,6 @@ wa_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------- launch
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Rows per block and the block's threads (whole warps).
-template <int D>
-void plan_rows(Geom& g, int& threads) {
-  constexpr int TPR = Split<D>::TPR;
-  const int rmax = kMaxRows < kMaxThreads / TPR ? kMaxRows : kMaxThreads / TPR;
-  g.n_tiles = (g.N + rmax - 1) / rmax;
-  g.rows = (g.N + g.n_tiles - 1) / g.n_tiles;
-  threads = (g.rows * TPR + 31) / 32 * 32;
-  g.scale = 1.f / sqrtf(static_cast<float>(D));
-}
-
 template <typename T, int D, typename Layout>
 cudaError_t launch_fwd(const void* qkv, const void* bias, const void* mask,
                        void* out, void* lse, Geom g, cudaStream_t stream) {
@@ -660,20 +529,14 @@ cudaError_t launch_bwd(const void* qkv, const void* bias, const void* mask,
   k_db<<<dim3(g.n_tiles * n_key_tiles, g.nh, g.bW * n_chunks), threads, smem_db,
          stream>>>(tq, tb, tm, tdo, tl, tr, tp, g, n_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t n_bias = static_cast<size_t>(g.bW) * g.nh * g.N * g.N;
-  const int sum_blocks = static_cast<int>((n_bias + 255) / 256 < 4096 ? (n_bias + 255) / 256 : 4096);
-  wa_bwd_dbias_sum_kernel<T><<<sum_blocks, 256, 0, stream>>>(
-      tp, static_cast<T*>(dbias), n_bias, n_chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 3. the partials summed over the chunks in order, into dbias
+  err = launch_dbias_chunk_sum(tp, static_cast<T*>(dbias),
+                               static_cast<size_t>(g.bW) * g.nh * g.N * g.N, n_chunks, stream);
+  if (err != cudaSuccess) return err;
   k_dkv<<<dim3(members, g.n_tiles, g.nh), threads, smem_dkv, stream>>>(
       tq, tb, tm, tdo, tl, tr, static_cast<T*>(dqkv), g);
   return cudaGetLastError();
 }
-
-// One switch over the head dims the kernels take (multiples of 8 to 128).
-#define WA_HEAD_DIMS(X)                                                   \
-  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) \
-  X(104) X(112) X(120) X(128)
 
 template <typename T, typename Layout>
 cudaError_t dispatch_fwd(int hd, const void* qkv, const void* bias,
@@ -683,7 +546,7 @@ cudaError_t dispatch_fwd(int hd, const void* qkv, const void* bias,
 #define WA_FWD_CASE(DD) \
   case DD:              \
     return launch_fwd<T, DD, Layout>(qkv, bias, mask, out, lse, g, s);
-    WA_HEAD_DIMS(WA_FWD_CASE)
+    SMALL_WINDOW_HEAD_DIMS(WA_FWD_CASE)
 #undef WA_FWD_CASE
     default:
       return cudaErrorInvalidValue;
@@ -701,7 +564,7 @@ cudaError_t dispatch_bwd(int hd, const void* qkv, const void* bias,
   case DD:                                                                   \
     return launch_bwd<T, DD, Layout>(qkv, bias, mask, out, dout, lse, dqkv,  \
                                      dbias, drow, part, n_chunks, g, s);
-    WA_HEAD_DIMS(WA_BWD_CASE)
+    SMALL_WINDOW_HEAD_DIMS(WA_BWD_CASE)
 #undef WA_BWD_CASE
     default:
       return cudaErrorInvalidValue;

@@ -175,21 +175,22 @@ def window_attention_qkv5d_bwd_plain(qkv5, bias, mask, out5, lse, dout5, win):
 
 # ---------------------------------------------------------------- CUDA wrappers
 def _check_cuda(name, tensors, hd, N):
-    """What the kernels take: one CUDA device, all float32 or all bfloat16,
-    head dim a multiple of 8 up to 128, N up to 1023, contiguous and
-    16-byte aligned."""
+    """What the small-window kernels (this module's and
+    `packed_attention`'s) take: one CUDA device, all tensors float32 or all
+    bfloat16, head dim a multiple of 8 up to 128, N up to 1023, contiguous
+    and 16-byte aligned."""
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in tensors):
-        raise TypeError(f"{name} takes qkv, bias, mask (and out, dO) all float32 or all "
-                        f"bfloat16, got {[str(t.dtype) for t in tensors]}")
+        raise TypeError(f"{name} takes its tensors all float32 or all bfloat16, got "
+                        f"{[str(t.dtype) for t in tensors]}")
     if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} unsupported: need a multiple of 8 <= {MAX_HEAD_DIM}")
     if not 1 <= N <= MAX_N:
         raise ValueError(f"window of N = {N} tokens unsupported: need 1 <= N <= {MAX_N}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: qkv, bias, mask (and out, dO) must be contiguous")
+        raise ValueError(f"{name}: its tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):  # the kernels copy 4 elements at a time
-        raise ValueError(f"{name}: qkv, bias, mask (and out, dO) must be 16-byte aligned")
+        raise ValueError(f"{name}: its tensors must be 16-byte aligned")
 
 
 def _no_grad_guard(name, tensors):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dlwpbench_tpu_torch.ops import flash_attention as fa
+from dlwpbench_tpu_torch.ops import packed_attention as pk
 from dlwpbench_tpu_torch.ops import window_attention as wa
 
 
@@ -252,3 +253,102 @@ def test_window_kernels_refuse_what_they_cannot_take(cuda):
     qkv = torch.zeros(1, 1, 2, 16, 96, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError):
         wa.window_attention_qkv_fwd(qkv, bias, None, 2)
+
+
+# ---------------------------------------------------------------- packed window attention
+# (B_ = BW / nW, nh, N, D, nW, mask lead dims (nLon, nW or 1) or None, mask kind)
+PACKED_CASES = [
+    (4, 2, 144, 32, 3, (2, 3), "block"),
+    (5, 3, 72, 16, 2, (3, 2), "block"),  # 5 members: lon = member % 3 wraps mid-batch
+    (3, 2, 50, 64, 2, None, None),
+    (2, 1, 144, 128, 2, (2, 1), "random"),
+    (2, 2, 200, 72, 2, (1, 2), "random"),
+    (2, 2, 1, 8, 1, None, None),
+    (1, 1, 1023, 24, 1, (1, 1), "random"),
+]
+
+
+def _packed_inputs(cuda, dtype, B_, nh, N, D, nW, lead, kind, seed):
+    """q, k, v, query-major bias, mask (or None) and dO on the card; a
+    "random" mask is asymmetric."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(B_ * nW, nh, N, D, device=cuda, generator=g) for _ in range(4))
+    bias = torch.randn(nW, nh, N, N, device=cuda, generator=g)
+    mask = None
+    if kind == "block":
+        mask = _block_mask(*lead, N, cuda)
+    elif kind == "random":
+        mask = 2.0 * torch.randn(*lead, N, N, device=cuda, generator=g)
+    return [None if t is None else t.to(dtype).contiguous() for t in (q, k, v, bias, mask, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B_, nh, N, D, nW, lead, kind", PACKED_CASES)
+def test_packed_kernels_match_plain_on_card(cuda, dtype, B_, nh, N, D, nW, lead, kind):
+    """Forward and backward against the plain versions on the CPU, one
+    counted launch each, and two backward calls bit-identical."""
+    q, k, v, bias, mask, do = _packed_inputs(cuda, dtype, B_, nh, N, D, nW, lead, kind,
+                                             seed=N * D + nW)
+    counters = (pk.packed_window_attention_fwd, pk.packed_window_attention_bwd)
+    before = [c.launches for c in counters]
+    out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+    got = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
+    again = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 2]
+    f32 = [None if t is None else t.float().cpu() for t in (q, k, v, bias, mask)]
+    want, want_lse = pk.packed_window_attention_plain(*f32)
+    # fp32: other summation orders; bf16: the result is rounded once to bf16
+    atol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float().cpu(), want, rtol=0,
+                               atol=atol * max(1.0, want.abs().max().item()))
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=0,
+                               atol=2e-5 * max(1.0, want_lse.abs().max().item()))
+    ref = pk.packed_window_attention_bwd_plain(*f32, out.float().cpu(), lse.cpu(),
+                                               do.float().cpu())
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        tol = (2e-5 if dtype == torch.float32 else 1e-2) * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(a.float().cpu(), w, rtol=0, atol=tol, msg=name)
+    for a, b in zip(got, again):  # no atomics: bit-identical
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packed_backward_runs_through_the_kernel(cuda):
+    """`.backward()` on CUDA tensors launches each kernel once, matches
+    autograd through the plain version on the CPU, and leaves the mask
+    without a gradient."""
+    q, k, v, bias, mask, _ = _packed_inputs(cuda, torch.float32, 3, 2, 72, 16, 2, (3, 2),
+                                            "random", 4)
+    counters = (pk.packed_window_attention_fwd, pk.packed_window_attention_bwd)
+    before = [c.launches for c in counters]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    pk.packed_window_attention(*leaves, mask).square().sum().backward()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    ref = [t.detach().cpu().clone().requires_grad_() for t in (q, k, v, bias)]
+    pk.packed_window_attention(*ref, mask.cpu()).square().sum().backward()
+    for a, b in zip(leaves, ref):
+        scale = max(1.0, b.grad.abs().max().item())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_refuse_what_they_cannot_take(cuda):
+    def call(BW, nh, N, D, dtype=torch.float32, bias_dtype=None):
+        q = torch.zeros(BW, nh, N, D, device=cuda, dtype=dtype)
+        bias = torch.zeros(2, nh, N, N, device=cuda, dtype=bias_dtype or dtype)
+        return pk.packed_window_attention_fwd(q, q, q, bias, None)
+
+    with pytest.raises(ValueError, match="head dim"):
+        call(4, 2, 16, 12)
+    with pytest.raises(ValueError, match="N = 1024"):
+        call(2, 1, 1024, 8)
+    with pytest.raises(TypeError):
+        call(4, 2, 16, 8, torch.float16)
+    with pytest.raises(TypeError):  # bias in another dtype than q
+        call(4, 2, 16, 8, torch.float32, torch.bfloat16)
+    q = torch.zeros(4, 2, 16, 8, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        pk.packed_window_attention_fwd(q, q, q, torch.zeros(2, 2, 16, 16, device=cuda), None)

@@ -93,3 +93,13 @@ def test_library_is_keyed_by_source_hash():
     path = _build.library_path("flash_window_attention")
     assert path.startswith(_build.BUILD_DIR)
     assert path.endswith(".so") and "flash_window_attention-" in path
+
+
+def test_library_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edited header (`csrc/*.cuh`) rebuilds every source beside it."""
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    before = _build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before
