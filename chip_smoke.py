@@ -9,10 +9,13 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
 
 1. the card: CUDA must be available; prints its name and power limit;
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; prints ptxas's registers
+   and spills of the fused window-backward instances;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, fp32 and bf16, TF32 off (backward calls twice, which
-   must agree bit for bit), and times the kernel, the plain version, the
+   must agree bit for bit; each window case's backward must take the
+   design `bwd_route` names, one case lies past the fused region), and
+   times the kernel, the plain version, the
    least time the card could take (`bound_ms`) and one PyTorch library
    call computing the same function (`library_ms`, a yardstick the port
    never calls); the packed kernel (B5) also against the 5D window kernel
@@ -37,7 +40,10 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      same checks; the card's gradients on the forced 5D route;
    - swin_win8 train: `model.window_size=[8,8]
      model.use_flash_attention=null` for 1 epoch (the token-major
-     window-attention kernels);
+     window-attention kernels), its card-vs-CPU gradients on the forced
+     token-major route and a profiler breakdown of one training step;
+   on every training path each window backward launch must take the
+   fused route;
    - the packed path: B5's public `packed_window_attention` has no model
      caller, so three emulated Pangu attention steps at batch 32 drive it,
      forward and backward at each of the shipped Pangu's 16 blocks' shapes
@@ -60,9 +66,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of an H100 SXM at 700 W (dense): fp32 outside the tensor
-# cores, bf16 on the tensor cores, and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Published peaks of an H100 SXM at 700 W (dense), and HBM3 bandwidth.
+# fp32-accurate products run fastest on the tensor cores as 3xTF32 (three
+# TF32 products of split operands, as the fused window backward does), so
+# the fp32 bound is reckoned at a third of the 495 TFLOP/s TF32 peak, not
+# at the 67 TFLOP/s of the fp32 CUDA cores; bf16 at its tensor-core peak.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 # The evaluate paths: the shipped configs on synthetic data.  n_time=9060
@@ -109,7 +118,34 @@ def build_all():
     for name, path in libs.items():
         print(f"built {name} -> {os.path.relpath(path, REPO)}")
     print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
+    fused = fused_ptxas(libs["window_attention_qkv"][:-3] + ".log")
+    spilled = [f"{k}: {s} B" for k, _, s in fused if s]
+    print(f"ptxas -v, the {len(fused)} fused window-backward instances (dtype, hd, tiles, "
+          f"layout: registers): {'; '.join(f'{k}: {r}' for k, r, _ in fused)}; spill stores "
+          f"{', '.join(spilled) if spilled else 'none'}")
     return names
+
+
+def fused_ptxas(log_path: str):
+    """[(instance, registers, spill-store bytes)] of every fused backward
+    kernel, from the ptxas -v report the build keeps beside the library."""
+    import re
+
+    rows, entry, spill = [], None, 0
+    with open(log_path) as f:
+        for line in f:
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                entry, spill = m.group(1), 0
+            elif m := re.search(r"(\d+) bytes spill stores", line):
+                spill = int(m.group(1))
+            elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+                if t := re.search(r"wa_bwd_fused_kernelI(\w+?)Li(\d+)ELi(\d+)E", entry):
+                    dtype = "fp32" if t.group(1) == "f" else "bf16"
+                    layout = "5D" if "Field5D" in entry else "token-major"
+                    rows.append((f"{dtype} hd {t.group(2)} NT {t.group(3)} {layout}",
+                                 int(m.group(1)), spill))
+                entry = None
+    return rows
 
 
 # ---------------------------------------------------------------- flash attention
@@ -311,6 +347,8 @@ WINDOW_CASES = [
     ("swin8 stage1 shifted", "token-major", (32, 1, 8, 64, 576), 4, None, "swin-shift", None),
     ("L3 masked", "token-major", (4, 3, 2, 144, 96), 2, None, "random", "block"),
     ("odd N 72 hd 24", "token-major", (16, 2, 4, 72, 144), 2, None, "random", "block"),
+    # just past the fused backward's region (N 144): the four-pass route
+    ("four-pass N 200 hd 32", "token-major", (8, 1, 4, 200, 192), 2, None, "random", "block"),
 ]
 # Tolerances.  Forward out: fp32 sums over <= 1023 keys in another order
 # (|out| < 5 here), bf16 one rounding of the fp32 result (half an ulp is
@@ -438,17 +476,22 @@ def check_window(card: str):
             else:
                 fwd, bwd = wa.window_attention_qkv_fwd, wa.window_attention_qkv_bwd
                 p_fwd, p_bwd = wa.window_attention_qkv_plain, wa.window_attention_qkv_bwd_plain
+            counter = wa.window_attention_qkv5d_bwd if layout == "5d" else wa.window_attention_qkv_bwd
+            B, L, nW, N, C = _window_dims(layout, shape, win)
             out, lse = fwd(qkv, bias, mask, nh)
+            fused0 = counter.fused_launches
             got = bwd(qkv, bias, mask, out, lse, dout)
             again = bwd(qkv, bias, mask, out, lse, dout)
             torch.cuda.synchronize()
+            route = "fused" if counter.fused_launches - fused0 == 2 else "four_pass"
             identical = all(torch.equal(a, b) for a, b in zip(got, again))
             f32 = [None if t is None else t.float() for t in (qkv, bias, mask)]
             p_out, p_lse = p_fwd(*f32, nh)
             ref = p_bwd(*f32, out.float(), lse, dout.float())
             errs = {"out": (out.float() - p_out).abs().max().item(),
                     "lse": (lse - p_lse).abs().max().item()}
-            ok = identical and errs["out"] <= tol["out"] * max(1.0, p_out.abs().max().item()) \
+            ok = identical and route == wa.bwd_route(N, C // nh) \
+                and errs["out"] <= tol["out"] * max(1.0, p_out.abs().max().item()) \
                 and errs["lse"] <= tol["lse"] * max(1.0, p_lse.abs().max().item())
             for name, a, r in zip(("dqkv", "dbias"), got, ref):
                 errs[name] = (a.float() - r).abs().max().item()
@@ -465,7 +508,6 @@ def check_window(card: str):
             lib_bwd = _sdpa_backward(*_sdpa_args(layout, qkv, bias, mask, nh, win), 1, 1)
             library_bwd_ms = cuda_ms(lib_bwd, 10)
             del lib_bwd
-            B, L, nW, N, C = _window_dims(layout, shape, win)
             mshape = None if mask is None else tuple(mask.shape)
             geo = (B, L, nW, N, C, nh, bias.shape[0], mshape, dname)
             bound_ms, bound_by, flops, nbytes = _window_bound(*geo)
@@ -474,7 +516,8 @@ def check_window(card: str):
                        hd=C // nh, bias=list(bias.shape), mask=mshape, errors=errs,
                        fwd_max_abs_err=max(errs["out"], errs["lse"]),
                        bwd_max_abs_err=max(errs["dqkv"], errs["dbias"]), tol=tol,
-                       bit_identical=identical, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bwd_route=route, bit_identical=identical, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
                        bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms, library_bwd_ms=library_bwd_ms,
                        bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by, bwd_flops=bwd_flops,
@@ -485,7 +528,8 @@ def check_window(card: str):
                 f"bias{list(bias.shape)} mask{list(mshape) if mshape else None}: max|diff| out "
                 f"{errs['out']:.3e} lse {errs['lse']:.3e} dqkv {errs['dqkv']:.3e}/"
                 f"{errs['dqkv_ref_max']:.3e} dbias {errs['dbias']:.3e}/{errs['dbias_ref_max']:.3e} "
-                f"(tol {tol}), two backward calls {'bit-identical' if identical else 'DIFFER'} "
+                f"(tol {tol}), backward route {route}, two backward calls "
+                f"{'bit-identical' if identical else 'DIFFER'} "
                 f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
                 f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {flops / ms / 1e9:.1f} "
                 f"TFLOP/s); backward kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f}, sdpa bwd "
@@ -740,6 +784,26 @@ def counters_of():
             "packed_window_attention_bwd": pk.packed_window_attention_bwd}
 
 
+def reset_counters(counters):
+    """Every launch counter to 0, the window backwards' fused-route
+    counters too."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "fused_launches"):
+            fn.fused_launches = 0
+
+
+def check_fused(label: str, counters, launches):
+    """Every window backward launch of a path took the fused route: the
+    paths' shapes (N 64 and 144, hd 24, 32, 48) all lie in its region."""
+    fused = {n: fn.fused_launches for n, fn in counters.items() if hasattr(fn, "fused_launches")}
+    print(f"{label} fused-route backward launches {fused} of {({n: launches[n] for n in fused})}")
+    if any(fused[n] != launches[n] for n in fused):
+        raise SystemExit(f"{label}: fused-route launches {fused}, want all of "
+                         f"{({n: launches[n] for n in fused})}")
+    return fused
+
+
 def step_calls(model, B: int) -> dict:
     """Kernel launches of one rollout step's forward on the card at batch
     B, by the port's routing rule (the JAX auto rule with "on the TPU" read
@@ -807,8 +871,7 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
 
     cfg = load_config(cli.CONFIG_DIR, overrides=[a for a in argv if "=" in a])
     counters = counters_of()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = cli.main([*argv, "--out-dir", out_dir])
@@ -953,8 +1016,7 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
         [(b, steps) for b in train_bs * epochs])
     del model
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = cli.main([*argv, f"run_dir={run_dir}", "--device", "cuda"])
@@ -971,6 +1033,7 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
           f"validation batch, wants {want})")
     if launches != want or not any(launches.values()):
         raise SystemExit(f"{label}: launches {launches}, want {want}")
+    fused = check_fused(label, counters, launches)
     losses = res["train_loss"] + res["val_loss"]
     if len(res["train_loss"]) != epochs or not np.isfinite(losses).all():
         raise SystemExit(f"{label}: training losses {res['train_loss']} / {res['val_loss']}")
@@ -992,7 +1055,7 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
           f"{max(full):.4f}), {samples_s:.2f} samples/s, {samples_s * points:.1f} "
           f"grid-points/s (samples x {steps} steps x {cfg.data.height} x {cfg.data.width}), "
           f"peak device memory {peak:.2f} GiB [{card}]")
-    return dict(launches=launches, seconds_per_step=per_step, samples_per_s=samples_s,
+    return dict(launches=launches, fused=fused, seconds_per_step=per_step, samples_per_s=samples_s,
                 gridpoints_per_s=samples_s * points, peak_gib=peak, wall_s=wall,
                 train_loss=res["train_loss"], val_loss=res["val_loss"]), cfg, train_ds
 
@@ -1014,6 +1077,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
     card_model.load_state_dict(cpu.state_dict())
     counters = counters_of()
     before = {name: fn.launches for name, fn in counters.items()}
+    before_fused = {n: fn.fused_launches for n, fn in counters.items() if hasattr(fn, "fused_launches")}
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card_model, "cuda")):
         out = model(*(a.to(dev) for a in (const, pres, prog)))
@@ -1021,6 +1085,8 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
         loss.backward()
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
+    used.update({f"{n} fused": fn.fused_launches - before_fused[n]
+                 for n, fn in counters.items() if n in before_fused and n in used})
     (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
     worst = max(
         ((g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
@@ -1109,8 +1175,7 @@ def run_packed_path(card: str):
     leaves_all = [t for lv, table, _, _ in blocks for t in (*lv, table)]
 
     counters = counters_of()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     step_s = []
     for _ in range(PACKED_STEPS):
         for t in leaves_all:
@@ -1197,9 +1262,13 @@ def main() -> int:
     profile_train_step(ptcfg, ptrain_ds, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
-        s8, _, _ = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
+        s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
     paths["swin_win8_train"] = s8["launches"]
+    # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
+    check_train_grads(s8cfg, s8_ds, card, card_route="packed")
+    profile_train_step(s8cfg, s8_ds, card)
     paths["packed"] = run_packed_path(card)
+    fused_by_path = {"pangu_train": ptrain["fused"], "swin_win8_train": s8["fused"]}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`
@@ -1235,6 +1304,8 @@ def main() -> int:
                 name=kname, route="cuda", source=f"{csrc}/window_attention_qkv.cu",
                 replaces=rep, launches=paths[slice_path][kname],
                 launches_by_path={p: c[kname] for p, c in paths.items()},
+                **({"fused_launches": fused_by_path[slice_path][kname],
+                    "design": head["bwd_route"]} if pre else {}),
                 max_abs_err=max(c[err] for c in fp32),
                 ms=head[f"{pre}ms"], plain_ms=head[f"plain_{pre}ms"],
                 bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],

@@ -32,37 +32,70 @@
 //    `window_partition_3d`, so the partition and its reverse never run.
 // lse is [B, L, nW, nh, N] in both (L = nLon for 5D).
 //
-// Design, simple and right first.  A thread owns one query (or key) row of
-// the head, or 1/2 or 1/4 of it for head dims up to 64 or 128 (the parts
-// sum their partial dot products with warp shuffles).  A block holds up to
-// 128 rows; K, V (or Q, dO) tiles of 64 rows and the tile's bias + mask
-// block are staged in shared memory as fp32, the tile's token addresses
-// computed once per row (a 5D address takes several integer divisions)
-// and the rows copied 4 elements at a time.  Key-major bias means a fixed
-// key's values for consecutive queries are contiguous, so the staging reads
-// are coalesced.  Every tile loop takes the place of the Pallas grid's
+// Row kernels (the forward and the general backward).  A thread owns one
+// query (or key) row of the head, or 1/2 or 1/4 of it for head dims up to
+// 64 or 128 (the parts sum their partial dot products with warp shuffles),
+// and the products run on the fp32 CUDA cores.  A block holds up to 128
+// rows; K, V (or Q, dO) tiles of 64 rows and the tile's bias + mask block
+// are staged in shared memory as fp32, the tile's token addresses computed
+// once per row (a 5D address takes several integer divisions) and the rows
+// copied 4 elements at a time.  Key-major bias means a fixed key's values
+// for consecutive queries are contiguous, so the staging reads are
+// coalesced.  Every tile loop takes the place of the Pallas grid's
 // sequential axis.
 //  forward   one block per (member, query tile, head), online softmax over
-//            key tiles of 64, 16 keys per rescale;
-//  backward  four launches, no floating-point atomics, every sum in a fixed
-//            order, so two calls give bit-identical results:
-//   1. dQ (and drow = rowsum(dout * out) into scratch): block per
-//      (member, query tile, head), walking the key tiles;
+//            key tiles of 64, 16 keys per rescale.
+//
+// Two backward designs, chosen by shape before the launch (the wrapper's
+// `bwd_route`); neither uses floating-point atomics and every sum runs in
+// a fixed order, so two calls give bit-identical results.
+//
+//  fused      N <= 144 and hd <= 48 (every model path: Pangu N 144 hd 32,
+//             Swin-win8 N 64 hd 24 and 48, the round-2 N 72 hd 16).  One
+//             block per (bias window, head, member chunk), one warp per 16
+//             key rows; the block walks its chunk's members (same mask
+//             consecutive) and for each stages Q * scale, K, V, dO and
+//             drow = rowsum(dO * O) once, then computes S^T, P, dP^T, dS^T,
+//             dV, dK and, after one barrier, dQ: five products instead of
+//             the general route's nine, all on the tensor cores as
+//             mma.sync m16n8k8 TF32 with the 3xTF32 split (a.b ~ a_big b_small
+//             + a_small b_big + a_big b_big, fp32 accumulation), which keeps
+//             fp32 accuracy.  bf16 inputs take the same path, staged as
+//             fp32: one code path, and P and dS, fp32 values, are never
+//             rounded to an operand type.  dS^T is added into a dbias
+//             accumulator that lives in the warp's registers (8 floats a
+//             thread per 16 queries) across the chunk; the chunk's sum goes
+//             to `part` and a second launch sums the chunks in order.  Each
+//             member's rows belong to one block, so dq, dk and dv are plain
+//             stores.  Shared memory, fp32, Np = N rounded up to 16:
+//             4 Np (hd + 4) operands + Np (Np + 4) for P^T / dS^T + 2 Np +
+//             8 Np bytes of row offsets = 207,360 B at N 144, hd 48, under
+//             the 227 KB a block may hold, so one block of 9 warps per SM
+//             there (hd 64 would need 242 KB); at N 64, hd 24, 47 KB and 4
+//             warps.  Registers a thread: 8 per 16-row tile of dbias
+//             accumulator (72 at N 144), hd / 2 each for dK and dV; a
+//             9-warp block puts 3 warps on one of the SM's 4 schedulers,
+//             which caps ptxas at 168.  bias + mask come from L2 once per
+//             member (a third [N, N] tile does not fit beside the other
+//             two).  What bounds it: at Pangu's stage 1 the bytes (about
+//             1 GB, 0.31 ms at 3.35 TB/s) just above the products (46
+//             GFLOP at 495 / 3 TFLOP/s for 3xTF32, 0.28 ms); in practice
+//             one block per SM at N 144 leaves each member's staging
+//             loads unhidden behind its barriers.
+//  four-pass  everything else up to N 1023 (row kernels):
+//   1. dQ (and drow into scratch): block per (member, query tile, head),
+//      walking the key tiles;
 //   2. dbias partials: block per (query tile x key tile, head, bias window
 //      x member chunk); it walks its chunk of the members that share the
 //      bias window in order and sums their ds blocks in shared memory;
 //   3. the partials summed over the chunks in order, into dbias;
 //   4. dK + dV: block per (member, key tile, head), walking the query tiles.
-// A design that keeps each member's [N, N] ds tile in shared memory does
-// not fit above N of about 230; these passes take any N up to 1023 with
-// one code path, at the price of recomputing s and dp in each pass.
+//             It recomputes s and dp in three passes, but holds no [N, N]
+//             tile, so it takes any N; fp32 CUDA cores bound it.
 //
-// What bounds it on an H100 SXM: at Pangu's stage 1 (6,912 window-heads,
-// N 144, hd 32) the forward does 4 M N^2 hd = 18.3 GFLOP on about 0.5 GB of
-// fp32 operands: 35 operations per byte, above the fp32 ridge of 20, so
-// fp32 operations bound it (0.27 ms at 67 TFLOP/s); the backward's five
-// products 46 GFLOP (0.68 ms).  The products run on the fp32 CUDA cores;
-// tensor cores (wgmma) and TMA staging are later work.
+// Scale on an H100 SXM: at Pangu's stage 1 (6,912 window-heads, N 144,
+// hd 32) the forward does 4 M N^2 hd = 18.3 GFLOP on about 0.5 GB of fp32
+// operands and the backward's five products 46 GFLOP.
 
 #include "small_window_common.cuh"
 
@@ -477,6 +510,348 @@ wa_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
+// ---------------------------------------------------------------- fused backward
+// The fused route's region: N up to 9 tiles of 16 rows, head dims up to 48.
+constexpr int kFusedMaxN = 144;
+constexpr int kFusedMaxD = 48;
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b on one m16n8k8 tile, fp32-accurate: each operand split into a
+// TF32 big part and a TF32 remainder, three products, the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
+                                           const float (&b)[2]) {
+  uint32_t ab[4], as[4], bb[2], bs[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ab[i] = to_tf32(a[i]);
+    as[i] = to_tf32(a[i] - __uint_as_float(ab[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bb[i] = to_tf32(b[i]);
+    bs[i] = to_tf32(b[i] - __uint_as_float(bb[i]));
+  }
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+// Fragments of the m16n8k8 TF32 product, lane = 4 g + t.  A is 16 x 8
+// (row-major), B 8 x 8 (k x n), C 16 x 8 with c[i] at row g + 8 (i / 2),
+// column 2 t + i % 2.  s is a shared tile of pitch p.
+// A[r][c] = s[r0 + r][c0 + c]
+__device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int p, int r0,
+                                       int c0, int g, int t) {
+  a[0] = s[(r0 + g) * p + c0 + t];
+  a[1] = s[(r0 + g + 8) * p + c0 + t];
+  a[2] = s[(r0 + g) * p + c0 + t + 4];
+  a[3] = s[(r0 + g + 8) * p + c0 + t + 4];
+}
+// A[r][c] = s[c0 + c][r0 + r]
+__device__ __forceinline__ void frag_at(float (&a)[4], const float* s, int p, int r0,
+                                        int c0, int g, int t) {
+  a[0] = s[(c0 + t) * p + r0 + g];
+  a[1] = s[(c0 + t) * p + r0 + g + 8];
+  a[2] = s[(c0 + t + 4) * p + r0 + g];
+  a[3] = s[(c0 + t + 4) * p + r0 + g + 8];
+}
+// B[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ void frag_bt(float (&b)[2], const float* s, int p, int k0,
+                                        int n0, int g, int t) {
+  b[0] = s[(n0 + g) * p + k0 + t];
+  b[1] = s[(n0 + g) * p + k0 + t + 4];
+}
+// B[k][n] = s[k0 + k][n0 + n]
+__device__ __forceinline__ void frag_b(float (&b)[2], const float* s, int p, int k0,
+                                       int n0, int g, int t) {
+  b[0] = s[(k0 + t) * p + n0 + g];
+  b[1] = s[(k0 + t + 4) * p + n0 + g];
+}
+// s[r0 + r][c0 + c] = C[r][c]
+__device__ __forceinline__ void store_c(float* s, int p, int r0, int c0,
+                                        const float (&c)[4], int g, int t) {
+  *reinterpret_cast<float2*>(s + (r0 + g) * p + c0 + 2 * t) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(s + (r0 + g + 8) * p + c0 + 2 * t) = make_float2(c[2], c[3]);
+}
+
+// Floats of the [Np, Np + 4] P^T / dS^T tile, which first holds O at
+// pitch hd + 1 for the drow sums.
+__host__ __device__ constexpr int fused_tile_floats(int Np, int D) {
+  return Np * (Np + 4) > Np * (D + 1) ? Np * (Np + 4) : Np * (D + 1);
+}
+
+size_t fused_smem_bytes(int Np, int D) {
+  return sizeof(float) * (4 * Np * (D + 4) + fused_tile_floats(Np, D) + 2 * Np) +
+         sizeof(size_t) * Np;
+}
+
+// Grid (member chunks, heads, bias windows); blockDim 32 * ceil(N / 16)
+// <= 32 * NT.  Chunk c takes the members [c * per, (c + 1) * per) of those
+// sharing bias window wb, b fastest, so consecutive members share (l, w)
+// and with it the mask.  part is [n_chunks, bW, nh, N, N] fp32, key-major.
+template <typename T, int D, int NT, typename Layout>
+__global__ void __launch_bounds__(32 * NT)
+wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                    const T* __restrict__ mask, const T* __restrict__ out,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    T* __restrict__ dqkv, float* __restrict__ part, Geom g,
+                    int n_chunks) {
+  constexpr int DP = D + 4;  // operand pitch: conflict-free A fragments
+  constexpr int ND = D / 8;  // 8-wide slices of the head dim
+  constexpr int V4 = D / 4;
+  const int N = g.N;
+  const int nt = blockDim.x / 32;  // 16-row tiles, one warp each
+  const int Np = nt * 16;
+  const int TP = Np + 4;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [Np][DP], times scale
+  float* k_s = q_s + Np * DP;
+  float* v_s = k_s + Np * DP;
+  float* do_s = v_s + Np * DP;
+  float* t_s = do_s + Np * DP;                   // [key][query], pitch TP
+  float* lse_s = t_s + fused_tile_floats(Np, D);
+  float* drow_s = lse_s + Np;
+  size_t* off_s = reinterpret_cast<size_t*>(drow_s + Np);
+
+  const int C = g.nh * D;
+  const int c = blockIdx.x;
+  const int h = blockIdx.y;
+  const int wb = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
+  const int r0 = warp * 16;  // the warp's key rows, then its query rows for dQ
+  const T* bp = bias_ptr(bias, g, wb, h);
+
+  const int n_members = g.bW > 1 ? g.B * g.L : g.B * g.L * g.nW;
+  const int per = (n_members + n_chunks - 1) / n_chunks;
+  const int t_end = min(n_members, (c + 1) * per);
+
+  float db[NT][2][4];  // dbias of key rows r0 + g (+8) x queries, summed
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) db[j][n][i] = 0.f;
+
+  for (int t = c * per; t < t_end; ++t) {
+    const int b = t % g.B;
+    const int l = g.bW > 1 ? t / g.B : t / g.B / g.nW;
+    const int w = g.bW > 1 ? wb : t / g.B % g.nW;
+    const int m = (b * g.L + l) * g.nW + w;
+    const T* mp = mask_ptr(mask, g, l, w);
+    const size_t lbase = (static_cast<size_t>(m) * g.nh + h) * N;
+
+    __syncthreads();  // the previous member's tiles are consumed
+    for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = Layout::row(g, b, l, w, j);
+    __syncthreads();
+    for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
+      const int j = i / V4;
+      const int cc = (i % V4) * 4;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 q4 = z, k4 = z, v4 = z, d4 = z, o4 = z;
+      if (j < N) {
+        const T* row = qkv + off_s[j] * 3 * C + h * D + cc;
+        q4 = load4(row);
+        k4 = load4(row + C);
+        v4 = load4(row + 2 * C);
+        d4 = load4(dout + off_s[j] * C + h * D + cc);
+        o4 = load4(out + off_s[j] * C + h * D + cc);
+        q4 = make_float4(q4.x * g.scale, q4.y * g.scale, q4.z * g.scale, q4.w * g.scale);
+      }
+      *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
+      *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
+      *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
+      *reinterpret_cast<float4*>(do_s + j * DP + cc) = d4;
+      float* o = t_s + j * (D + 1) + cc;
+      o[0] = o4.x;
+      o[1] = o4.y;
+      o[2] = o4.z;
+      o[3] = o4.w;
+    }
+    for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = lse[lbase + j];
+    __syncthreads();
+    for (int j = threadIdx.x; j < Np; j += blockDim.x) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc = fmaf(do_s[j * DP + d], t_s[j * (D + 1) + d], acc);
+      drow_s[j] = acc;
+    }
+    __syncthreads();  // O is read; the tile is free for P^T and dS^T
+
+    // Key rows r0 .. r0 + 15 against the queries, 16 at a time.
+    float dk[ND][4], dv[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+    // The loop is not unrolled (code size, build time): db[0] is always
+    // the current tile's accumulator, and the array rotates one tile a
+    // step, NT steps a member, so registers are indexed statically.
+#pragma unroll 1
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const int q0 = j * 16;
+        float s[2][4], dp[2][4], bm[2][4];  // bm: bias + mask, loaded first
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kr = r0 + gq + 8 * (i / 2);
+            const int qc = q0 + 8 * n + 2 * tq + i % 2;
+            const size_t o = static_cast<size_t>(kr) * N + qc;
+            bm[n][i] = kr < N && qc < N ? load_f(bp + o) + load_f(mp + o) : 0.f;
+            s[n][i] = dp[n][i] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < ND; ++kk) {  // S^T = K Q^T, dP^T = V dO^T
+          float ak[4], av[4];
+          frag_a(ak, k_s, DP, r0, kk * 8, gq, tq);
+          frag_a(av, v_s, DP, r0, kk * 8, gq, tq);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float bq[2], bd[2];
+            frag_bt(bq, q_s, DP, kk * 8, q0 + 8 * n, gq, tq);
+            frag_bt(bd, do_s, DP, kk * 8, q0 + 8 * n, gq, tq);
+            mma_3xtf32(s[n], ak, bq);
+            mma_3xtf32(dp[n], av, bd);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {  // P^T into s, dS^T into dp
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kr = r0 + gq + 8 * (i / 2);
+            const int qc = q0 + 8 * n + 2 * tq + i % 2;
+            float p = 0.f, ds = 0.f;
+            if (kr < N && qc < N) {
+              p = expf(s[n][i] + bm[n][i] - lse_s[qc]);
+              ds = p * (dp[n][i] - drow_s[qc]);
+            }
+            s[n][i] = p;
+            dp[n][i] = ds;
+            db[0][n][i] += ds;
+          }
+        }
+        // dV += P^T dO and dK += dS^T (Q scale), through the warp's own
+        // rows of the tile (the C fragments become A fragments there)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, s[n], gq, tq);
+        __syncwarp();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          float a[4];
+          frag_a(a, t_s, TP, r0, q0 + 8 * ks, gq, tq);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            float bb[2];
+            frag_b(bb, do_s, DP, q0 + 8 * ks, n * 8, gq, tq);
+            mma_3xtf32(dv[n], a, bb);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, dp[n], gq, tq);
+        __syncwarp();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          float a[4];
+          frag_a(a, t_s, TP, r0, q0 + 8 * ks, gq, tq);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            float bb[2];
+            frag_b(bb, q_s, DP, q0 + 8 * ks, n * 8, gq, tq);
+            mma_3xtf32(dk[n], a, bb);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float first = db[0][n][i];
+#pragma unroll
+          for (int r = 0; r + 1 < NT; ++r) db[r][n][i] = db[r + 1][n][i];
+          db[NT - 1][n][i] = first;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kr = r0 + gq + 8 * (i / 2);
+        if (kr < N) {
+          T* row = dqkv + off_s[kr] * 3 * C + h * D + n * 8 + 2 * tq + i % 2;
+          store_f(row + C, dk[n][i]);
+          store_f(row + 2 * C, dv[n][i]);
+        }
+      }
+    }
+    __syncthreads();  // every warp's dS^T is in the tile
+
+    // dQ of query rows r0 .. r0 + 15 = scale * dS K over all keys
+    float dq[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+    for (int k0 = 0; k0 < Np; k0 += 8) {
+      float a[4];
+      frag_at(a, t_s, TP, r0, k0, gq, tq);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float bb[2];
+        frag_b(bb, k_s, DP, k0, n * 8, gq, tq);
+        mma_3xtf32(dq[n], a, bb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qr = r0 + gq + 8 * (i / 2);
+        if (qr < N) {
+          store_f(dqkv + off_s[qr] * 3 * C + h * D + n * 8 + 2 * tq + i % 2,
+                  dq[n][i] * g.scale);
+        }
+      }
+    }
+  }
+
+  float* pp = part + ((static_cast<size_t>(c) * g.bW + wb) * g.nh + h) * N * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kr = r0 + gq + 8 * (i / 2);
+          const int qc = j * 16 + 8 * n + 2 * tq + i % 2;
+          if (kr < N && qc < N) pp[static_cast<size_t>(kr) * N + qc] = db[j][n][i];
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T, int D, typename Layout>
 cudaError_t launch_fwd(const void* qkv, const void* bias, const void* mask,
@@ -536,6 +911,51 @@ cudaError_t launch_bwd(const void* qkv, const void* bias, const void* mask,
   k_dkv<<<dim3(members, g.n_tiles, g.nh), threads, smem_dkv, stream>>>(
       tq, tb, tm, tdo, tl, tr, static_cast<T*>(dqkv), g);
   return cudaGetLastError();
+}
+
+// The fused route: the one-pass kernel, then the ordered chunk sum.
+template <typename T, int D, typename Layout>
+cudaError_t launch_bwd_fused(const void* qkv, const void* bias, const void* mask,
+                             const void* out, const void* dout, const void* lse,
+                             void* dqkv, void* dbias, void* part, int n_chunks,
+                             Geom g, cudaStream_t stream) {
+  const int nt = (g.N + 15) / 16;
+  g.scale = 1.f / sqrtf(static_cast<float>(D));
+  const size_t smem = fused_smem_bytes(nt * 16, D);
+  auto kernel = nt <= 4 ? &wa_bwd_fused_kernel<T, D, 4, Layout>
+                        : &wa_bwd_fused_kernel<T, D, 9, Layout>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float* tp = static_cast<float*>(part);
+  kernel<<<dim3(n_chunks, g.nh, g.bW), 32 * nt, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<const T*>(mask), static_cast<const T*>(out),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<T*>(dqkv), tp, g, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_dbias_chunk_sum(tp, static_cast<T*>(dbias),
+                                static_cast<size_t>(g.bW) * g.nh * g.N * g.N, n_chunks,
+                                stream);
+}
+
+// The head dims the fused route takes (multiples of 8 to kFusedMaxD).
+#define FUSED_HEAD_DIMS(X) X(8) X(16) X(24) X(32) X(40) X(48)
+
+template <typename T, typename Layout>
+cudaError_t dispatch_bwd_fused(int hd, const void* qkv, const void* bias,
+                               const void* mask, const void* out, const void* dout,
+                               const void* lse, void* dqkv, void* dbias, void* part,
+                               int n_chunks, const Geom& g, cudaStream_t s) {
+  switch (hd) {
+#define WA_FUSED_CASE(DD)                                                        \
+  case DD:                                                                       \
+    return launch_bwd_fused<T, DD, Layout>(qkv, bias, mask, out, dout, lse, dqkv, \
+                                           dbias, part, n_chunks, g, s);
+    FUSED_HEAD_DIMS(WA_FUSED_CASE)
+#undef WA_FUSED_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, typename Layout>
@@ -668,6 +1088,45 @@ extern "C" int window_attention_qkv_bwd(const void* qkv, const void* bias,
     err = dispatch_bwd<__nv_bfloat16, Field5D>(hd, qkv, bias, mask, out, dout,
                                                lse, dqkv, dbias, drow, part,
                                                n_chunks, g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The same backward by the fused route, for N <= 144 and head dims up to
+// 48 (anything else returns cudaErrorInvalidValue).  Scratch from the
+// caller: part float32 [n_chunks, bW, nh, N, N]; n_chunks (>= 1) splits
+// each bias window's members over blocks.
+extern "C" int window_attention_qkv_bwd_fused(const void* qkv, const void* bias,
+                                              const void* mask, const void* out,
+                                              const void* dout, const void* lse,
+                                              void* dqkv, void* dbias, void* part,
+                                              int B, int L, int nW, int N, int nh,
+                                              int hd, int bW, int mL, int mW, int Pl,
+                                              int Lat, int Lon, int wpl, int wlat,
+                                              int wlon, int n_chunks, int layout,
+                                              int dtype, void* stream) {
+  Geom g;
+  if (!make_geom(g, layout, B, L, nW, N, nh, bW, mL, mW, Pl, Lat, Lon, wpl, wlat,
+                 wlon) ||
+      g.N > kFusedMaxN || hd > kFusedMaxD || n_chunks < 1 || g.bW > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && layout == 0) {
+    err = dispatch_bwd_fused<float, TokenMajor>(hd, qkv, bias, mask, out, dout, lse,
+                                                dqkv, dbias, part, n_chunks, g, s);
+  } else if (dtype == 0 && layout == 1) {
+    err = dispatch_bwd_fused<float, Field5D>(hd, qkv, bias, mask, out, dout, lse,
+                                             dqkv, dbias, part, n_chunks, g, s);
+  } else if (dtype == 1 && layout == 0) {
+    err = dispatch_bwd_fused<__nv_bfloat16, TokenMajor>(hd, qkv, bias, mask, out, dout,
+                                                        lse, dqkv, dbias, part,
+                                                        n_chunks, g, s);
+  } else if (dtype == 1 && layout == 1) {
+    err = dispatch_bwd_fused<__nv_bfloat16, Field5D>(hd, qkv, bias, mask, out, dout,
+                                                     lse, dqkv, dbias, part,
+                                                     n_chunks, g, s);
   }
   return static_cast<int>(err);
 }

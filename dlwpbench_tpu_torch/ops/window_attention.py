@@ -25,7 +25,10 @@ mask, symmetric in its last two dims, or None.  Layouts:
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/window_attention_qkv.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
-The plain versions run only for tensors on the CPU.  The differentiable
+The backward has two designs, chosen by `bwd_route` from (N, hd): a fused
+tensor-core pass for windows up to 144 tokens at head dims up to 48 (every
+model path), the four-pass row kernels for the rest.  The plain versions
+run only for tensors on the CPU.  The differentiable
 entries `window_attention_qkv` and `window_attention_qkv5d` are
 `torch.autograd.Function`s whose backward goes through the `_bwd`
 wrappers; the mask is a constant and gets no gradient.
@@ -39,6 +42,7 @@ from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _ke
 
 MAX_HEAD_DIM = 128
 MAX_N = 1023
+FUSED_MAX_N, FUSED_MAX_HEAD_DIM = 144, 48  # the fused backward's region
 _SOURCE = "window_attention_qkv"
 _TOKEN_MAJOR, _FIELD_5D = 0, 1  # the kernels' `layout` argument
 
@@ -216,11 +220,32 @@ def _dims(layout, x, bias, mask, nh, win):
 
 
 def _bwd_chunks(bW, nh, members_per_window):
-    """How many member chunks the dbias pass splits each bias window into:
-    at least about 1024 (bias window, head, chunk) triples to fill the card
-    (each has one block per [N, N] tile besides)."""
+    """How many member chunks the four-pass route's dbias pass splits each
+    bias window into: at least about 1024 (bias window, head, chunk)
+    triples to fill the card (each has one block per [N, N] tile besides)."""
     want = -(-1024 // (bW * nh))
     return max(1, min(members_per_window, want, 65535 // bW))
+
+
+def bwd_route(N, hd):
+    """Which backward design takes a window of N tokens at head dim hd:
+    "fused" (one tensor-core pass per member, for N <= FUSED_MAX_N and hd
+    <= FUSED_MAX_HEAD_DIM; its largest block, 207,360 B of shared memory at
+    N 144, hd 48 by the budget in `csrc/window_attention_qkv.cu`, fits the
+    232,448 B an H100 block may hold, and hd 64 would not) or "four_pass"
+    (the row kernels, any N to MAX_N).  Decided from the shape before the
+    launch, never as a retry."""
+    return "fused" if N <= FUSED_MAX_N and hd <= FUSED_MAX_HEAD_DIM else "four_pass"
+
+
+def _fused_chunks(bW, nh, members_per_window):
+    """How many member chunks the fused backward splits each bias window
+    into: about 1024 (bias window, head, chunk) blocks, 8 per SM of an
+    H100, so that the last blocks leave little of the card idle, but at
+    least 4 members a chunk, since each block also writes an [N, N] dbias
+    partial that the chunk sum reads back."""
+    want = -(-1024 // (bW * nh))
+    return max(1, min(members_per_window, want, members_per_window // 4))
 
 
 def _launch_fwd(name, layout, x, bias, mask, nh, win, out_shape, lse_shape):
@@ -252,21 +277,27 @@ def _launch_bwd(name, layout, x, bias, mask, out, lse, dout, win):
                         f"got {lse.dtype} {tuple(lse.shape)}")
     _check_cuda(name, (x, bias, mask, out, dout), hd, N)
     lse = lse.contiguous()
-    n_chunks = _bwd_chunks(bW, nh, B * L * (nW if bW == 1 else 1))
+    route = bwd_route(N, hd)
+    members = B * L * (nW if bW == 1 else 1)
     dqkv = torch.empty_like(x)
     dbias = torch.empty_like(bias)
-    drow = torch.empty_like(lse)
-    part = torch.empty((n_chunks, bW, nh, N, N), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn(_SOURCE, "window_attention_qkv_bwd", 10, 18)
+    tensors = [x, bias, mask, out, dout, lse, dqkv, dbias]
+    if route == "fused":
+        n_chunks = _fused_chunks(bW, nh, members)
+        fn = _kernel_fn(_SOURCE, "window_attention_qkv_bwd_fused", 9, 18)
+    else:
+        n_chunks = _bwd_chunks(bW, nh, members)
+        tensors.append(torch.empty_like(lse))  # drow
+        fn = _kernel_fn(_SOURCE, "window_attention_qkv_bwd", 10, 18)
+    tensors.append(torch.empty((n_chunks, bW, nh, N, N), dtype=torch.float32, device=x.device))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
-                 drow.data_ptr(), part.data_ptr(), *dims, n_chunks, layout,
+        err = fn(*(t.data_ptr() for t in tensors), *dims, n_chunks, layout,
                  _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} for qkv {tuple(x.shape)} {x.dtype}, "
-                           f"bias {tuple(bias.shape)}, mask {tuple(mask.shape)}")
-    return dqkv, dbias
+        raise RuntimeError(f"{name}: CUDA error {err} on the {route} route for qkv "
+                           f"{tuple(x.shape)} {x.dtype}, bias {tuple(bias.shape)}, "
+                           f"mask {tuple(mask.shape)}")
+    return dqkv, dbias, route
 
 
 def window_attention_qkv_fwd(qkv, bias, mask, nh):
@@ -290,21 +321,26 @@ window_attention_qkv_fwd.launches = 0
 
 def window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout):
     """(dqkv, dbias) of `window_attention_qkv_fwd`; see
-    `window_attention_qkv_bwd_plain`.  CUDA tensors take the kernels (one
-    counted launch in `window_attention_qkv_bwd.launches` runs all passes)."""
+    `window_attention_qkv_bwd_plain`.  CUDA tensors take the kernels of
+    `bwd_route`'s design: one counted launch in
+    `window_attention_qkv_bwd.launches` runs all its passes, and
+    `window_attention_qkv_bwd.fused_launches` counts those of the fused
+    route."""
     nh = lse.shape[3]
     _check_token_major(qkv, bias, mask, nh)
     tensors = (qkv, bias, out, lse, dout) + (() if mask is None else (mask,))
     if _device_of(tensors).type == "cpu":
         return window_attention_qkv_bwd_plain(qkv, bias, mask, out, lse, dout)
     mask = _zero_mask(qkv.shape[3], qkv) if mask is None else mask
-    res = _launch_bwd("window_attention_qkv_bwd", _TOKEN_MAJOR, qkv, bias, mask, out, lse,
-                      dout, None)
+    dqkv, dbias, route = _launch_bwd("window_attention_qkv_bwd", _TOKEN_MAJOR, qkv, bias,
+                                     mask, out, lse, dout, None)
     window_attention_qkv_bwd.launches += 1
-    return res
+    window_attention_qkv_bwd.fused_launches += route == "fused"
+    return dqkv, dbias
 
 
 window_attention_qkv_bwd.launches = 0
+window_attention_qkv_bwd.fused_launches = 0
 
 
 def window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win):
@@ -330,20 +366,24 @@ window_attention_qkv5d_fwd.launches = 0
 
 def window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse, dout5, win):
     """(dqkv5, dbias) of `window_attention_qkv5d_fwd`; CUDA tensors take the
-    kernels (one counted launch in `window_attention_qkv5d_bwd.launches`)."""
+    kernels of `bwd_route`'s design (one counted launch in
+    `window_attention_qkv5d_bwd.launches`, and in `.fused_launches` too on
+    the fused route)."""
     win = tuple(int(w) for w in win)
     _, _, N = _window_dims(qkv5, bias, mask, lse.shape[3], win)
     tensors = (qkv5, bias, out5, lse, dout5) + (() if mask is None else (mask,))
     if _device_of(tensors).type == "cpu":
         return window_attention_qkv5d_bwd_plain(qkv5, bias, mask, out5, lse, dout5, win)
     mask = _zero_mask(N, qkv5) if mask is None else mask
-    res = _launch_bwd("window_attention_qkv5d_bwd", _FIELD_5D, qkv5, bias, mask, out5, lse,
-                      dout5, win)
+    dqkv, dbias, route = _launch_bwd("window_attention_qkv5d_bwd", _FIELD_5D, qkv5, bias,
+                                     mask, out5, lse, dout5, win)
     window_attention_qkv5d_bwd.launches += 1
-    return res
+    window_attention_qkv5d_bwd.fused_launches += route == "fused"
+    return dqkv, dbias
 
 
 window_attention_qkv5d_bwd.launches = 0
+window_attention_qkv5d_bwd.fused_launches = 0
 
 
 # ---------------------------------------------------------------- autograd

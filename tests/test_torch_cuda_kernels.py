@@ -183,22 +183,20 @@ def _bwd(layout, qkv, bias, mask, out, lse, dout, win, plain=False):
     return fn(qkv, bias, mask, out, lse, dout)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("layout, shape, nh, win, bW, lead", WINDOW_CASES)
-def test_window_kernels_match_plain_on_card(cuda, dtype, layout, shape, nh, win, bW, lead):
-    """Forward and backward of both layouts against their plain versions,
-    one counted launch each, and two backward calls bit-identical."""
+def _check_window_case(cuda, dtype, layout, shape, nh, win, bW, lead):
+    """Forward and backward against the plain versions on the CPU, two
+    backward calls bit-identical; returns the counters' moves: forward
+    launches, backward launches, fused-route backward launches."""
     qkv, bias, mask, dout = _window_inputs(cuda, dtype, layout, shape, nh, win, bW, lead,
                                            seed=sum(shape) + bW)
-    counters = ((wa.window_attention_qkv5d_fwd, wa.window_attention_qkv5d_bwd) if layout == "5d"
+    fwd, bwd = ((wa.window_attention_qkv5d_fwd, wa.window_attention_qkv5d_bwd) if layout == "5d"
                 else (wa.window_attention_qkv_fwd, wa.window_attention_qkv_bwd))
-    before = [c.launches for c in counters]
+    before = (fwd.launches, bwd.launches, bwd.fused_launches)
     out, lse = _fwd(layout, qkv, bias, mask, nh, win)
     got = _bwd(layout, qkv, bias, mask, out, lse, dout, win)
     again = _bwd(layout, qkv, bias, mask, out, lse, dout, win)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 2]
+    moved = [a - b for a, b in zip((fwd.launches, bwd.launches, bwd.fused_launches), before)]
     f32 = [None if t is None else t.float() for t in (qkv, bias, mask)]
     want, want_lse = _fwd(layout, *(t.cpu() if t is not None else None for t in f32), nh, win)
     # fp32: other summation orders; bf16: the result is rounded once to bf16
@@ -213,6 +211,41 @@ def test_window_kernels_match_plain_on_card(cuda, dtype, layout, shape, nh, win,
         torch.testing.assert_close(a.float().cpu(), w, rtol=0, atol=tol, msg=name)
     for a, b in zip(got, again):  # no atomics: bit-identical
         assert torch.equal(a, b)
+    return moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout, shape, nh, win, bW, lead", WINDOW_CASES)
+def test_window_kernels_match_plain_on_card(cuda, dtype, layout, shape, nh, win, bW, lead):
+    """Forward and backward of both layouts against their plain versions,
+    one counted launch each, and two backward calls bit-identical."""
+    moved = _check_window_case(cuda, dtype, layout, shape, nh, win, bW, lead)
+    assert moved[:2] == [1, 2]
+
+
+# (layout, qkv shape, nh, window, bias windows, mask lead dims or None,
+# route): the model paths' shapes, and the fused route's edge
+ROUTE_CASES = [
+    ("token-major", (2, 1, 5, 64, 288), 4, None, 1, None, "fused"),  # N 64 hd 24, bW 1
+    ("5d", (2, 2, 12, 24, 576), 6, (2, 6, 12), 2, (2, 2), "fused"),  # N 144 hd 32, [nLon, nW]
+    ("token-major", (2, 1, 4, 64, 576), 4, None, 4, None, "fused"),  # N 64 hd 48, bW nW
+    ("token-major", (1, 2, 2, 144, 288), 2, None, 2, (2, 2), "fused"),  # the largest taken
+    ("token-major", (1, 1, 2, 145, 288), 2, None, 2, (1, 2), "four_pass"),  # N past it
+    ("token-major", (1, 1, 2, 144, 168), 1, None, 2, None, "four_pass"),  # hd 56 past it
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout, shape, nh, win, bW, lead, route", ROUTE_CASES)
+def test_window_backward_takes_its_route_on_card(cuda, dtype, layout, shape, nh, win, bW,
+                                                  lead, route):
+    """Each shape's backward runs on the route `bwd_route` names (the fused
+    counter moves with it or not at all), matches the plain version and
+    repeats bit for bit."""
+    moved = _check_window_case(cuda, dtype, layout, shape, nh, win, bW, lead)
+    assert moved == [1, 2, 2 if route == "fused" else 0]
 
 
 @pytest.mark.cuda

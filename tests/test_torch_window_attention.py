@@ -164,6 +164,37 @@ def test_wrappers_count_no_launch_on_the_cpu():
             wa.window_attention_qkv5d_fwd.launches) == before
 
 
+@pytest.mark.parametrize("N, hd, route", [
+    (144, 32, "fused"),       # Pangu stages 1 and 2
+    (64, 24, "fused"),        # swin_win8 stage 0
+    (64, 48, "fused"),        # swin_win8 stage 1
+    (72, 16, "fused"),        # the round-2 shape
+    (1, 8, "fused"),
+    (144, 48, "fused"),       # the largest block the fused route takes
+    (145, 48, "four_pass"),   # the first N past it
+    (144, 56, "four_pass"),   # the first head dim past it
+    (200, 32, "four_pass"),
+    (1023, 128, "four_pass"),
+])
+def test_backward_route_is_chosen_by_shape(N, hd, route):
+    assert wa.bwd_route(N, hd) == route
+
+
+@pytest.mark.parametrize("bW, nh, members, chunks", [
+    (6, 6, 192, 29),   # Pangu stage 1: 36 (w, h) pairs x 192 members
+    (3, 12, 96, 24),   # Pangu stage 2: 36 pairs x 96 members
+    (1, 4, 1024, 256),  # swin_win8 stage 0: shared bias, 4 heads x 1024 members
+    (8, 4, 32, 8),     # swin_win8 stage 1: 32 pairs x 32 members
+    (2, 2, 3, 1),      # fewer than 4 members: one chunk
+])
+def test_fused_chunk_plan(bW, nh, members, chunks):
+    """About 1024 blocks where the members allow, each summing at least 4
+    members (or all of them)."""
+    n = wa._fused_chunks(bW, nh, members)
+    assert n == chunks
+    assert -(-members // n) >= min(4, members)
+
+
 def test_shapes_are_checked():
     qkv = torch.zeros(2, 1, 3, 8, 48)
     with pytest.raises(ValueError, match="bias"):
