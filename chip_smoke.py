@@ -10,12 +10,17 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
 1. the card: CUDA must be available; prints its name and power limit;
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
    one nvcc per source, all started together; prints ptxas's registers
-   and spills of the fused window-backward instances;
+   and spills of the fused instances (window forward and backward, packed
+   backward);
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, fp32 and bf16, TF32 off (backward calls twice, which
-   must agree bit for bit; each window case's backward must take the
-   design `bwd_route` names, one case lies past the fused region), and
-   times the kernel, the plain version, the
+   must agree bit for bit; each window case's forward and backward must
+   take the designs `fwd_route` and `bwd_route` name, and each packed
+   case's backward the one `bwd_route` names; one case of each lies past
+   the fused region), and
+   times the kernel, the old design on the fused cases (the row forward,
+   the four-pass packed backward, through the modules' private
+   launchers), the plain version, the
    least time the card could take (`bound_ms`) and one PyTorch library
    call computing the same function (`library_ms`, a yardstick the port
    never calls); the packed kernel (B5) also against the 5D window kernel
@@ -42,12 +47,13 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      model.use_flash_attention=null` for 1 epoch (the token-major
      window-attention kernels), its card-vs-CPU gradients on the forced
      token-major route and a profiler breakdown of one training step;
-   on every training path each window backward launch must take the
+   on every path each window forward and backward launch must take the
    fused route;
    - the packed path: B5's public `packed_window_attention` has no model
      caller, so three emulated Pangu attention steps at batch 32 drive it,
      forward and backward at each of the shipped Pangu's 16 blocks' shapes
-     (48 launches each way, 0 of every other kernel);
+     (48 launches each way, all 48 backward launches fused, 0 of every
+     other kernel);
 5. the card line, the `kernels` line and, last, `{"ok": true, ...}`.
 
 Every time printed stands beside the card's name and power limit.
@@ -118,16 +124,23 @@ def build_all():
     for name, path in libs.items():
         print(f"built {name} -> {os.path.relpath(path, REPO)}")
     print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
-    fused = fused_ptxas(libs["window_attention_qkv"][:-3] + ".log")
-    spilled = [f"{k}: {s} B" for k, _, s in fused if s]
-    print(f"ptxas -v, the {len(fused)} fused window-backward instances (dtype, hd, tiles, "
-          f"layout: registers): {'; '.join(f'{k}: {r}' for k, r, _ in fused)}; spill stores "
-          f"{', '.join(spilled) if spilled else 'none'}")
+    fused = (fused_ptxas(libs["window_attention_qkv"][:-3] + ".log")
+             + fused_ptxas(libs["packed_window_attention"][:-3] + ".log"))
+    for kind in ("window backward", "window forward", "packed backward"):
+        rows = [r for r in fused if r[0] == kind]
+        spilled = [f"{k}: {s} B" for _, k, _, s in rows if s]
+        print(f"ptxas -v, the {len(rows)} fused {kind} instances (dtype, hd, tiles, layout: "
+              f"registers): {'; '.join(f'{k}: {r}' for _, k, r, _ in rows)}; spill stores "
+              f"{', '.join(spilled) if spilled else 'none'}")
     return names
 
 
+FUSED_KINDS = {"wa_bwd": "window backward", "wa_fwd": "window forward",
+               "pw_bwd": "packed backward"}
+
+
 def fused_ptxas(log_path: str):
-    """[(instance, registers, spill-store bytes)] of every fused backward
+    """[(kind, instance, registers, spill-store bytes)] of every fused
     kernel, from the ptxas -v report the build keeps beside the library."""
     import re
 
@@ -139,10 +152,13 @@ def fused_ptxas(log_path: str):
             elif m := re.search(r"(\d+) bytes spill stores", line):
                 spill = int(m.group(1))
             elif (m := re.search(r"Used (\d+) registers", line)) and entry:
-                if t := re.search(r"wa_bwd_fused_kernelI(\w+?)Li(\d+)ELi(\d+)E", entry):
-                    dtype = "fp32" if t.group(1) == "f" else "bf16"
-                    layout = "5D" if "Field5D" in entry else "token-major"
-                    rows.append((f"{dtype} hd {t.group(2)} NT {t.group(3)} {layout}",
+                if t := re.search(r"(wa_bwd|wa_fwd|pw_bwd)_fused_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                                  entry):
+                    dtype = "fp32" if t.group(2) == "f" else "bf16"
+                    layout = ("5D" if "Field5D" in entry else
+                              "token-major" if "TokenMajor" in entry else "head-major")
+                    rows.append((FUSED_KINDS[t.group(1)],
+                                 f"{dtype} hd {t.group(3)} NT {t.group(4)} {layout}",
                                  int(m.group(1)), spill))
                 entry = None
     return rows
@@ -477,8 +493,11 @@ def check_window(card: str):
                 fwd, bwd = wa.window_attention_qkv_fwd, wa.window_attention_qkv_bwd
                 p_fwd, p_bwd = wa.window_attention_qkv_plain, wa.window_attention_qkv_bwd_plain
             counter = wa.window_attention_qkv5d_bwd if layout == "5d" else wa.window_attention_qkv_bwd
+            fwd_counter = wa.window_attention_qkv5d_fwd if layout == "5d" else wa.window_attention_qkv_fwd
             B, L, nW, N, C = _window_dims(layout, shape, win)
+            ffused0 = fwd_counter.fused_launches
             out, lse = fwd(qkv, bias, mask, nh)
+            fwd_route = "fused" if fwd_counter.fused_launches - ffused0 == 1 else "row"
             fused0 = counter.fused_launches
             got = bwd(qkv, bias, mask, out, lse, dout)
             again = bwd(qkv, bias, mask, out, lse, dout)
@@ -491,6 +510,7 @@ def check_window(card: str):
             errs = {"out": (out.float() - p_out).abs().max().item(),
                     "lse": (lse - p_lse).abs().max().item()}
             ok = identical and route == wa.bwd_route(N, C // nh) \
+                and fwd_route == wa.fwd_route(N, C // nh) \
                 and errs["out"] <= tol["out"] * max(1.0, p_out.abs().max().item()) \
                 and errs["lse"] <= tol["lse"] * max(1.0, p_lse.abs().max().item())
             for name, a, r in zip(("dqkv", "dbias"), got, ref):
@@ -499,6 +519,13 @@ def check_window(card: str):
                 ok = ok and errs[name] <= tol["bwd"] * errs[name + "_ref_max"]
             del again, ref, p_out, p_lse
             ms = cuda_ms(lambda: fwd(qkv, bias, mask, nh), 20)
+            row_ms = None  # the old design at a fused case: the row forward
+            if fwd_route == "fused":
+                code = wa._FIELD_5D if layout == "5d" else wa._TOKEN_MAJOR
+                m = wa._zero_mask(N, qkv) if mask is None else mask
+                row_ms = cuda_ms(lambda: wa._launch_fwd(
+                    "row forward", code, qkv, bias, m, nh, win, tuple(out.shape),
+                    tuple(lse.shape), route="row"), 20)
             bwd_ms = cuda_ms(lambda: bwd(qkv, bias, mask, out, lse, dout), 10)
             plain_ms = cuda_ms(lambda: p_fwd(qkv, bias, mask, nh), 3)
             plain_bwd_ms = cuda_ms(lambda: p_bwd(qkv, bias, mask, out, lse, dout), 3)
@@ -516,6 +543,7 @@ def check_window(card: str):
                        hd=C // nh, bias=list(bias.shape), mask=mshape, errors=errs,
                        fwd_max_abs_err=max(errs["out"], errs["lse"]),
                        bwd_max_abs_err=max(errs["dqkv"], errs["dbias"]), tol=tol,
+                       fwd_route=fwd_route, row_ms=row_ms,
                        bwd_route=route, bit_identical=identical, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
@@ -528,9 +556,11 @@ def check_window(card: str):
                 f"bias{list(bias.shape)} mask{list(mshape) if mshape else None}: max|diff| out "
                 f"{errs['out']:.3e} lse {errs['lse']:.3e} dqkv {errs['dqkv']:.3e}/"
                 f"{errs['dqkv_ref_max']:.3e} dbias {errs['dbias']:.3e}/{errs['dbias_ref_max']:.3e} "
-                f"(tol {tol}), backward route {route}, two backward calls "
-                f"{'bit-identical' if identical else 'DIFFER'} "
-                f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
+                f"(tol {tol}), forward route {fwd_route}, backward route {route}, two backward "
+                f"calls {'bit-identical' if identical else 'DIFFER'} "
+                f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms"
+                + (f" (row kernel {row_ms:.4f})" if row_ms is not None else "")
+                + f", plain {plain_ms:.4f}, sdpa "
                 f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {flops / ms / 1e9:.1f} "
                 f"TFLOP/s); backward kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f}, sdpa bwd "
                 f"(q, k, v, mask) {library_bwd_ms:.4f}, bound {bwd_bound_ms:.4f} ({bwd_bound_by}, "
@@ -550,13 +580,15 @@ PANGU_WIN = (2, 6, 12)
 PANGU_SHIFT = (1, 3, 6)
 # (label, BW, nh, N, D, nW, bias kind, mask kind, nLon or the padded field
 # of the shift mask): Pangu's earth attention at batch 32 (BW = 32 x nLon x
-# nW), the round-2 shape, and a random asymmetric mask shared by the windows.
+# nW), the round-2 shape, a random asymmetric mask shared by the windows,
+# and a shape past the fused backward's region (N 200: four passes).
 PACKED_CASES = [
     ("pangu stage1 shifted", 32 * 6 * 6, 6, 144, 32, 6, "earth", "pangu-shift", (2, 36, 72)),
     ("pangu stage1", 32 * 6 * 6, 6, 144, 32, 6, "earth", None, None),
     ("pangu stage2 shifted", 32 * 3 * 3, 12, 144, 32, 3, "earth", "pangu-shift", (2, 18, 36)),
     ("round-2 N72 hd16", 32 * 3 * 2, 3, 72, 16, 2, "random", "block", 3),
     ("asymmetric mask N100 hd24", 32 * 4 * 4, 4, 100, 24, 4, "random", "random", 4),
+    ("four-pass N200 hd32", 32 * 2 * 2, 2, 200, 32, 2, "random", "block", 2),
 ]
 # Tolerances.  out: fp32 sums over <= 144 keys in another order (absolute;
 # |out| < 5), bf16 one rounding of the fp32 result (a share of max|ref|).
@@ -639,6 +671,7 @@ def check_packed(card: str):
     import torch.nn.functional as F
 
     from dlwpbench_tpu_torch.ops import packed_attention as pk
+    from dlwpbench_tpu_torch.ops import window_attention as wa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     checks, failures = [], []
@@ -649,9 +682,12 @@ def check_packed(card: str):
             q, k, v, bias, mask, do = _packed_inputs(BW, nh, N, D, nW, bias_kind, mask_kind,
                                                      mask_arg, dtype, gen)
             out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+            fused0 = pk.packed_window_attention_bwd.fused_launches
             got = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
             again = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
             torch.cuda.synchronize()
+            route = "fused" if pk.packed_window_attention_bwd.fused_launches - fused0 == 2 \
+                else "four_pass"
             identical = all(torch.equal(a, b) for a, b in zip(got, again))
             f32 = [None if t is None else t.float() for t in (q, k, v, bias, mask)]
             p_out, p_lse = pk.packed_window_attention_plain(*f32)
@@ -659,7 +695,8 @@ def check_packed(card: str):
             errs = {"out": (out.float() - p_out).abs().max().item(),
                     "lse": (lse - p_lse).abs().max().item()}
             out_scale = 1.0 if dname == "float32" else p_out.abs().max().item()
-            ok = identical and errs["out"] <= tol["out"] * out_scale \
+            ok = identical and route == pk._bwd_plan(BW, nh, N, D, nW)[0] \
+                and errs["out"] <= tol["out"] * out_scale \
                 and errs["lse"] <= tol["lse"] * max(1.0, p_lse.abs().max().item())
             for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
                 errs[name] = (a.float() - r).abs().max().item()
@@ -669,6 +706,11 @@ def check_packed(card: str):
             args = (q, k, v, bias, mask)
             ms = cuda_ms(lambda: pk.packed_window_attention_fwd(*args), 20)
             bwd_ms = cuda_ms(lambda: pk.packed_window_attention_bwd(*args, out, lse, do), 10)
+            four_pass_ms = None  # the old design at a fused case: the four passes
+            if route == "fused":
+                m = wa._zero_mask(N, q) if mask is None else mask
+                four_pass_ms = cuda_ms(lambda: pk._launch_bwd(
+                    q, k, v, bias, m, out, lse, do, route="four_pass"), 10)
             plain_ms = cuda_ms(lambda: pk.packed_window_attention_plain(*args), 3)
             plain_bwd_ms = cuda_ms(lambda: pk.packed_window_attention_bwd_plain(*args, out, lse, do), 3)
             full = _packed_sdpa_mask(bias, mask, BW)
@@ -683,7 +725,8 @@ def check_packed(card: str):
             rec = dict(case=label, dtype=dname, q=[BW, nh, N, D], bias=list(bias.shape),
                        mask=mshape, errors=errs, fwd_max_abs_err=max(errs["out"], errs["lse"]),
                        bwd_max_abs_err=max(errs[n] for n in ("dq", "dk", "dv", "dbias")),
-                       tol=tol, bit_identical=identical, ms=ms, plain_ms=plain_ms,
+                       tol=tol, bwd_route=route, four_pass_bwd_ms=four_pass_ms,
+                       bit_identical=identical, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                        bytes=nbytes, bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
                        library_bwd_ms=library_bwd_ms, bwd_bound_ms=bwd_bound_ms,
@@ -695,10 +738,13 @@ def check_packed(card: str):
                 f"{errs['out']:.3e} lse {errs['lse']:.3e} "
                 + " ".join(f"{n} {errs[n]:.3e}/{errs[n + '_ref_max']:.3e}"
                            for n in ("dq", "dk", "dv", "dbias"))
-                + f" (tol {tol}), two backward calls {'bit-identical' if identical else 'DIFFER'} "
+                + f" (tol {tol}), backward route {route}, two backward calls "
+                f"{'bit-identical' if identical else 'DIFFER'} "
                 f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
                 f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {flops / ms / 1e9:.1f} "
-                f"TFLOP/s); backward kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f}, sdpa bwd "
+                f"TFLOP/s); backward kernel {bwd_ms:.4f} ms"
+                + (f" (four-pass kernels {four_pass_ms:.4f})" if four_pass_ms is not None else "")
+                + f", plain {plain_bwd_ms:.4f}, sdpa bwd "
                 f"(q, k, v, mask) {library_bwd_ms:.4f}, bound {bwd_bound_ms:.4f} ({bwd_bound_by}, "
                 f"{bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s) [{card}]"
             )
@@ -785,8 +831,7 @@ def counters_of():
 
 
 def reset_counters(counters):
-    """Every launch counter to 0, the window backwards' fused-route
-    counters too."""
+    """Every launch counter to 0, the fused-route counters too."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "fused_launches"):
@@ -794,10 +839,11 @@ def reset_counters(counters):
 
 
 def check_fused(label: str, counters, launches):
-    """Every window backward launch of a path took the fused route: the
-    paths' shapes (N 64 and 144, hd 24, 32, 48) all lie in its region."""
+    """Every launch of a path's kernels with two designs (the window
+    forwards and backwards, B5's backward) took the fused route: the paths'
+    shapes (N 64 and 144, hd 24, 32, 48) all lie in its region."""
     fused = {n: fn.fused_launches for n, fn in counters.items() if hasattr(fn, "fused_launches")}
-    print(f"{label} fused-route backward launches {fused} of {({n: launches[n] for n in fused})}")
+    print(f"{label} fused-route launches {fused} of {({n: launches[n] for n in fused})}")
     if any(fused[n] != launches[n] for n in fused):
         raise SystemExit(f"{label}: fused-route launches {fused}, want all of "
                          f"{({n: launches[n] for n in fused})}")
@@ -891,8 +937,9 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
           f"batches x {steps} steps wants {want}; no backward under no_grad)")
     if launches != want or not any(launches.values()):
         raise SystemExit(f"{label}: launches {launches}, want {want}")
+    fused = check_fused(label, counters, launches)
     check_forecast_files(out_dir, res, cfg, len(res["batch_seconds"]))
-    return res, launches, cfg
+    return res, launches, cfg, fused
 
 
 def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int):
@@ -1204,7 +1251,7 @@ def run_packed_path(card: str):
     print(f"packed path launches {launches} (wants {want})")
     if launches != want or not finite:
         raise SystemExit(f"packed path: launches {launches}, want {want}; finite {finite}")
-    return launches
+    return launches, check_fused("packed path", counters, launches)
 
 
 def main() -> int:
@@ -1237,42 +1284,45 @@ def main() -> int:
     packed = check_packed(card)
     check_packed_vs_5d(card)
 
-    paths = {}
+    paths, fused_by_path = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
-        _, paths["evaluate"], cfg = run_eval_path("main path", MAIN_ARGV, out_dir, card)
+        _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
+            "main path", MAIN_ARGV, out_dir, card)
     check_rollout_vs_cpu(cfg)
     profile_rollout(cfg, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
         train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card)
-    paths["train"] = train["launches"]
+    paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
     check_train_grads(tcfg, train_ds, card)
     profile_train_step(tcfg, train_ds, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_eval_") as out_dir:
-        _, paths["pangu_evaluate"], pcfg = run_eval_path("pangu evaluate", PANGU_EVAL_ARGV,
-                                                          out_dir, card)
+        _, paths["pangu_evaluate"], pcfg, fused_by_path["pangu_evaluate"] = run_eval_path(
+            "pangu evaluate", PANGU_EVAL_ARGV, out_dir, card)
     profile_rollout(pcfg, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
         ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card)
-    paths["pangu_train"] = ptrain["launches"]
+    paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
     # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64)
     check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d")
     profile_train_step(ptcfg, ptrain_ds, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
         s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
-    paths["swin_win8_train"] = s8["launches"]
+    paths["swin_win8_train"], fused_by_path["swin_win8_train"] = s8["launches"], s8["fused"]
     # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
     check_train_grads(s8cfg, s8_ds, card, card_route="packed")
     profile_train_step(s8cfg, s8_ds, card)
-    paths["packed"] = run_packed_path(card)
-    fused_by_path = {"pangu_train": ptrain["fused"], "swin_win8_train": s8["fused"]}
+    paths["packed"], fused_by_path["packed"] = run_packed_path(card)
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`
     # counts the path of the kernel's slice, `launches_by_path` every path.
+    # A kernel with two designs adds its fused launches on that path, the
+    # design its case took, and the old design's time there (`old_ms`: the
+    # row forward, the four-pass packed backward).
     pa = "dlwpbench_tpu/ops/pallas_attention.py"
     csrc = "dlwpbench_tpu_torch/ops/csrc"
     kernels = []
@@ -1304,8 +1354,9 @@ def main() -> int:
                 name=kname, route="cuda", source=f"{csrc}/window_attention_qkv.cu",
                 replaces=rep, launches=paths[slice_path][kname],
                 launches_by_path={p: c[kname] for p, c in paths.items()},
-                **({"fused_launches": fused_by_path[slice_path][kname],
-                    "design": head["bwd_route"]} if pre else {}),
+                fused_launches=fused_by_path[slice_path][kname],
+                design=head["bwd_route"] if pre else head["fwd_route"],
+                **({} if pre else {"old_ms": head["row_ms"]}),
                 max_abs_err=max(c[err] for c in fp32),
                 ms=head[f"{pre}ms"], plain_ms=head[f"plain_{pre}ms"],
                 bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],
@@ -1321,6 +1372,8 @@ def main() -> int:
             name=kname, route="cuda", source=f"{csrc}/packed_window_attention.cu",
             replaces=rep, launches=paths["packed"][kname],
             launches_by_path={p: c[kname] for p, c in paths.items()},
+            **({"fused_launches": fused_by_path["packed"][kname], "design": head["bwd_route"],
+                "old_ms": head["four_pass_bwd_ms"]} if pre else {}),
             max_abs_err=max(c[err] for c in fp32),
             ms=head[f"{pre}ms"], plain_ms=head[f"plain_{pre}ms"],
             bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],

@@ -35,8 +35,22 @@
 // sequential axis.
 //  forward   one block per (problem, query tile, head), online softmax over
 //            key tiles of 64, 16 keys per rescale;
-//  backward  four launches, no floating-point atomics, every sum in a fixed
-//            order, so two calls give bit-identical results:
+//  backward  two designs, chosen by shape before the launch (the wrapper
+//            takes `window_attention.bwd_route`); neither uses
+//            floating-point atomics and every sum runs in a fixed order, so
+//            two calls give bit-identical results.
+//   fused      N <= 144 and hd <= 48 (every Pangu shape): the window
+//              kernel's one tensor-core pass per problem
+//              (`fused_bwd_body`, small_window_common.cuh; the design is
+//              described in window_attention_qkv.cu), through `PackedAccess`
+//              below: rows of a (problem, head) are contiguous, the
+//              query-major bias + mask element (key kr, query qc) is read
+//              at [qc][kr] (the mask may be asymmetric, so the transpose is
+//              explicit), and each block's dbias partial is written
+//              query-major, which the ordered chunk sum finishes as it
+//              stands.  One block per (window type, head, chunk of its
+//              problems p = t * nW + w in order of t).
+//   four-pass  everything else up to N 1023, four launches:
 //   1. dQ (and drow into scratch): block per (problem, query tile, head),
 //      walking the key tiles;
 //   2. dbias partials: block per (query tile x key tile, head, window type
@@ -54,8 +68,10 @@
 // heads, N 144, D 32) the forward does 4 BW nh N^2 D = 18.3 GFLOP on about
 // 0.6 GB of fp32 operands: about 30 operations per byte, above the fp32
 // ridge of 20, so fp32 operations bound it (0.27 ms at 67 TFLOP/s); the
-// backward's five products 46 GFLOP (0.68 ms).  The products run on the
-// fp32 CUDA cores; tensor cores (wgmma) and TMA staging are later work.
+// backward's five products 46 GFLOP (0.68 ms).  The forward and the
+// four-pass backward run their products on the fp32 CUDA cores; the fused
+// backward on the tensor cores as 3xTF32 (0.28 ms at 495 / 3 TFLOP/s, so
+// its bytes, about 1 GB, 0.31 ms, bound it).
 
 #include "small_window_common.cuh"
 
@@ -439,6 +455,74 @@ pw_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- fused backward
+// The fused body's (small_window_common.cuh) access policy on head-major
+// operands: bias window wb is window type w, whose members are the problems
+// p = t * nW + w in order of t (the JAX grid's (nW, nh, B_) order with t
+// innermost); token j of (p, h) is row (p * nh + h) * N + j of q, k, v,
+// out, dO, dq, dk and dv, so no row table is needed beyond that sum.  bias
+// and mask are QUERY-major and the mask need not be symmetric, so the
+// element at key kr, query qc is read at [qc][kr], and dbias partials are
+// written query-major.
+template <typename T, int D>
+struct PackedAccess {
+  const T* q_;
+  const T* k_;
+  const T* v_;
+  const T* bias_;
+  const T* mask_;
+  const T* out_;
+  const T* dout_;
+  const float* lse;
+  T* dq_;
+  T* dk_;
+  T* dv_;
+  Geom g;
+
+  struct Member {
+    int m;
+    const T* mask;
+  };
+  __device__ int N() const { return g.N; }
+  __device__ int heads() const { return g.nh; }
+  __device__ float scale() const { return g.scale; }
+  __device__ int groups() const { return g.nW; }
+  __device__ int members() const { return g.BW / g.nW; }
+  __device__ const T* bias_block(int wb, int h) const { return bias_ptr(bias_, g, wb, h); }
+  __device__ Member member(int t, int wb) const {
+    const int p = t * g.nW + wb;
+    return {p, mask_ptr(mask_, g, p)};
+  }
+  __device__ size_t row(const Member& mb, int h, int j) const { return head_row(g, mb.m, h) + j; }
+  __device__ const T* q(size_t row, int) const { return q_ + row * D; }
+  __device__ const T* k(size_t row, int) const { return k_ + row * D; }
+  __device__ const T* v(size_t row, int) const { return v_ + row * D; }
+  __device__ const T* o(size_t row, int) const { return out_ + row * D; }
+  __device__ const T* dout(size_t row, int) const { return dout_ + row * D; }
+  __device__ T* dq(size_t row, int) const { return dq_ + row * D; }
+  __device__ T* dk(size_t row, int) const { return dk_ + row * D; }
+  __device__ T* dv(size_t row, int) const { return dv_ + row * D; }
+  __device__ float bm(const T* bp, const T* mp, int kr, int qc) const {
+    const size_t o = static_cast<size_t>(qc) * g.N + kr;
+    return load_f(bp + o) + load_f(mp + o);
+  }
+  __device__ size_t part_at(int kr, int qc) const { return static_cast<size_t>(qc) * g.N + kr; }
+};
+
+// Grid (member chunks, heads, window types); blockDim 32 * ceil(N / 16) <=
+// 32 * NT.  part is [n_chunks, nW, nh, N, N] fp32, query-major.
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(32 * NT)
+pw_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ bias,
+                    const T* __restrict__ mask, const T* __restrict__ out,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ part, Geom g, int n_chunks) {
+  const PackedAccess<T, D> a{q, k, v, bias, mask, out, dout, lse, dq, dk, dv, g};
+  fused_bwd_body<T, D, NT>(a, part, n_chunks);
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
@@ -502,6 +586,49 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   k_dkv<<<dim3(g.BW, g.n_tiles, g.nh), threads, smem_dkv, stream>>>(
       tq, tk, tv, tb, tm, tdo, tl, tr, static_cast<T*>(dk), static_cast<T*>(dv), g);
   return cudaGetLastError();
+}
+
+// The fused route: the one-pass kernel, then the ordered chunk sum.
+template <typename T, int D>
+cudaError_t launch_bwd_fused(const void* q, const void* k, const void* v,
+                             const void* bias, const void* mask, const void* out,
+                             const void* dout, const void* lse, void* dq, void* dk,
+                             void* dv, void* dbias, void* part, int n_chunks, Geom g,
+                             cudaStream_t stream) {
+  const int nt = (g.N + 15) / 16;
+  g.scale = 1.f / sqrtf(static_cast<float>(D));
+  const size_t smem = fused_smem_bytes(nt * 16, D);
+  auto kernel = nt <= 4 ? &pw_bwd_fused_kernel<T, D, 4> : &pw_bwd_fused_kernel<T, D, 9>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float* tp = static_cast<float*>(part);
+  kernel<<<dim3(n_chunks, g.nh, g.nW), 32 * nt, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(bias), static_cast<const T*>(mask), static_cast<const T*>(out),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), tp, g, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_dbias_chunk_sum(tp, static_cast<T*>(dbias),
+                                static_cast<size_t>(g.nW) * g.nh * g.N * g.N, n_chunks,
+                                stream);
+}
+
+template <typename T>
+cudaError_t dispatch_bwd_fused(int D, const void* q, const void* k, const void* v,
+                               const void* bias, const void* mask, const void* out,
+                               const void* dout, const void* lse, void* dq, void* dk,
+                               void* dv, void* dbias, void* part, int n_chunks,
+                               const Geom& g, cudaStream_t s) {
+  switch (D) {
+#define PW_FUSED_CASE(DD)                                                           \
+  case DD:                                                                          \
+    return launch_bwd_fused<T, DD>(q, k, v, bias, mask, out, dout, lse, dq, dk, dv, \
+                                   dbias, part, n_chunks, g, s);
+    FUSED_HEAD_DIMS(PW_FUSED_CASE)
+#undef PW_FUSED_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -598,6 +725,32 @@ extern "C" int packed_window_attention_bwd(
     err = dispatch_bwd<__nv_bfloat16>(D, q, k, v, bias, mask, out, dout, lse,
                                       dq, dk, dv, dbias, drow, part, n_chunks,
                                       g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The same backward by the fused route, for N <= 144 and head dims up to
+// 48 (anything else returns cudaErrorInvalidValue).  Scratch from the
+// caller: part float32 [n_chunks, nW, nh, N, N]; n_chunks (>= 1) splits
+// each window type's BW / nW problems over blocks.
+extern "C" int packed_window_attention_bwd_fused(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* mask, const void* out, const void* dout, const void* lse,
+    void* dq, void* dk, void* dv, void* dbias, void* part, int BW, int nh, int N,
+    int D, int nW, int mL, int mW, int n_chunks, int dtype, void* stream) {
+  Geom g;
+  if (!make_geom(g, BW, nh, N, nW, mL, mW) || N > kFusedMaxN || D > kFusedMaxD ||
+      n_chunks < 1 || nW > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dispatch_bwd_fused<float>(D, q, k, v, bias, mask, out, dout, lse, dq, dk, dv,
+                                    dbias, part, n_chunks, g, s);
+  } else if (dtype == 1) {
+    err = dispatch_bwd_fused<__nv_bfloat16>(D, q, k, v, bias, mask, out, dout, lse, dq,
+                                            dk, dv, dbias, part, n_chunks, g, s);
   }
   return static_cast<int>(err);
 }

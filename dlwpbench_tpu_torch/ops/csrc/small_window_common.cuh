@@ -1,8 +1,9 @@
 // Building blocks shared by the small-window attention kernels
 // (window_attention_qkv.cu, packed_window_attention.cu): row-per-thread
-// fp32 arithmetic on shared-memory tiles, the block plan and the ordered
-// dbias chunk sum.  Each source includes this once, so everything here has
-// internal linkage.
+// fp32 arithmetic on shared-memory tiles, the block plan, the ordered
+// dbias chunk sum, the 3xTF32 `mma.sync` helpers and the fused backward's
+// body, a template over each source's addressing.  Each source includes
+// this once, so everything here has internal linkage.
 
 #pragma once
 
@@ -131,6 +132,370 @@ cudaError_t launch_dbias_chunk_sum(const float* part, T* dbias, size_t n,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- tensor cores
+// The fused designs' region: N up to 9 tiles of 16 rows, head dims up to 48.
+constexpr int kFusedMaxN = 144;
+constexpr int kFusedMaxD = 48;
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An fp32 value as a TF32 big part and a TF32 remainder.
+struct Split3 {
+  uint32_t big, small;
+};
+__device__ __forceinline__ Split3 split_tf32(float x) {
+  const uint32_t b = to_tf32(x);
+  return {b, to_tf32(x - __uint_as_float(b))};
+}
+
+// d += a b on one m16n8k8 tile from operands already split (3xTF32).
+__device__ __forceinline__ void mma_3xtf32_split(float (&d)[4], const uint32_t (&ab)[4],
+                                                 const uint32_t (&as)[4],
+                                                 const uint32_t (&bb)[2],
+                                                 const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+// d += a b on one m16n8k8 tile, fp32-accurate: each operand split into a
+// TF32 big part and a TF32 remainder, three products, the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
+                                           const float (&b)[2]) {
+  uint32_t ab[4], as[4], bb[2], bs[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ab[i] = to_tf32(a[i]);
+    as[i] = to_tf32(a[i] - __uint_as_float(ab[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bb[i] = to_tf32(b[i]);
+    bs[i] = to_tf32(b[i] - __uint_as_float(bb[i]));
+  }
+  mma_3xtf32_split(d, ab, as, bb, bs);
+}
+
+// Fragments of the m16n8k8 TF32 product, lane = 4 g + t.  A is 16 x 8
+// (row-major), B 8 x 8 (k x n), C 16 x 8 with c[i] at row g + 8 (i / 2),
+// column 2 t + i % 2.  s is a shared tile of pitch p.
+// A[r][c] = s[r0 + r][c0 + c]
+__device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int p, int r0,
+                                       int c0, int g, int t) {
+  a[0] = s[(r0 + g) * p + c0 + t];
+  a[1] = s[(r0 + g + 8) * p + c0 + t];
+  a[2] = s[(r0 + g) * p + c0 + t + 4];
+  a[3] = s[(r0 + g + 8) * p + c0 + t + 4];
+}
+// A[r][c] = s[c0 + c][r0 + r]
+__device__ __forceinline__ void frag_at(float (&a)[4], const float* s, int p, int r0,
+                                        int c0, int g, int t) {
+  a[0] = s[(c0 + t) * p + r0 + g];
+  a[1] = s[(c0 + t) * p + r0 + g + 8];
+  a[2] = s[(c0 + t + 4) * p + r0 + g];
+  a[3] = s[(c0 + t + 4) * p + r0 + g + 8];
+}
+// B[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ void frag_bt(float (&b)[2], const float* s, int p, int k0,
+                                        int n0, int g, int t) {
+  b[0] = s[(n0 + g) * p + k0 + t];
+  b[1] = s[(n0 + g) * p + k0 + t + 4];
+}
+// B[k][n] = s[k0 + k][n0 + n]
+__device__ __forceinline__ void frag_b(float (&b)[2], const float* s, int p, int k0,
+                                       int n0, int g, int t) {
+  b[0] = s[(k0 + t) * p + n0 + g];
+  b[1] = s[(k0 + t + 4) * p + n0 + g];
+}
+// s[r0 + r][c0 + c] = C[r][c]
+__device__ __forceinline__ void store_c(float* s, int p, int r0, int c0,
+                                        const float (&c)[4], int g, int t) {
+  *reinterpret_cast<float2*>(s + (r0 + g) * p + c0 + 2 * t) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(s + (r0 + g + 8) * p + c0 + 2 * t) = make_float2(c[2], c[3]);
+}
+
+// Floats of the fused backward's [Np, Np + 4] P^T / dS^T tile, which first
+// holds O at pitch hd + 1 for the drow sums.
+__host__ __device__ constexpr int fused_tile_floats(int Np, int D) {
+  return Np * (Np + 4) > Np * (D + 1) ? Np * (Np + 4) : Np * (D + 1);
+}
+
+inline size_t fused_smem_bytes(int Np, int D) {
+  return sizeof(float) * (4 * Np * (D + 4) + fused_tile_floats(Np, D) + 2 * Np) +
+         sizeof(size_t) * Np;
+}
+
+// ---------------------------------------------------------------- fused backward
+// The body of the fused backward (one tensor-core pass per member), shared
+// by the window kernel (window_attention_qkv.cu) and the packed kernel
+// (packed_window_attention.cu); its design is described in the former's
+// header comment.  It runs for block (chunk c, head h, bias window wb) with
+// blockDim 32 * ceil(N / 16) <= 32 * NT and `fused_smem_bytes` of dynamic
+// shared memory.  Only the addressing differs between the callers, so it
+// is a template over an access policy `Acc`, which gives
+//  - N(), heads(), scale(), members() (those sharing one bias window) and
+//    groups() (bias windows: dbias's leading dim);
+//  - bias_block(wb, h): the bias block of (wb, h); member(t, wb): member t
+//    of bias window wb, with its mask block `mask` and its index `m`
+//    (its lse row is lse + (m * heads + h) * N, `lse` a field);
+//  - row(mb, h, j): token j's row; q/k/v/o/dout(row, h) and
+//    dq/dk/dv(row, h): where its head's D values lie;
+//  - bm(bp, mp, kr, qc): bias + mask at key kr, query qc;
+//  - part_at(kr, qc): where that element of a dbias partial goes.
+// Chunk c takes the members [c * per, (c + 1) * per) in order; the chunk's
+// dbias sum goes to part[c, wb, h] ([n_chunks, groups, heads, N, N] fp32).
+template <typename T, int D, int NT, typename Acc>
+__device__ __forceinline__ void fused_bwd_body(const Acc& a, float* __restrict__ part,
+                                               int n_chunks) {
+  constexpr int DP = D + 4;  // operand pitch: conflict-free A fragments
+  constexpr int ND = D / 8;  // 8-wide slices of the head dim
+  constexpr int V4 = D / 4;
+  const int N = a.N();
+  const int nt = blockDim.x / 32;  // 16-row tiles, one warp each
+  const int Np = nt * 16;
+  const int TP = Np + 4;
+  const float scale = a.scale();
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [Np][DP], times scale
+  float* k_s = q_s + Np * DP;
+  float* v_s = k_s + Np * DP;
+  float* do_s = v_s + Np * DP;
+  float* t_s = do_s + Np * DP;                   // [key][query], pitch TP
+  float* lse_s = t_s + fused_tile_floats(Np, D);
+  float* drow_s = lse_s + Np;
+  size_t* off_s = reinterpret_cast<size_t*>(drow_s + Np);
+
+  const int c = blockIdx.x;
+  const int h = blockIdx.y;
+  const int wb = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
+  const int r0 = warp * 16;  // the warp's key rows, then its query rows for dQ
+  const T* bp = a.bias_block(wb, h);
+
+  const int n_members = a.members();
+  const int per = (n_members + n_chunks - 1) / n_chunks;
+  const int t_end = min(n_members, (c + 1) * per);
+
+  float db[NT][2][4];  // dbias of key rows r0 + g (+8) x queries, summed
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) db[j][n][i] = 0.f;
+
+  for (int t = c * per; t < t_end; ++t) {
+    const typename Acc::Member mb = a.member(t, wb);
+    const T* mp = mb.mask;
+    const size_t lbase = (static_cast<size_t>(mb.m) * a.heads() + h) * N;
+
+    __syncthreads();  // the previous member's tiles are consumed
+    for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = a.row(mb, h, j);
+    __syncthreads();
+    for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
+      const int j = i / V4;
+      const int cc = (i % V4) * 4;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 q4 = z, k4 = z, v4 = z, d4 = z, o4 = z;
+      if (j < N) {
+        q4 = load4(a.q(off_s[j], h) + cc);
+        k4 = load4(a.k(off_s[j], h) + cc);
+        v4 = load4(a.v(off_s[j], h) + cc);
+        d4 = load4(a.dout(off_s[j], h) + cc);
+        o4 = load4(a.o(off_s[j], h) + cc);
+        q4 = make_float4(q4.x * scale, q4.y * scale, q4.z * scale, q4.w * scale);
+      }
+      *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
+      *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
+      *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
+      *reinterpret_cast<float4*>(do_s + j * DP + cc) = d4;
+      float* o = t_s + j * (D + 1) + cc;
+      o[0] = o4.x;
+      o[1] = o4.y;
+      o[2] = o4.z;
+      o[3] = o4.w;
+    }
+    for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = a.lse[lbase + j];
+    __syncthreads();
+    for (int j = threadIdx.x; j < Np; j += blockDim.x) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc = fmaf(do_s[j * DP + d], t_s[j * (D + 1) + d], acc);
+      drow_s[j] = acc;
+    }
+    __syncthreads();  // O is read; the tile is free for P^T and dS^T
+
+    // Key rows r0 .. r0 + 15 against the queries, 16 at a time.
+    float dk[ND][4], dv[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+    // The loop is not unrolled (code size, build time): db[0] is always
+    // the current tile's accumulator, and the array rotates one tile a
+    // step, NT steps a member, so registers are indexed statically.
+#pragma unroll 1
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const int q0 = j * 16;
+        float s[2][4], dp[2][4], bm[2][4];  // bm: bias + mask, loaded first
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kr = r0 + gq + 8 * (i / 2);
+            const int qc = q0 + 8 * n + 2 * tq + i % 2;
+            bm[n][i] = kr < N && qc < N ? a.bm(bp, mp, kr, qc) : 0.f;
+            s[n][i] = dp[n][i] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < ND; ++kk) {  // S^T = K Q^T, dP^T = V dO^T
+          float ak[4], av[4];
+          frag_a(ak, k_s, DP, r0, kk * 8, gq, tq);
+          frag_a(av, v_s, DP, r0, kk * 8, gq, tq);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float bq[2], bd[2];
+            frag_bt(bq, q_s, DP, kk * 8, q0 + 8 * n, gq, tq);
+            frag_bt(bd, do_s, DP, kk * 8, q0 + 8 * n, gq, tq);
+            mma_3xtf32(s[n], ak, bq);
+            mma_3xtf32(dp[n], av, bd);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {  // P^T into s, dS^T into dp
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kr = r0 + gq + 8 * (i / 2);
+            const int qc = q0 + 8 * n + 2 * tq + i % 2;
+            float p = 0.f, ds = 0.f;
+            if (kr < N && qc < N) {
+              p = expf(s[n][i] + bm[n][i] - lse_s[qc]);
+              ds = p * (dp[n][i] - drow_s[qc]);
+            }
+            s[n][i] = p;
+            dp[n][i] = ds;
+            db[0][n][i] += ds;
+          }
+        }
+        // dV += P^T dO and dK += dS^T (Q scale), through the warp's own
+        // rows of the tile (the C fragments become A fragments there)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, s[n], gq, tq);
+        __syncwarp();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          float af[4];
+          frag_a(af, t_s, TP, r0, q0 + 8 * ks, gq, tq);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            float bb[2];
+            frag_b(bb, do_s, DP, q0 + 8 * ks, n * 8, gq, tq);
+            mma_3xtf32(dv[n], af, bb);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, dp[n], gq, tq);
+        __syncwarp();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          float af[4];
+          frag_a(af, t_s, TP, r0, q0 + 8 * ks, gq, tq);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            float bb[2];
+            frag_b(bb, q_s, DP, q0 + 8 * ks, n * 8, gq, tq);
+            mma_3xtf32(dk[n], af, bb);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float first = db[0][n][i];
+#pragma unroll
+          for (int r = 0; r + 1 < NT; ++r) db[r][n][i] = db[r + 1][n][i];
+          db[NT - 1][n][i] = first;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kr = r0 + gq + 8 * (i / 2);
+        if (kr < N) {
+          const int col = n * 8 + 2 * tq + i % 2;
+          store_f(a.dk(off_s[kr], h) + col, dk[n][i]);
+          store_f(a.dv(off_s[kr], h) + col, dv[n][i]);
+        }
+      }
+    }
+    __syncthreads();  // every warp's dS^T is in the tile
+
+    // dQ of query rows r0 .. r0 + 15 = scale * dS K over all keys
+    float dq[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+    for (int k0 = 0; k0 < Np; k0 += 8) {
+      float af[4];
+      frag_at(af, t_s, TP, r0, k0, gq, tq);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float bb[2];
+        frag_b(bb, k_s, DP, k0, n * 8, gq, tq);
+        mma_3xtf32(dq[n], af, bb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qr = r0 + gq + 8 * (i / 2);
+        if (qr < N) {
+          store_f(a.dq(off_s[qr], h) + n * 8 + 2 * tq + i % 2, dq[n][i] * scale);
+        }
+      }
+    }
+  }
+
+  float* pp = part + ((static_cast<size_t>(c) * a.groups() + wb) * a.heads() + h) * N * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kr = r0 + gq + 8 * (i / 2);
+          const int qc = j * 16 + 8 * n + 2 * tq + i % 2;
+          if (kr < N && qc < N) pp[a.part_at(kr, qc)] = db[j][n][i];
+        }
+      }
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -155,3 +520,6 @@ void plan_rows(Geom& g, int& threads) {
 #define SMALL_WINDOW_HEAD_DIMS(X)                                         \
   X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) \
   X(104) X(112) X(120) X(128)
+
+// The head dims the fused designs take (multiples of 8 to kFusedMaxD).
+#define FUSED_HEAD_DIMS(X) X(8) X(16) X(24) X(32) X(40) X(48)

@@ -32,7 +32,36 @@
 //    `window_partition_3d`, so the partition and its reverse never run.
 // lse is [B, L, nW, nh, N] in both (L = nLon for 5D).
 //
-// Row kernels (the forward and the general backward).  A thread owns one
+// Two forward designs, chosen by shape before the launch (the wrapper's
+// `fwd_route`):
+//
+//  fused      N <= 144 and hd <= 48 (every model path).  One block per
+//             (member, head), one warp per 16 query rows: the block stages
+//             the member's Q * scale, K and V once as fp32 (pitch hd + 4,
+//             conflict-free fragments); each warp starts its scores as bias
+//             + mask (loaded from L2 while the staging runs: the whole bias
+//             and mask of a call, 6 MB at Pangu's stage 1, stay in the 50 MB
+//             L2), adds S = (Q scale) K^T and then takes O = P V, both as
+//             `mma.sync` m16n8k8 3xTF32 (fp32-accurate; bf16 staged as fp32
+//             takes the same path).  The whole row of N <= 144 scores stays
+//             in the warp's registers (72 a thread at N 144), so the softmax
+//             is one max and one sum over the quad's lanes, with no online
+//             rescale, and lse = max + log sum.  P's C fragment serves as
+//             PV's A fragment as it stands: each 8-key step takes its keys
+//             in the order 0, 2, 4, 6, 1, 3, 5, 7, and V's B fragment reads
+//             the same order, so neither quad shuffles nor a shared P tile
+//             are needed.  Occupancy: no [N, N] tile, so shared memory is
+//             3 Np (hd + 4) floats (62 KB at N 144, hd 32); registers set
+//             the limit, capped at 112 for 2 blocks of 9 warps per SM at
+//             N 144 (128 for 4 blocks of 4 warps at N 64), so one block's
+//             staging runs while the other's products do.  What bounds it:
+//             at Pangu's stage 1, 18.3 GFLOP as 3xTF32 (0.11 ms at 495 / 3
+//             TFLOP/s) under about 0.5 GB of operands (0.16 ms at 3.35
+//             TB/s); each 3xTF32 product also costs 12 conversions on the
+//             ALU pipes, which likely sets the pace.
+//  row        everything else up to N 1023 (the row kernel below).
+//
+// Row kernels (the row forward and the general backward).  A thread owns one
 // query (or key) row of the head, or 1/2 or 1/4 of it for head dims up to
 // 64 or 128 (the parts sum their partial dot products with warp shuffles),
 // and the products run on the fp32 CUDA cores.  A block holds up to 128
@@ -62,7 +91,10 @@
 //             + a_small b_big + a_big b_big, fp32 accumulation), which keeps
 //             fp32 accuracy.  bf16 inputs take the same path, staged as
 //             fp32: one code path, and P and dS, fp32 values, are never
-//             rounded to an operand type.  dS^T is added into a dbias
+//             rounded to an operand type.  The body is
+//             `fused_bwd_body` in small_window_common.cuh, shared with the
+//             packed kernel through an access policy (`WindowAccess`
+//             here).  dS^T is added into a dbias
 //             accumulator that lives in the warp's registers (8 floats a
 //             thread per 16 queries) across the chunk; the chunk's sum goes
 //             to `part` and a second launch sums the chunks in order.  Each
@@ -511,98 +543,60 @@ wa_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------- fused backward
-// The fused route's region: N up to 9 tiles of 16 rows, head dims up to 48.
-constexpr int kFusedMaxN = 144;
-constexpr int kFusedMaxD = 48;
+// The fused body's (small_window_common.cuh) access policy on the
+// fused-qkv layout: the members of bias window wb are (b, l, w) with w = wb
+// when bW > 1 and every (b, l, w) when the bias is shared, b fastest, so
+// consecutive members share (l, w) and with it the mask; bias and mask are
+// key-major, and dbias partials too.
+template <typename T, int D, typename Layout>
+struct WindowAccess {
+  const T* qkv_;
+  const T* bias_;
+  const T* mask_;
+  const T* out_;
+  const T* dout_;
+  const float* lse;
+  T* dqkv_;
+  Geom g;
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b on one m16n8k8 tile, fp32-accurate: each operand split into a
-// TF32 big part and a TF32 remainder, three products, the small ones first.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
-                                           const float (&b)[2]) {
-  uint32_t ab[4], as[4], bb[2], bs[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ab[i] = to_tf32(a[i]);
-    as[i] = to_tf32(a[i] - __uint_as_float(ab[i]));
+  struct Member {
+    int b, l, w, m;
+    const T* mask;
+  };
+  __device__ int N() const { return g.N; }
+  __device__ int heads() const { return g.nh; }
+  __device__ float scale() const { return g.scale; }
+  __device__ int groups() const { return g.bW; }
+  __device__ int members() const { return g.bW > 1 ? g.B * g.L : g.B * g.L * g.nW; }
+  __device__ const T* bias_block(int wb, int h) const { return bias_ptr(bias_, g, wb, h); }
+  __device__ Member member(int t, int wb) const {
+    const int b = t % g.B;
+    const int l = g.bW > 1 ? t / g.B : t / g.B / g.nW;
+    const int w = g.bW > 1 ? wb : t / g.B % g.nW;
+    return {b, l, w, (b * g.L + l) * g.nW + w, mask_ptr(mask_, g, l, w)};
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bb[i] = to_tf32(b[i]);
-    bs[i] = to_tf32(b[i] - __uint_as_float(bb[i]));
+  __device__ size_t row(const Member& mb, int, int j) const {
+    return Layout::row(g, mb.b, mb.l, mb.w, j);
   }
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-}
-
-// Fragments of the m16n8k8 TF32 product, lane = 4 g + t.  A is 16 x 8
-// (row-major), B 8 x 8 (k x n), C 16 x 8 with c[i] at row g + 8 (i / 2),
-// column 2 t + i % 2.  s is a shared tile of pitch p.
-// A[r][c] = s[r0 + r][c0 + c]
-__device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int p, int r0,
-                                       int c0, int g, int t) {
-  a[0] = s[(r0 + g) * p + c0 + t];
-  a[1] = s[(r0 + g + 8) * p + c0 + t];
-  a[2] = s[(r0 + g) * p + c0 + t + 4];
-  a[3] = s[(r0 + g + 8) * p + c0 + t + 4];
-}
-// A[r][c] = s[c0 + c][r0 + r]
-__device__ __forceinline__ void frag_at(float (&a)[4], const float* s, int p, int r0,
-                                        int c0, int g, int t) {
-  a[0] = s[(c0 + t) * p + r0 + g];
-  a[1] = s[(c0 + t) * p + r0 + g + 8];
-  a[2] = s[(c0 + t + 4) * p + r0 + g];
-  a[3] = s[(c0 + t + 4) * p + r0 + g + 8];
-}
-// B[k][n] = s[n0 + n][k0 + k]
-__device__ __forceinline__ void frag_bt(float (&b)[2], const float* s, int p, int k0,
-                                        int n0, int g, int t) {
-  b[0] = s[(n0 + g) * p + k0 + t];
-  b[1] = s[(n0 + g) * p + k0 + t + 4];
-}
-// B[k][n] = s[k0 + k][n0 + n]
-__device__ __forceinline__ void frag_b(float (&b)[2], const float* s, int p, int k0,
-                                       int n0, int g, int t) {
-  b[0] = s[(k0 + t) * p + n0 + g];
-  b[1] = s[(k0 + t + 4) * p + n0 + g];
-}
-// s[r0 + r][c0 + c] = C[r][c]
-__device__ __forceinline__ void store_c(float* s, int p, int r0, int c0,
-                                        const float (&c)[4], int g, int t) {
-  *reinterpret_cast<float2*>(s + (r0 + g) * p + c0 + 2 * t) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(s + (r0 + g + 8) * p + c0 + 2 * t) = make_float2(c[2], c[3]);
-}
-
-// Floats of the [Np, Np + 4] P^T / dS^T tile, which first holds O at
-// pitch hd + 1 for the drow sums.
-__host__ __device__ constexpr int fused_tile_floats(int Np, int D) {
-  return Np * (Np + 4) > Np * (D + 1) ? Np * (Np + 4) : Np * (D + 1);
-}
-
-size_t fused_smem_bytes(int Np, int D) {
-  return sizeof(float) * (4 * Np * (D + 4) + fused_tile_floats(Np, D) + 2 * Np) +
-         sizeof(size_t) * Np;
-}
+  __device__ size_t at3(size_t row, int h) const { return row * 3 * g.nh * D + h * D; }
+  __device__ size_t at1(size_t row, int h) const { return row * g.nh * D + h * D; }
+  __device__ const T* q(size_t row, int h) const { return qkv_ + at3(row, h); }
+  __device__ const T* k(size_t row, int h) const { return qkv_ + at3(row, h) + g.nh * D; }
+  __device__ const T* v(size_t row, int h) const { return qkv_ + at3(row, h) + 2 * g.nh * D; }
+  __device__ const T* o(size_t row, int h) const { return out_ + at1(row, h); }
+  __device__ const T* dout(size_t row, int h) const { return dout_ + at1(row, h); }
+  __device__ T* dq(size_t row, int h) const { return dqkv_ + at3(row, h); }
+  __device__ T* dk(size_t row, int h) const { return dqkv_ + at3(row, h) + g.nh * D; }
+  __device__ T* dv(size_t row, int h) const { return dqkv_ + at3(row, h) + 2 * g.nh * D; }
+  __device__ float bm(const T* bp, const T* mp, int kr, int qc) const {
+    const size_t o = static_cast<size_t>(kr) * g.N + qc;
+    return load_f(bp + o) + load_f(mp + o);
+  }
+  __device__ size_t part_at(int kr, int qc) const { return static_cast<size_t>(kr) * g.N + qc; }
+};
 
 // Grid (member chunks, heads, bias windows); blockDim 32 * ceil(N / 16)
-// <= 32 * NT.  Chunk c takes the members [c * per, (c + 1) * per) of those
-// sharing bias window wb, b fastest, so consecutive members share (l, w)
-// and with it the mask.  part is [n_chunks, bW, nh, N, N] fp32, key-major.
+// <= 32 * NT.  part is [n_chunks, bW, nh, N, N] fp32, key-major.
 template <typename T, int D, int NT, typename Layout>
 __global__ void __launch_bounds__(32 * NT)
 wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
@@ -610,232 +604,134 @@ wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     T* __restrict__ dqkv, float* __restrict__ part, Geom g,
                     int n_chunks) {
-  constexpr int DP = D + 4;  // operand pitch: conflict-free A fragments
+  const WindowAccess<T, D, Layout> a{qkv, bias, mask, out, dout, lse, dqkv, g};
+  fused_bwd_body<T, D, NT>(a, part, n_chunks);
+}
+
+// ---------------------------------------------------------------- fused forward
+// Shared memory of one block: Q * scale, K, V as fp32 [Np][D + 4], and the
+// rows' token offsets.
+inline size_t fwd_fused_smem_bytes(int Np, int D) {
+  return sizeof(float) * 3 * Np * (D + 4) + sizeof(size_t) * Np;
+}
+
+// Grid (members, heads); blockDim 32 * ceil(N / 16) <= 32 * NT, one warp
+// per 16 query rows.  Blocks each SM should hold: 4 at NT 4 (N <= 64),
+// which caps ptxas at 128 registers, and 2 at NT 9, which caps it at 112
+// and leaves room for N 144's 72 score registers.
+template <typename T, int D, int NT, typename Layout>
+__global__ void __launch_bounds__(32 * NT, NT <= 4 ? 4 : 2)
+wa_fwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                    const T* __restrict__ mask, T* __restrict__ out,
+                    float* __restrict__ lse, Geom g) {
+  constexpr int DP = D + 4;  // operand pitch: conflict-free fragments
   constexpr int ND = D / 8;  // 8-wide slices of the head dim
   constexpr int V4 = D / 4;
   const int N = g.N;
-  const int nt = blockDim.x / 32;  // 16-row tiles, one warp each
+  const int C = g.nh * D;
+  const int nt = blockDim.x / 32;
   const int Np = nt * 16;
-  const int TP = Np + 4;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [Np][DP], times scale
   float* k_s = q_s + Np * DP;
   float* v_s = k_s + Np * DP;
-  float* do_s = v_s + Np * DP;
-  float* t_s = do_s + Np * DP;                   // [key][query], pitch TP
-  float* lse_s = t_s + fused_tile_floats(Np, D);
-  float* drow_s = lse_s + Np;
-  size_t* off_s = reinterpret_cast<size_t*>(drow_s + Np);
+  size_t* off_s = reinterpret_cast<size_t*>(v_s + Np * DP);
 
-  const int C = g.nh * D;
-  const int c = blockIdx.x;
+  const int m = blockIdx.x;
+  const Member mb(g, m);
   const int h = blockIdx.y;
-  const int wb = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int gq = (threadIdx.x % 32) / 4;
   const int tq = threadIdx.x % 4;
-  const int r0 = warp * 16;  // the warp's key rows, then its query rows for dQ
-  const T* bp = bias_ptr(bias, g, wb, h);
+  const int r0 = warp * 16;  // the warp's query rows
+  const T* bp = bias_ptr(bias, g, mb.w, h);
+  const T* mp = mask_ptr(mask, g, mb.l, mb.w);
 
-  const int n_members = g.bW > 1 ? g.B * g.L : g.B * g.L * g.nW;
-  const int per = (n_members + n_chunks - 1) / n_chunks;
-  const int t_end = min(n_members, (c + 1) * per);
-
-  float db[NT][2][4];  // dbias of key rows r0 + g (+8) x queries, summed
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) db[j][n][i] = 0.f;
-
-  for (int t = c * per; t < t_end; ++t) {
-    const int b = t % g.B;
-    const int l = g.bW > 1 ? t / g.B : t / g.B / g.nW;
-    const int w = g.bW > 1 ? wb : t / g.B % g.nW;
-    const int m = (b * g.L + l) * g.nW + w;
-    const T* mp = mask_ptr(mask, g, l, w);
-    const size_t lbase = (static_cast<size_t>(m) * g.nh + h) * N;
-
-    __syncthreads();  // the previous member's tiles are consumed
-    for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = Layout::row(g, b, l, w, j);
-    __syncthreads();
-    for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
-      const int j = i / V4;
-      const int cc = (i % V4) * 4;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 q4 = z, k4 = z, v4 = z, d4 = z, o4 = z;
-      if (j < N) {
-        const T* row = qkv + off_s[j] * 3 * C + h * D + cc;
-        q4 = load4(row);
-        k4 = load4(row + C);
-        v4 = load4(row + 2 * C);
-        d4 = load4(dout + off_s[j] * C + h * D + cc);
-        o4 = load4(out + off_s[j] * C + h * D + cc);
-        q4 = make_float4(q4.x * g.scale, q4.y * g.scale, q4.z * g.scale, q4.w * g.scale);
-      }
-      *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
-      *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
-      *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
-      *reinterpret_cast<float4*>(do_s + j * DP + cc) = d4;
-      float* o = t_s + j * (D + 1) + cc;
-      o[0] = o4.x;
-      o[1] = o4.y;
-      o[2] = o4.z;
-      o[3] = o4.w;
+  for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = Layout::row(g, mb.b, mb.l, mb.w, j);
+  __syncthreads();
+  for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
+    const int j = i / V4;
+    const int cc = (i % V4) * 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 q4 = z, k4 = z, v4 = z;
+    if (j < N) {
+      const T* row = qkv + off_s[j] * 3 * C + h * D + cc;
+      q4 = load4(row);
+      k4 = load4(row + C);
+      v4 = load4(row + 2 * C);
+      q4 = make_float4(q4.x * g.scale, q4.y * g.scale, q4.z * g.scale, q4.w * g.scale);
     }
-    for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = lse[lbase + j];
-    __syncthreads();
-    for (int j = threadIdx.x; j < Np; j += blockDim.x) {
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc = fmaf(do_s[j * DP + d], t_s[j * (D + 1) + d], acc);
-      drow_s[j] = acc;
-    }
-    __syncthreads();  // O is read; the tile is free for P^T and dS^T
+    *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
+    *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
+    *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
+  }
 
-    // Key rows r0 .. r0 + 15 against the queries, 16 at a time.
-    float dk[ND][4], dv[ND][4];
+  // The scores of query rows r0 + g (+8) against every key, 16 keys a
+  // tile, start as bias + mask (-inf past N); their loads are issued
+  // before the barrier, so they overlap the staging.
+  float s[NT][2][4];
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-    // The loop is not unrolled (code size, build time): db[0] is always
-    // the current tile's accumulator, and the array rotates one tile a
-    // step, NT steps a member, so registers are indexed statically.
-#pragma unroll 1
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) {
-        const int q0 = j * 16;
-        float s[2][4], dp[2][4], bm[2][4];  // bm: bias + mask, loaded first
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int kr = r0 + gq + 8 * (i / 2);
-            const int qc = q0 + 8 * n + 2 * tq + i % 2;
-            const size_t o = static_cast<size_t>(kr) * N + qc;
-            bm[n][i] = kr < N && qc < N ? load_f(bp + o) + load_f(mp + o) : 0.f;
-            s[n][i] = dp[n][i] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < ND; ++kk) {  // S^T = K Q^T, dP^T = V dO^T
-          float ak[4], av[4];
-          frag_a(ak, k_s, DP, r0, kk * 8, gq, tq);
-          frag_a(av, v_s, DP, r0, kk * 8, gq, tq);
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            float bq[2], bd[2];
-            frag_bt(bq, q_s, DP, kk * 8, q0 + 8 * n, gq, tq);
-            frag_bt(bd, do_s, DP, kk * 8, q0 + 8 * n, gq, tq);
-            mma_3xtf32(s[n], ak, bq);
-            mma_3xtf32(dp[n], av, bd);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {  // P^T into s, dS^T into dp
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int kr = r0 + gq + 8 * (i / 2);
-            const int qc = q0 + 8 * n + 2 * tq + i % 2;
-            float p = 0.f, ds = 0.f;
-            if (kr < N && qc < N) {
-              p = expf(s[n][i] + bm[n][i] - lse_s[qc]);
-              ds = p * (dp[n][i] - drow_s[qc]);
-            }
-            s[n][i] = p;
-            dp[n][i] = ds;
-            db[0][n][i] += ds;
-          }
-        }
-        // dV += P^T dO and dK += dS^T (Q scale), through the warp's own
-        // rows of the tile (the C fragments become A fragments there)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, s[n], gq, tq);
-        __syncwarp();
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          float a[4];
-          frag_a(a, t_s, TP, r0, q0 + 8 * ks, gq, tq);
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-            float bb[2];
-            frag_b(bb, do_s, DP, q0 + 8 * ks, n * 8, gq, tq);
-            mma_3xtf32(dv[n], a, bb);
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int n = 0; n < 2; ++n) store_c(t_s, TP, r0, q0 + 8 * n, dp[n], gq, tq);
-        __syncwarp();
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          float a[4];
-          frag_a(a, t_s, TP, r0, q0 + 8 * ks, gq, tq);
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-            float bb[2];
-            frag_b(bb, q_s, DP, q0 + 8 * ks, n * 8, gq, tq);
-            mma_3xtf32(dk[n], a, bb);
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float first = db[0][n][i];
-#pragma unroll
-          for (int r = 0; r + 1 < NT; ++r) db[r][n][i] = db[r + 1][n][i];
-          db[NT - 1][n][i] = first;
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = r0 + gq + 8 * (i / 2);
-        if (kr < N) {
-          T* row = dqkv + off_s[kr] * 3 * C + h * D + n * 8 + 2 * tq + i % 2;
-          store_f(row + C, dk[n][i]);
-          store_f(row + 2 * C, dv[n][i]);
-        }
-      }
-    }
-    __syncthreads();  // every warp's dS^T is in the tile
-
-    // dQ of query rows r0 .. r0 + 15 = scale * dS K over all keys
-    float dq[ND][4];
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
-    for (int k0 = 0; k0 < Np; k0 += 8) {
-      float a[4];
-      frag_at(a, t_s, TP, r0, k0, gq, tq);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        float bb[2];
-        frag_b(bb, k_s, DP, k0, n * 8, gq, tq);
-        mma_3xtf32(dq[n], a, bb);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qr = r0 + gq + 8 * (i / 2);
-        if (qr < N) {
-          store_f(dqkv + off_s[qr] * 3 * C + h * D + n * 8 + 2 * tq + i % 2,
-                  dq[n][i] * g.scale);
+        const int kc = j * 16 + 8 * n + 2 * tq + i % 2;
+        const size_t o = static_cast<size_t>(kc) * N + qr;
+        s[j][n][i] = kc >= N ? -INFINITY
+                             : (qr < N ? load_f(bp + o) + load_f(mp + o) : 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // S += (Q scale) K^T: each Q fragment split once, used for every key tile
+#pragma unroll
+  for (int kk = 0; kk < ND; ++kk) {
+    float af[4];
+    frag_a(af, q_s, DP, r0, kk * 8, gq, tq);
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Split3 x = split_tf32(af[i]);
+      ab[i] = x.big;
+      as[i] = x.small;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float bk[2];
+          frag_bt(bk, k_s, DP, kk * 8, j * 16 + 8 * n, gq, tq);
+          const Split3 b0 = split_tf32(bk[0]), b1 = split_tf32(bk[1]);
+          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
+          mma_3xtf32_split(s[j][n], ab, as, bb, bs);
         }
       }
     }
   }
 
-  float* pp = part + ((static_cast<size_t>(c) * g.bW + wb) * g.nh + h) * N * N;
+  // The full-row softmax in registers: rows g and g + 8 of the warp's
+  // tile, each spread over the quad's 4 lanes.
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[j][n][i]);
+      }
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
@@ -843,11 +739,67 @@ wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int kr = r0 + gq + 8 * (i / 2);
-          const int qc = j * 16 + 8 * n + 2 * tq + i % 2;
-          if (kr < N && qc < N) pp[static_cast<size_t>(kr) * N + qc] = db[j][n][i];
+          s[j][n][i] = expf(s[j][n][i] - mx[i / 2]);
+          sum[i / 2] += s[j][n][i];
         }
       }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+
+  // O = P V.  The keys of each 8-key step are taken in the order 0, 2, 4,
+  // 6, 1, 3, 5, 7, so the C fragment of P is its A fragment as it stands
+  // (a = c0, c2, c1, c3) and no shuffle or shared tile is needed; V's B
+  // fragment reads the same order.
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float pa[4] = {s[j][n][0], s[j][n][2], s[j][n][1], s[j][n][3]};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Split3 x = split_tf32(pa[i]);
+          ab[i] = x.big;
+          as[i] = x.small;
+        }
+        const float* vr = v_s + (j * 16 + 8 * n + 2 * tq) * DP + gq;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const Split3 b0 = split_tf32(vr[nd * 8]), b1 = split_tf32(vr[DP + nd * 8]);
+          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
+          mma_3xtf32_split(o[nd], ab, as, bb, bs);
+        }
+      }
+    }
+  }
+
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = r0 + gq + 8 * (i / 2);
+      if (qr < N) {
+        store_f(out + off_s[qr] * C + h * D + nd * 8 + 2 * tq + i % 2, o[nd][i] * inv[i / 2]);
+      }
+    }
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = r0 + gq + 8 * r;
+      if (qr < N) lse[(static_cast<size_t>(m) * g.nh + h) * N + qr] = mx[r] + logf(sum[r]);
     }
   }
 }
@@ -938,8 +890,38 @@ cudaError_t launch_bwd_fused(const void* qkv, const void* bias, const void* mask
                                 stream);
 }
 
-// The head dims the fused route takes (multiples of 8 to kFusedMaxD).
-#define FUSED_HEAD_DIMS(X) X(8) X(16) X(24) X(32) X(40) X(48)
+// The fused forward: one block per (member, head).
+template <typename T, int D, typename Layout>
+cudaError_t launch_fwd_fused(const void* qkv, const void* bias, const void* mask,
+                             void* out, void* lse, Geom g, cudaStream_t stream) {
+  const int nt = (g.N + 15) / 16;
+  g.scale = 1.f / sqrtf(static_cast<float>(D));
+  const size_t smem = fwd_fused_smem_bytes(nt * 16, D);
+  auto kernel = nt <= 4 ? &wa_fwd_fused_kernel<T, D, 4, Layout>
+                        : &wa_fwd_fused_kernel<T, D, 9, Layout>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int members = g.B * g.L * g.nW;
+  kernel<<<dim3(members, g.nh), 32 * nt, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<const T*>(mask), static_cast<T*>(out), static_cast<float*>(lse), g);
+  return cudaGetLastError();
+}
+
+template <typename T, typename Layout>
+cudaError_t dispatch_fwd_fused(int hd, const void* qkv, const void* bias,
+                               const void* mask, void* out, void* lse, const Geom& g,
+                               cudaStream_t s) {
+  switch (hd) {
+#define WA_FWD_FUSED_CASE(DD) \
+  case DD:                    \
+    return launch_fwd_fused<T, DD, Layout>(qkv, bias, mask, out, lse, g, s);
+    FUSED_HEAD_DIMS(WA_FWD_FUSED_CASE)
+#undef WA_FWD_FUSED_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 template <typename T, typename Layout>
 cudaError_t dispatch_bwd_fused(int hd, const void* qkv, const void* bias,
@@ -1049,6 +1031,35 @@ extern "C" int window_attention_qkv_fwd(const void* qkv, const void* bias,
     err = dispatch_fwd<__nv_bfloat16, TokenMajor>(hd, qkv, bias, mask, out, lse, g, s);
   } else if (dtype == 1 && layout == 1) {
     err = dispatch_fwd<__nv_bfloat16, Field5D>(hd, qkv, bias, mask, out, lse, g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The same forward by the fused route, for N <= 144 and head dims up to 48
+// (anything else returns cudaErrorInvalidValue); the same arguments.
+extern "C" int window_attention_qkv_fwd_fused(const void* qkv, const void* bias,
+                                              const void* mask, void* out, void* lse,
+                                              int B, int L, int nW, int N, int nh,
+                                              int hd, int bW, int mL, int mW, int Pl,
+                                              int Lat, int Lon, int wpl, int wlat,
+                                              int wlon, int layout, int dtype,
+                                              void* stream) {
+  Geom g;
+  if (!make_geom(g, layout, B, L, nW, N, nh, bW, mL, mW, Pl, Lat, Lon, wpl, wlat,
+                 wlon) ||
+      g.N > kFusedMaxN || hd > kFusedMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && layout == 0) {
+    err = dispatch_fwd_fused<float, TokenMajor>(hd, qkv, bias, mask, out, lse, g, s);
+  } else if (dtype == 0 && layout == 1) {
+    err = dispatch_fwd_fused<float, Field5D>(hd, qkv, bias, mask, out, lse, g, s);
+  } else if (dtype == 1 && layout == 0) {
+    err = dispatch_fwd_fused<__nv_bfloat16, TokenMajor>(hd, qkv, bias, mask, out, lse, g, s);
+  } else if (dtype == 1 && layout == 1) {
+    err = dispatch_fwd_fused<__nv_bfloat16, Field5D>(hd, qkv, bias, mask, out, lse, g, s);
   }
   return static_cast<int>(err);
 }

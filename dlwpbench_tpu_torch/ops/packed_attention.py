@@ -20,7 +20,10 @@ so the port raises instead.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/packed_window_attention.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
-The plain versions run only for tensors on the CPU.  The differentiable
+The backward has the window kernels' two designs, chosen from (N, D) by
+`window_attention.bwd_route`: the fused tensor-core pass for N <= 144 and
+D <= 48 (every Pangu shape), the four-pass row kernels for the rest.  The
+plain versions run only for tensors on the CPU.  The differentiable
 entry `packed_window_attention` is a `torch.autograd.Function` whose
 backward goes through `packed_window_attention_bwd`; the mask is a
 constant and gets no gradient.
@@ -31,7 +34,13 @@ from __future__ import annotations
 import torch
 
 from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _kernel_fn
-from dlwpbench_tpu_torch.ops.window_attention import _bwd_chunks, _check_cuda, _zero_mask
+from dlwpbench_tpu_torch.ops.window_attention import (
+    _bwd_chunks,
+    _check_cuda,
+    _fused_chunks,
+    _zero_mask,
+    bwd_route,
+)
 
 _SOURCE = "packed_window_attention"
 
@@ -139,12 +148,50 @@ def packed_window_attention_fwd(q, k, v, bias, mask):
 packed_window_attention_fwd.launches = 0
 
 
+def _bwd_plan(BW, nh, N, D, nW, route=None):
+    """(route, n_chunks) of a backward launch: the design `bwd_route`
+    names (or `route`), and how many chunks of its BW / nW problems each
+    window type's dbias sum is split into, by that design's rule."""
+    route = route or bwd_route(N, D)
+    chunks = _fused_chunks if route == "fused" else _bwd_chunks
+    return route, chunks(nW, nh, BW // nW)
+
+
+def _launch_bwd(q, k, v, bias, mask, out, lse, do, route=None):
+    """Launches the backward of `route` ("fused" or "four_pass"; by default
+    the one `bwd_route` names, as the public wrapper takes it) on checked
+    CUDA tensors, mask not None; returns (dq, dk, dv, dbias, route)."""
+    BW, nh, N, D = q.shape
+    nW = bias.shape[0]
+    route, n_chunks = _bwd_plan(BW, nh, N, D, nW, route)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    tensors = [q, k, v, bias, mask, out, do, lse, dq, dk, dv, dbias]
+    if route == "fused":
+        fn = _kernel_fn(_SOURCE, "packed_window_attention_bwd_fused", 13, 9)
+    else:
+        tensors.append(torch.empty((BW, nh, N), dtype=torch.float32, device=q.device))  # drow
+        fn = _kernel_fn(_SOURCE, "packed_window_attention_bwd", 14, 9)
+    tensors.append(torch.empty((n_chunks, nW, nh, N, N), dtype=torch.float32, device=q.device))
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in tensors), BW, nh, N, D, nW, mask.shape[0],
+                 mask.shape[1], n_chunks, _DTYPE_CODE[q.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packed_window_attention_bwd: CUDA error {err} on the {route} route "
+                           f"for q {tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}, "
+                           f"mask {tuple(mask.shape)}")
+    return dq, dk, dv, dbias, route
+
+
 def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
     """(dq, dk, dv, dbias) of `packed_window_attention_fwd`; see
-    `packed_window_attention_bwd_plain`.  CUDA tensors take the kernels (one
-    counted launch in `packed_window_attention_bwd.launches` runs all four
-    passes)."""
-    nW = _check_shapes(q, k, v, bias, mask)
+    `packed_window_attention_bwd_plain`.  CUDA tensors take the kernels of
+    `bwd_route`'s design: one counted launch in
+    `packed_window_attention_bwd.launches` runs all its passes, and
+    `packed_window_attention_bwd.fused_launches` counts those of the fused
+    route."""
+    _check_shapes(q, k, v, bias, mask)
     BW, nh, N, D = q.shape
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} must match q "
@@ -158,28 +205,14 @@ def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
         raise TypeError(f"lse must be float32, got {lse.dtype}")
     mask = _zero_mask(N, q) if mask is None else mask
     _check_cuda("packed_window_attention_bwd", (q, k, v, bias, mask, out, do), D, N)
-    lse = lse.contiguous()
-    n_chunks = _bwd_chunks(nW, nh, BW // nW)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbias = torch.empty_like(bias)
-    drow = torch.empty((BW, nh, N), dtype=torch.float32, device=q.device)
-    part = torch.empty((n_chunks, nW, nh, N, N), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn(_SOURCE, "packed_window_attention_bwd", 14, 9)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), dbias.data_ptr(), drow.data_ptr(), part.data_ptr(),
-                 BW, nh, N, D, nW, mask.shape[0], mask.shape[1], n_chunks,
-                 _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"packed_window_attention_bwd: CUDA error {err} for q "
-                           f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}, "
-                           f"mask {tuple(mask.shape)}")
+    dq, dk, dv, dbias, route = _launch_bwd(q, k, v, bias, mask, out, lse.contiguous(), do)
     packed_window_attention_bwd.launches += 1
+    packed_window_attention_bwd.fused_launches += route == "fused"
     return dq, dk, dv, dbias
 
 
 packed_window_attention_bwd.launches = 0
+packed_window_attention_bwd.fused_launches = 0
 
 
 # ---------------------------------------------------------------- autograd

@@ -25,10 +25,11 @@ mask, symmetric in its last two dims, or None.  Layouts:
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/window_attention_qkv.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
-The backward has two designs, chosen by `bwd_route` from (N, hd): a fused
-tensor-core pass for windows up to 144 tokens at head dims up to 48 (every
-model path), the four-pass row kernels for the rest.  The plain versions
-run only for tensors on the CPU.  The differentiable
+Forward and backward each have two designs, chosen from (N, hd) by
+`fwd_route` and `bwd_route`: fused tensor-core kernels for windows up to
+144 tokens at head dims up to 48 (every model path), the row kernels for
+the rest (the backward's in four passes).  The plain versions run only
+for tensors on the CPU.  The differentiable
 entries `window_attention_qkv` and `window_attention_qkv5d` are
 `torch.autograd.Function`s whose backward goes through the `_bwd`
 wrappers; the mask is a constant and gets no gradient.
@@ -42,7 +43,7 @@ from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _ke
 
 MAX_HEAD_DIM = 128
 MAX_N = 1023
-FUSED_MAX_N, FUSED_MAX_HEAD_DIM = 144, 48  # the fused backward's region
+FUSED_MAX_N, FUSED_MAX_HEAD_DIM = 144, 48  # the fused designs' region
 _SOURCE = "window_attention_qkv"
 _TOKEN_MAJOR, _FIELD_5D = 0, 1  # the kernels' `layout` argument
 
@@ -238,6 +239,16 @@ def bwd_route(N, hd):
     return "fused" if N <= FUSED_MAX_N and hd <= FUSED_MAX_HEAD_DIM else "four_pass"
 
 
+def fwd_route(N, hd):
+    """Which forward design takes a window of N tokens at head dim hd:
+    "fused" (one tensor-core pass per (member, head) holding each query's
+    whole row of scores in registers, for N <= FUSED_MAX_N and hd <=
+    FUSED_MAX_HEAD_DIM, the region `bwd_route` uses) or "row" (the
+    row-per-thread kernel with an online softmax, any N to MAX_N).  Decided
+    from the shape before the launch, never as a retry."""
+    return "fused" if N <= FUSED_MAX_N and hd <= FUSED_MAX_HEAD_DIM else "row"
+
+
 def _fused_chunks(bW, nh, members_per_window):
     """How many member chunks the fused backward splits each bias window
     into: about 1024 (bias window, head, chunk) blocks, 8 per SM of an
@@ -248,21 +259,27 @@ def _fused_chunks(bW, nh, members_per_window):
     return max(1, min(members_per_window, want, members_per_window // 4))
 
 
-def _launch_fwd(name, layout, x, bias, mask, nh, win, out_shape, lse_shape):
+def _launch_fwd(name, layout, x, bias, mask, nh, win, out_shape, lse_shape, route=None):
+    """Launches the forward of `route` ("fused" or "row"; by default the
+    one `fwd_route` names, as the public wrappers take it); returns (out,
+    lse, route)."""
     dims = _dims(layout, x, bias, mask, nh, win)
     _check_cuda(name, (x, bias, mask), dims[5], dims[3])
     _no_grad_guard(name, (x, bias))
+    route = route or fwd_route(dims[3], dims[5])
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lse = torch.empty(lse_shape, dtype=torch.float32, device=x.device)
-    fn = _kernel_fn(_SOURCE, "window_attention_qkv_fwd", 5, 17)
+    symbol = "window_attention_qkv_fwd_fused" if route == "fused" else "window_attention_qkv_fwd"
+    fn = _kernel_fn(_SOURCE, symbol, 5, 17)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), *dims, layout, _DTYPE_CODE[x.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} for qkv {tuple(x.shape)} {x.dtype}, "
-                           f"bias {tuple(bias.shape)}, mask {tuple(mask.shape)}, nh {nh}")
-    return out, lse
+        raise RuntimeError(f"{name}: CUDA error {err} on the {route} route for qkv "
+                           f"{tuple(x.shape)} {x.dtype}, bias {tuple(bias.shape)}, "
+                           f"mask {tuple(mask.shape)}, nh {nh}")
+    return out, lse, route
 
 
 def _launch_bwd(name, layout, x, bias, mask, out, lse, dout, win):
@@ -303,20 +320,24 @@ def _launch_bwd(name, layout, x, bias, mask, out, lse, dout, win):
 def window_attention_qkv_fwd(qkv, bias, mask, nh):
     """(out [B,L,nW,N,C], lse [B,L,nW,nh,N] fp32) on the token-major layout.
 
-    CPU tensors take the plain version; CUDA tensors the kernel, whose
-    launches are counted in `window_attention_qkv_fwd.launches`.  Not
-    differentiable on CUDA tensors: use `window_attention_qkv`."""
+    CPU tensors take the plain version; CUDA tensors the kernel of
+    `fwd_route`'s design, whose launches are counted in
+    `window_attention_qkv_fwd.launches`, and those of the fused route in
+    `.fused_launches` too.  Not differentiable on CUDA tensors: use
+    `window_attention_qkv`."""
     B, L, nW, N, C = _check_token_major(qkv, bias, mask, nh)
     if _device_of((qkv, bias) if mask is None else (qkv, bias, mask)).type == "cpu":
         return window_attention_qkv_plain(qkv, bias, mask, nh)
     mask = _zero_mask(N, qkv) if mask is None else mask
-    res = _launch_fwd("window_attention_qkv_fwd", _TOKEN_MAJOR, qkv, bias, mask, nh, None,
-                      (B, L, nW, N, C), (B, L, nW, nh, N))
+    out, lse, route = _launch_fwd("window_attention_qkv_fwd", _TOKEN_MAJOR, qkv, bias, mask,
+                                  nh, None, (B, L, nW, N, C), (B, L, nW, nh, N))
     window_attention_qkv_fwd.launches += 1
-    return res
+    window_attention_qkv_fwd.fused_launches += route == "fused"
+    return out, lse
 
 
 window_attention_qkv_fwd.launches = 0
+window_attention_qkv_fwd.fused_launches = 0
 
 
 def window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout):
@@ -346,22 +367,26 @@ window_attention_qkv_bwd.fused_launches = 0
 def window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win):
     """(out [B,Pl,Lat,Lon,C], lse [B,nLon,nW,nh,N] fp32) on the 5D field.
 
-    CPU tensors take the plain version; CUDA tensors the kernel, counted in
-    `window_attention_qkv5d_fwd.launches`.  Not differentiable on CUDA
-    tensors: use `window_attention_qkv5d`."""
+    CPU tensors take the plain version; CUDA tensors the kernel of
+    `fwd_route`'s design, counted in `window_attention_qkv5d_fwd.launches`
+    (and in `.fused_launches` too on the fused route).  Not differentiable
+    on CUDA tensors: use `window_attention_qkv5d`."""
     win = tuple(int(w) for w in win)
     nLon, nW, N = _window_dims(qkv5, bias, mask, nh, win)
     B, C3 = qkv5.shape[0], qkv5.shape[-1]
     if _device_of((qkv5, bias) if mask is None else (qkv5, bias, mask)).type == "cpu":
         return window_attention_qkv5d_plain(qkv5, bias, mask, nh, win)
     mask = _zero_mask(N, qkv5) if mask is None else mask
-    res = _launch_fwd("window_attention_qkv5d_fwd", _FIELD_5D, qkv5, bias, mask, nh, win,
-                      tuple(qkv5.shape[:-1]) + (C3 // 3,), (B, nLon, nW, nh, N))
+    out, lse, route = _launch_fwd("window_attention_qkv5d_fwd", _FIELD_5D, qkv5, bias, mask,
+                                  nh, win, tuple(qkv5.shape[:-1]) + (C3 // 3,),
+                                  (B, nLon, nW, nh, N))
     window_attention_qkv5d_fwd.launches += 1
-    return res
+    window_attention_qkv5d_fwd.fused_launches += route == "fused"
+    return out, lse
 
 
 window_attention_qkv5d_fwd.launches = 0
+window_attention_qkv5d_fwd.fused_launches = 0
 
 
 def window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse, dout5, win):

@@ -186,17 +186,19 @@ def _bwd(layout, qkv, bias, mask, out, lse, dout, win, plain=False):
 def _check_window_case(cuda, dtype, layout, shape, nh, win, bW, lead):
     """Forward and backward against the plain versions on the CPU, two
     backward calls bit-identical; returns the counters' moves: forward
-    launches, backward launches, fused-route backward launches."""
+    launches, backward launches, fused-route backward launches, fused-route
+    forward launches."""
     qkv, bias, mask, dout = _window_inputs(cuda, dtype, layout, shape, nh, win, bW, lead,
                                            seed=sum(shape) + bW)
     fwd, bwd = ((wa.window_attention_qkv5d_fwd, wa.window_attention_qkv5d_bwd) if layout == "5d"
                 else (wa.window_attention_qkv_fwd, wa.window_attention_qkv_bwd))
-    before = (fwd.launches, bwd.launches, bwd.fused_launches)
+    before = (fwd.launches, bwd.launches, bwd.fused_launches, fwd.fused_launches)
     out, lse = _fwd(layout, qkv, bias, mask, nh, win)
     got = _bwd(layout, qkv, bias, mask, out, lse, dout, win)
     again = _bwd(layout, qkv, bias, mask, out, lse, dout, win)
     torch.cuda.synchronize()
-    moved = [a - b for a, b in zip((fwd.launches, bwd.launches, bwd.fused_launches), before)]
+    moved = [a - b for a, b in zip((fwd.launches, bwd.launches, bwd.fused_launches,
+                                    fwd.fused_launches), before)]
     f32 = [None if t is None else t.float() for t in (qkv, bias, mask)]
     want, want_lse = _fwd(layout, *(t.cpu() if t is not None else None for t in f32), nh, win)
     # fp32: other summation orders; bf16: the result is rounded once to bf16
@@ -241,11 +243,62 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("layout, shape, nh, win, bW, lead, route", ROUTE_CASES)
 def test_window_backward_takes_its_route_on_card(cuda, dtype, layout, shape, nh, win, bW,
                                                   lead, route):
-    """Each shape's backward runs on the route `bwd_route` names (the fused
-    counter moves with it or not at all), matches the plain version and
-    repeats bit for bit."""
+    """Each shape's forward and backward run on the routes `fwd_route` and
+    `bwd_route` name (the fused counters move with them or not at all),
+    match the plain versions, and the backward repeats bit for bit."""
     moved = _check_window_case(cuda, dtype, layout, shape, nh, win, bW, lead)
-    assert moved == [1, 2, 2 if route == "fused" else 0]
+    fused = route == "fused"
+    assert moved == [1, 2, 2 if fused else 0, 1 if fused else 0]
+
+
+# (layout, qkv shape, nh, window, bias windows, mask lead dims or None):
+# the model paths' forward shapes at a small batch, and one past the region
+FORWARD_CASES = [
+    ("5d", (2, 2, 36, 72, 576), 6, (2, 6, 12), 6, (6, 6)),     # Pangu stage 1, N 144 hd 32
+    ("5d", (2, 2, 18, 36, 1152), 12, (2, 6, 12), 3, (3, 3)),   # Pangu stage 2
+    ("token-major", (4, 1, 32, 64, 288), 4, None, 1, None),    # swin_win8 stage 0, hd 24
+    ("token-major", (4, 1, 8, 64, 576), 4, None, 8, (1, 8)),   # swin_win8 stage 1, hd 48
+    ("token-major", (2, 2, 3, 72, 144), 3, None, 3, (2, 3)),   # round-2 N 72, hd 16
+    ("token-major", (2, 1, 2, 200, 192), 2, None, 2, (1, 2)),  # N 200: past the region
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout, shape, nh, win, bW, lead", FORWARD_CASES)
+def test_window_forward_takes_its_route_on_card(cuda, dtype, layout, shape, nh, win, bW, lead):
+    """The forward at the model paths' shapes: the route `fwd_route` names,
+    against the plain version on the CPU, and the fused design against the
+    row kernel (the module's private launcher) on the same inputs."""
+    qkv, bias, mask, _ = _window_inputs(cuda, dtype, layout, shape, nh, win, bW, lead,
+                                        seed=sum(shape) + nh)
+    fwd = wa.window_attention_qkv5d_fwd if layout == "5d" else wa.window_attention_qkv_fwd
+    B, L, nW, N, C = (shape[0], shape[3] // win[2], (shape[1] // win[0]) * (shape[2] // win[1]),
+                      win[0] * win[1] * win[2], shape[-1] // 3) if layout == "5d" else \
+        (*shape[:4], shape[-1] // 3)
+    route = wa.fwd_route(N, C // nh)
+    before = (fwd.launches, fwd.fused_launches)
+    out, lse = _fwd(layout, qkv, bias, mask, nh, win)
+    torch.cuda.synchronize()
+    assert (fwd.launches - before[0], fwd.fused_launches - before[1]) == \
+        (1, 1 if route == "fused" else 0)
+    f32 = [None if t is None else t.float().cpu() for t in (qkv, bias, mask)]
+    want, want_lse = _fwd(layout, *f32, nh, win)
+    # fp32: other summation orders; bf16: the result is rounded once to bf16
+    atol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float().cpu(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=0, atol=2e-5)
+    if route == "fused":
+        code = wa._FIELD_5D if layout == "5d" else wa._TOKEN_MAJOR
+        m = wa._zero_mask(N, qkv) if mask is None else mask
+        row_out, row_lse, taken = wa._launch_fwd("row", code, qkv, bias, m, nh, win,
+                                                 tuple(out.shape), tuple(lse.shape), route="row")
+        torch.cuda.synchronize()
+        assert taken == "row"
+        # both results rounded: up to one bf16 ulp apart
+        torch.testing.assert_close(out.float(), row_out.float(), rtol=0,
+                                   atol=atol if dtype == torch.float32 else 4 * atol)
+        torch.testing.assert_close(lse, row_lse, rtol=0, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -346,6 +399,58 @@ def test_packed_kernels_match_plain_on_card(cuda, dtype, B_, nh, N, D, nW, lead,
         torch.testing.assert_close(a.float().cpu(), w, rtol=0, atol=tol, msg=name)
     for a, b in zip(got, again):  # no atomics: bit-identical
         assert torch.equal(a, b)
+
+
+# (B_, nh, N, D, nW, mask lead dims, mask kind, route): Pangu's stage-1 and
+# stage-2 shapes at a small batch, the round-2 shape, an asymmetric mask,
+# and one shape past the fused region
+PACKED_ROUTE_CASES = [
+    (4, 6, 144, 32, 6, (6, 6), "block", "fused"),
+    (4, 12, 144, 32, 3, (3, 3), "block", "fused"),
+    (5, 3, 72, 16, 2, (3, 2), "block", "fused"),
+    (8, 4, 100, 24, 4, (4, 1), "random", "fused"),
+    (4, 2, 200, 32, 2, (2, 2), "random", "four_pass"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B_, nh, N, D, nW, lead, kind, route", PACKED_ROUTE_CASES)
+def test_packed_backward_takes_its_route_on_card(cuda, dtype, B_, nh, N, D, nW, lead, kind,
+                                                 route):
+    """B5's backward runs on the route `bwd_route` names (its fused counter
+    moves with it or not at all), matches the plain version on the CPU,
+    repeats bit for bit, and on the fused route agrees with the four-pass
+    kernels (the module's private launcher) on the same inputs."""
+    q, k, v, bias, mask, do = _packed_inputs(cuda, dtype, B_, nh, N, D, nW, lead, kind,
+                                             seed=N * D + nh)
+    bwd = pk.packed_window_attention_bwd
+    out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+    before = (bwd.launches, bwd.fused_launches)
+    got = bwd(q, k, v, bias, mask, out, lse, do)
+    again = bwd(q, k, v, bias, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert (bwd.launches - before[0], bwd.fused_launches - before[1]) == \
+        (2, 2 if route == "fused" else 0)
+    assert pk._bwd_plan(B_ * nW, nh, N, D, nW)[0] == route
+    for a, b in zip(got, again):  # no atomics: bit-identical
+        assert torch.equal(a, b)
+    f32 = [None if t is None else t.float().cpu() for t in (q, k, v, bias, mask)]
+    ref = pk.packed_window_attention_bwd_plain(*f32, out.float().cpu(), lse.cpu(),
+                                               do.float().cpu())
+    # fp32: other summation orders; bf16: the result is rounded once to bf16
+    share = 2e-5 if dtype == torch.float32 else 1e-2
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        tol = share * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(a.float().cpu(), w, rtol=0, atol=tol, msg=name)
+    if route == "fused":
+        four = pk._launch_bwd(q, k, v, bias, mask, out, lse, do, route="four_pass")
+        torch.cuda.synchronize()
+        assert four[4] == "four_pass"
+        for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, four[:4]):
+            tol = share * max(1.0, w.float().abs().max().item())
+            torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol, msg=name)
 
 
 @pytest.mark.cuda

@@ -190,11 +190,25 @@ def test_plain_equals_5d_plain_on_a_partitioned_field(masked):
 
 def test_wrappers_count_no_launch_on_the_cpu():
     arrays = _inputs(2, 2, 8, 8, 2, "block", 1, seed=0)
-    before = (pk.packed_window_attention_fwd.launches, pk.packed_window_attention_bwd.launches)
+    before = (pk.packed_window_attention_fwd.launches, pk.packed_window_attention_bwd.launches,
+              pk.packed_window_attention_bwd.fused_launches)
     out, lse = pk.packed_window_attention_fwd(*map(_t, arrays[:5]))
     pk.packed_window_attention_bwd(*map(_t, arrays[:5]), out, lse, _t(arrays[5]))
-    assert (pk.packed_window_attention_fwd.launches,
-            pk.packed_window_attention_bwd.launches) == before
+    assert (pk.packed_window_attention_fwd.launches, pk.packed_window_attention_bwd.launches,
+            pk.packed_window_attention_bwd.fused_launches) == before
+
+
+@pytest.mark.parametrize("BW, nh, N, D, nW, route, chunks", [
+    (32 * 6 * 6, 6, 144, 32, 6, "fused", 29),   # Pangu stage 1: 36 (w, h) x 192 problems
+    (32 * 3 * 3, 12, 144, 32, 3, "fused", 24),  # Pangu stage 2: 36 (w, h) x 96 problems
+    (32 * 4 * 4, 4, 100, 24, 4, "fused", 32),   # the asymmetric-mask case: 128 problems
+    (32 * 4, 2, 200, 32, 4, "four_pass", 32),   # past the fused region: the four passes
+])
+def test_backward_plan_is_chosen_by_shape(BW, nh, N, D, nW, route, chunks):
+    """B5's backward takes the window backward's route rule and, with it,
+    that design's chunk plan over the BW / nW problems of a window type."""
+    assert pk._bwd_plan(BW, nh, N, D, nW) == (route, chunks)
+    assert wa.bwd_route(N, D) == route
 
 
 def test_shapes_are_checked():

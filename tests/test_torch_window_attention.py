@@ -157,11 +157,13 @@ def test_functions_match_autograd_through_plain(layout, bW):
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
-    qkv, bias, _, _ = _inputs((1, 1, 2, 8, 48), (2, 2, 8, 8), None, seed=0)
-    before = (wa.window_attention_qkv_fwd.launches, wa.window_attention_qkv5d_fwd.launches)
-    wa.window_attention_qkv_fwd(_t(qkv), _t(bias), None, 2)
-    assert (wa.window_attention_qkv_fwd.launches,
-            wa.window_attention_qkv5d_fwd.launches) == before
+    qkv, bias, _, dout = _inputs((1, 1, 2, 8, 48), (2, 2, 8, 8), None, seed=0)
+    counters = (wa.window_attention_qkv_fwd, wa.window_attention_qkv5d_fwd,
+                wa.window_attention_qkv_bwd, wa.window_attention_qkv5d_bwd)
+    before = [(c.launches, c.fused_launches) for c in counters]
+    out, lse = wa.window_attention_qkv_fwd(_t(qkv), _t(bias), None, 2)
+    wa.window_attention_qkv_bwd(_t(qkv), _t(bias), None, out, lse, _t(dout))
+    assert [(c.launches, c.fused_launches) for c in counters] == before
 
 
 @pytest.mark.parametrize("N, hd, route", [
@@ -178,6 +180,25 @@ def test_wrappers_count_no_launch_on_the_cpu():
 ])
 def test_backward_route_is_chosen_by_shape(N, hd, route):
     assert wa.bwd_route(N, hd) == route
+
+
+@pytest.mark.parametrize("N, hd, route", [
+    (144, 32, "fused"),   # Pangu stages 1 and 2
+    (64, 24, "fused"),    # swin_win8 stage 0
+    (64, 48, "fused"),    # swin_win8 stage 1
+    (72, 16, "fused"),    # the round-2 shape
+    (1, 8, "fused"),
+    (144, 48, "fused"),   # the largest block the fused route takes
+    (145, 48, "row"),     # the first N past it
+    (144, 56, "row"),     # the first head dim past it
+    (200, 32, "row"),
+    (1023, 128, "row"),
+])
+def test_forward_route_is_chosen_by_shape(N, hd, route):
+    """The forward's region is the backward's: the same shapes, the fused
+    design or the row kernel."""
+    assert wa.fwd_route(N, hd) == route
+    assert (route == "fused") == (wa.bwd_route(N, hd) == "fused")
 
 
 @pytest.mark.parametrize("bW, nh, members, chunks", [
