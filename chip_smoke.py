@@ -11,16 +11,16 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
    one nvcc per source, all started together; prints ptxas's registers
    and spills of the fused instances (window forward and backward, packed
-   backward);
+   forward and backward) and of the flash backward's mma passes;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, fp32 and bf16, TF32 off (backward calls twice, which
-   must agree bit for bit; each window case's forward and backward must
-   take the designs `fwd_route` and `bwd_route` name, and each packed
-   case's backward the one `bwd_route` names; one case of each lies past
-   the fused region), and
-   times the kernel, the old design on the fused cases (the row forward,
-   the four-pass packed backward, through the modules' private
-   launchers), the plain version, the
+   must agree bit for bit; each window and packed case's forward and
+   backward must take the designs `fwd_route` and `bwd_route` name, and
+   each flash backward case the one `flash_attention.bwd_route` names; one
+   window and one packed case lie past the fused region), and
+   times the kernel, the old design on the new design's cases (the row
+   forwards, the four-pass packed backward, the flash backward's row
+   passes, through the modules' private launchers), the plain version, the
    least time the card could take (`bound_ms`) and one PyTorch library
    call computing the same function (`library_ms`, a yardstick the port
    never calls); the packed kernel (B5) also against the 5D window kernel
@@ -48,12 +48,12 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      window-attention kernels), its card-vs-CPU gradients on the forced
      token-major route and a profiler breakdown of one training step;
    on every path each window forward and backward launch must take the
-   fused route;
+   fused route, and each flash backward launch the mma design;
    - the packed path: B5's public `packed_window_attention` has no model
      caller, so three emulated Pangu attention steps at batch 32 drive it,
      forward and backward at each of the shipped Pangu's 16 blocks' shapes
-     (48 launches each way, all 48 backward launches fused, 0 of every
-     other kernel);
+     (48 launches each way, all 48 forward and 48 backward launches fused,
+     0 of every other kernel);
 5. the card line, the `kernels` line and, last, `{"ok": true, ...}`.
 
 Every time printed stands beside the card's name and power limit.
@@ -125,23 +125,28 @@ def build_all():
         print(f"built {name} -> {os.path.relpath(path, REPO)}")
     print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     fused = (fused_ptxas(libs["window_attention_qkv"][:-3] + ".log")
-             + fused_ptxas(libs["packed_window_attention"][:-3] + ".log"))
-    for kind in ("window backward", "window forward", "packed backward"):
+             + fused_ptxas(libs["packed_window_attention"][:-3] + ".log")
+             + fused_ptxas(libs["flash_window_attention_bwd"][:-3] + ".log"))
+    for kind in ("window backward", "window forward", "packed backward", "packed forward",
+                 "flash backward mma dq", "flash backward mma dbias", "flash backward mma dkv"):
         rows = [r for r in fused if r[0] == kind]
         spilled = [f"{k}: {s} B" for _, k, _, s in rows if s]
-        print(f"ptxas -v, the {len(rows)} fused {kind} instances (dtype, hd, tiles, layout: "
+        print(f"ptxas -v, the {len(rows)} {kind} instances (dtype, hd, tiles, layout: "
               f"registers): {'; '.join(f'{k}: {r}' for _, k, r, _ in rows)}; spill stores "
               f"{', '.join(spilled) if spilled else 'none'}")
     return names
 
 
 FUSED_KINDS = {"wa_bwd": "window backward", "wa_fwd": "window forward",
-               "pw_bwd": "packed backward"}
+               "pw_bwd": "packed backward", "pw_fwd": "packed forward",
+               "dq": "flash backward mma dq", "dbias": "flash backward mma dbias",
+               "dkv": "flash backward mma dkv"}
 
 
 def fused_ptxas(log_path: str):
     """[(kind, instance, registers, spill-store bytes)] of every fused
-    kernel, from the ptxas -v report the build keeps beside the library."""
+    window or packed kernel and every flash backward mma pass, from the
+    ptxas -v report the build keeps beside the library."""
     import re
 
     rows, entry, spill = [], None, 0
@@ -152,13 +157,17 @@ def fused_ptxas(log_path: str):
             elif m := re.search(r"(\d+) bytes spill stores", line):
                 spill = int(m.group(1))
             elif (m := re.search(r"Used (\d+) registers", line)) and entry:
-                if t := re.search(r"(wa_bwd|wa_fwd|pw_bwd)_fused_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                if t := re.search(r"(wa_bwd|wa_fwd|pw_bwd|pw_fwd)_fused_kernelI(\w+?)Li(\d+)ELi(\d+)E",
                                   entry):
                     dtype = "fp32" if t.group(2) == "f" else "bf16"
                     layout = ("5D" if "Field5D" in entry else
                               "token-major" if "TokenMajor" in entry else "head-major")
                     rows.append((FUSED_KINDS[t.group(1)],
                                  f"{dtype} hd {t.group(3)} NT {t.group(4)} {layout}",
+                                 int(m.group(1)), spill))
+                elif t := re.search(r"flash_bwd_(dq|dbias|dkv)_mma_kernelI(\w+?)Li(\d+)E", entry):
+                    dtype = "fp32" if t.group(2) == "f" else "bf16"
+                    rows.append((FUSED_KINDS[t.group(1)], f"{dtype} D {t.group(3)}",
                                  int(m.group(1)), spill))
                 entry = None
     return rows
@@ -307,12 +316,14 @@ def check_flash_bwd(card: str):
             out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
             drow = (do.float() * out.float()).sum(-1)[:, :, None, :]
             args = (q, k, v, bias, out, lse, do, drow)
+            mma0 = fa.flash_window_attention_bwd.mma_launches
             got = fa.flash_window_attention_bwd(*args)
             again = fa.flash_window_attention_bwd(*args)
             torch.cuda.synchronize()
+            design = "mma" if fa.flash_window_attention_bwd.mma_launches - mma0 == 2 else "rows"
             identical = all(torch.equal(a, b) for a, b in zip(got, again))
             ref = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
-            errs, ok = {}, identical
+            errs, ok = {}, identical and design == fa.bwd_route(N, D)
             for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
                 scale = r.abs().max().item()
                 errs[name] = (a.float() - r).abs().max().item()
@@ -320,6 +331,9 @@ def check_flash_bwd(card: str):
                 errs[name + "_ref_max"] = scale
             del again, ref
             ms = cuda_ms(lambda: fa.flash_window_attention_bwd(*args), 10)
+            old_ms = None  # the old design at an mma case: the row passes
+            if design == "mma":
+                old_ms = cuda_ms(lambda: fa._launch_bwd(*args, route="rows"), 10)
             plain_ms = cuda_ms(lambda: fa.flash_window_attention_bwd_plain(*args), 3)
             lib_fn = _sdpa_backward(q, k, v, bias, B, G)
             library_ms = cuda_ms(lib_fn, 10)
@@ -327,8 +341,8 @@ def check_flash_bwd(card: str):
             bound_ms, bound_by, flops, nbytes = _bound(B, H, N, D, G, dname, backward=True)
             rec = dict(case=label, dtype=dname, B=B, H=H, N=N, D=D, bias=list(bias.shape),
                        errors=errs, max_abs_err=max(errs[n] for n in ("dq", "dk", "dv", "dbias")),
-                       tol=FLASH_BWD_TOL[dname], bit_identical=identical, ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms,
+                       tol=FLASH_BWD_TOL[dname], bit_identical=identical, design=design,
+                       ms=ms, old_ms=old_ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
             checks.append(rec)
             print(
@@ -336,9 +350,11 @@ def check_flash_bwd(card: str):
                 f"bias{list(bias.shape)}: max|diff| "
                 + " ".join(f"{n} {errs[n]:.3e}/{errs[n + '_ref_max']:.3e}"
                            for n in ("dq", "dk", "dv", "dbias"))
-                + f" (tol {FLASH_BWD_TOL[dname]:.0e} x max|ref|), two calls "
+                + f" (tol {FLASH_BWD_TOL[dname]:.0e} x max|ref|), design {design}, two calls "
                 f"{'bit-identical' if identical else 'DIFFER'} {'ok' if ok else 'FAIL'}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd (q, k, v, mask) "
+                f"kernel {ms:.4f} ms"
+                + (f" (row passes {old_ms:.4f})" if old_ms is not None else "")
+                + f", plain {plain_ms:.4f} ms, sdpa bwd (q, k, v, mask) "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{flops / ms / 1e9:.1f} TFLOP/s) [{card}]"
             )
@@ -681,7 +697,10 @@ def check_packed(card: str):
         for label, BW, nh, N, D, nW, bias_kind, mask_kind, mask_arg in PACKED_CASES:
             q, k, v, bias, mask, do = _packed_inputs(BW, nh, N, D, nW, bias_kind, mask_kind,
                                                      mask_arg, dtype, gen)
+            ffused0 = pk.packed_window_attention_fwd.fused_launches
             out, lse = pk.packed_window_attention_fwd(q, k, v, bias, mask)
+            fwd_route = "fused" if pk.packed_window_attention_fwd.fused_launches - ffused0 == 1 \
+                else "row"
             fused0 = pk.packed_window_attention_bwd.fused_launches
             got = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
             again = pk.packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do)
@@ -696,6 +715,7 @@ def check_packed(card: str):
                     "lse": (lse - p_lse).abs().max().item()}
             out_scale = 1.0 if dname == "float32" else p_out.abs().max().item()
             ok = identical and route == pk._bwd_plan(BW, nh, N, D, nW)[0] \
+                and fwd_route == wa.fwd_route(N, D) \
                 and errs["out"] <= tol["out"] * out_scale \
                 and errs["lse"] <= tol["lse"] * max(1.0, p_lse.abs().max().item())
             for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
@@ -705,6 +725,10 @@ def check_packed(card: str):
             del again, ref, p_out, p_lse, f32
             args = (q, k, v, bias, mask)
             ms = cuda_ms(lambda: pk.packed_window_attention_fwd(*args), 20)
+            row_ms = None  # the old design at a fused case: the row forward
+            if fwd_route == "fused":
+                m = wa._zero_mask(N, q) if mask is None else mask
+                row_ms = cuda_ms(lambda: pk._launch_fwd(q, k, v, bias, m, route="row"), 20)
             bwd_ms = cuda_ms(lambda: pk.packed_window_attention_bwd(*args, out, lse, do), 10)
             four_pass_ms = None  # the old design at a fused case: the four passes
             if route == "fused":
@@ -725,7 +749,8 @@ def check_packed(card: str):
             rec = dict(case=label, dtype=dname, q=[BW, nh, N, D], bias=list(bias.shape),
                        mask=mshape, errors=errs, fwd_max_abs_err=max(errs["out"], errs["lse"]),
                        bwd_max_abs_err=max(errs[n] for n in ("dq", "dk", "dv", "dbias")),
-                       tol=tol, bwd_route=route, four_pass_bwd_ms=four_pass_ms,
+                       tol=tol, fwd_route=fwd_route, row_ms=row_ms, bwd_route=route,
+                       four_pass_bwd_ms=four_pass_ms,
                        bit_identical=identical, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                        bytes=nbytes, bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
@@ -738,9 +763,11 @@ def check_packed(card: str):
                 f"{errs['out']:.3e} lse {errs['lse']:.3e} "
                 + " ".join(f"{n} {errs[n]:.3e}/{errs[n + '_ref_max']:.3e}"
                            for n in ("dq", "dk", "dv", "dbias"))
-                + f" (tol {tol}), backward route {route}, two backward calls "
-                f"{'bit-identical' if identical else 'DIFFER'} "
-                f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
+                + f" (tol {tol}), forward route {fwd_route}, backward route {route}, two "
+                f"backward calls {'bit-identical' if identical else 'DIFFER'} "
+                f"{'ok' if ok else 'FAIL'}; forward kernel {ms:.4f} ms"
+                + (f" (row kernel {row_ms:.4f})" if row_ms is not None else "")
+                + f", plain {plain_ms:.4f}, sdpa "
                 f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {flops / ms / 1e9:.1f} "
                 f"TFLOP/s); backward kernel {bwd_ms:.4f} ms"
                 + (f" (four-pass kernels {four_pass_ms:.4f})" if four_pass_ms is not None else "")
@@ -830,22 +857,36 @@ def counters_of():
             "packed_window_attention_bwd": pk.packed_window_attention_bwd}
 
 
+def new_design_counter(fn):
+    """The attribute counting a two-design kernel's launches of its new
+    design ("fused_launches": window and B5 kernels; "mma_launches": the
+    flash backward), or None for a kernel with one design."""
+    return next((a for a in ("fused_launches", "mma_launches") if hasattr(fn, a)), None)
+
+
+def new_design_launches(counters):
+    """{kernel: launches of its new design} of every two-design kernel."""
+    return {n: getattr(fn, a) for n, fn in counters.items() if (a := new_design_counter(fn))}
+
+
 def reset_counters(counters):
-    """Every launch counter to 0, the fused-route counters too."""
+    """Every launch counter to 0, the new-design counters too."""
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "fused_launches"):
-            fn.fused_launches = 0
+        if attr := new_design_counter(fn):
+            setattr(fn, attr, 0)
 
 
 def check_fused(label: str, counters, launches):
     """Every launch of a path's kernels with two designs (the window
-    forwards and backwards, B5's backward) took the fused route: the paths'
-    shapes (N 64 and 144, hd 24, 32, 48) all lie in its region."""
-    fused = {n: fn.fused_launches for n, fn in counters.items() if hasattr(fn, "fused_launches")}
-    print(f"{label} fused-route launches {fused} of {({n: launches[n] for n in fused})}")
+    forwards and backwards, B5's forward and backward, the flash backward)
+    took the new design: the paths' shapes (window N 64 and 144 at hd 24,
+    32, 48; flash D 24 and 48) all lie in its region."""
+    fused = new_design_launches(counters)
+    print(f"{label} new-design launches (fused, or mma for the flash backward) {fused} of "
+          f"{({n: launches[n] for n in fused})}")
     if any(fused[n] != launches[n] for n in fused):
-        raise SystemExit(f"{label}: fused-route launches {fused}, want all of "
+        raise SystemExit(f"{label}: new-design launches {fused}, want all of "
                          f"{({n: launches[n] for n in fused})}")
     return fused
 
@@ -1124,7 +1165,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
     card_model.load_state_dict(cpu.state_dict())
     counters = counters_of()
     before = {name: fn.launches for name, fn in counters.items()}
-    before_fused = {n: fn.fused_launches for n, fn in counters.items() if hasattr(fn, "fused_launches")}
+    before_fused = new_design_launches(counters)
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card_model, "cuda")):
         out = model(*(a.to(dev) for a in (const, pres, prog)))
@@ -1132,8 +1173,9 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
         loss.backward()
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
-    used.update({f"{n} fused": fn.fused_launches - before_fused[n]
-                 for n, fn in counters.items() if n in before_fused and n in used})
+    after_fused = new_design_launches(counters)
+    used.update({f"{n} new design": after_fused[n] - before_fused[n]
+                 for n in before_fused if n in used})
     (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
     worst = max(
         ((g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
@@ -1320,9 +1362,11 @@ def main() -> int:
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`
     # counts the path of the kernel's slice, `launches_by_path` every path.
-    # A kernel with two designs adds its fused launches on that path, the
-    # design its case took, and the old design's time there (`old_ms`: the
-    # row forward, the four-pass packed backward).
+    # A kernel with two designs adds its new design's launches on that path
+    # (`fused_launches`; `mma_launches` for the flash backward), the design
+    # its case took, and the old design's time there (`old_ms`: the row
+    # forwards, the four-pass packed backward, the flash backward's row
+    # passes).
     pa = "dlwpbench_tpu/ops/pallas_attention.py"
     csrc = "dlwpbench_tpu_torch/ops/csrc"
     kernels = []
@@ -1336,6 +1380,8 @@ def main() -> int:
             name=name, route="cuda", source=f"{csrc}/{src}", replaces=replaces,
             also_replaces=also, launches=paths["train"][name],
             launches_by_path={p: c[name] for p, c in paths.items()},
+            **({"mma_launches": fused_by_path["train"][name], "design": head["design"],
+                "old_ms": head["old_ms"]} if "design" in head else {}),
             max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -1372,8 +1418,9 @@ def main() -> int:
             name=kname, route="cuda", source=f"{csrc}/packed_window_attention.cu",
             replaces=rep, launches=paths["packed"][kname],
             launches_by_path={p: c[kname] for p, c in paths.items()},
-            **({"fused_launches": fused_by_path["packed"][kname], "design": head["bwd_route"],
-                "old_ms": head["four_pass_bwd_ms"]} if pre else {}),
+            fused_launches=fused_by_path["packed"][kname],
+            design=head["bwd_route"] if pre else head["fwd_route"],
+            old_ms=head["four_pass_bwd_ms"] if pre else head["row_ms"],
             max_abs_err=max(c[err] for c in fp32),
             ms=head[f"{pre}ms"], plain_ms=head[f"plain_{pre}ms"],
             bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],

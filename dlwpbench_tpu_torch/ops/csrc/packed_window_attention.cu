@@ -33,8 +33,23 @@
 // stores and the compute loop's reads (one query per thread) are free of
 // bank conflicts.  Every tile loop takes the place of the Pallas grid's
 // sequential axis.
-//  forward   one block per (problem, query tile, head), online softmax over
-//            key tiles of 64, 16 keys per rescale;
+//  forward   two designs, chosen by shape before the launch (the wrapper
+//            takes `window_attention.fwd_route`):
+//   fused      N <= 144 and hd <= 48 (every Pangu shape): the window
+//              kernel's tensor-core forward (`fused_fwd_body`,
+//              small_window_common.cuh; the design is described in
+//              window_attention_qkv.cu) through `PackedAccess`: one block
+//              per (problem, head), one warp per 16 query rows, Q * scale,
+//              K and V staged once, S and PV as 3xTF32 `mma.sync`, each
+//              query's whole row of scores in registers (no online
+//              rescale).  The query-major bias + mask element (key kc,
+//              query qr) is read at [qr][kc] as given, so an asymmetric
+//              mask is applied as it stands.  Bound at Pangu's stage 1
+//              shifted: the bytes, 0.155 ms (0.52 GB at 3.35 TB/s), above
+//              18.3 GFLOP at 165 TFLOP/s (3xTF32), 0.11 ms.
+//   row        everything else up to N 1023: one block per (problem, query
+//              tile, head), online softmax over key tiles of 64, 16 keys
+//              per rescale, on the fp32 CUDA cores;
 //  backward  two designs, chosen by shape before the launch (the wrapper
 //            takes `window_attention.bwd_route`); neither uses
 //            floating-point atomics and every sum runs in a fixed order, so
@@ -68,10 +83,10 @@
 // heads, N 144, D 32) the forward does 4 BW nh N^2 D = 18.3 GFLOP on about
 // 0.6 GB of fp32 operands: about 30 operations per byte, above the fp32
 // ridge of 20, so fp32 operations bound it (0.27 ms at 67 TFLOP/s); the
-// backward's five products 46 GFLOP (0.68 ms).  The forward and the
+// backward's five products 46 GFLOP (0.68 ms).  The row forward and the
 // four-pass backward run their products on the fp32 CUDA cores; the fused
-// backward on the tensor cores as 3xTF32 (0.28 ms at 495 / 3 TFLOP/s, so
-// its bytes, about 1 GB, 0.31 ms, bound it).
+// designs on the tensor cores as 3xTF32 (the backward's 0.28 ms at 495 / 3
+// TFLOP/s, so its bytes, about 1 GB, 0.31 ms, bound it).
 
 #include "small_window_common.cuh"
 
@@ -478,11 +493,20 @@ struct PackedAccess {
   T* dk_;
   T* dv_;
   Geom g;
+  T* out_w_ = nullptr;  // the forward's outputs
+  float* lse_w_ = nullptr;
 
   struct Member {
     int m;
     const T* mask;
   };
+  // the forward's member: problem p, with its window type's bias
+  __device__ Member fwd_member(int p) const { return {p, mask_ptr(mask_, g, p)}; }
+  __device__ const T* fwd_bias(const Member& mb, int h) const {
+    return bias_ptr(bias_, g, mb.m % g.nW, h);
+  }
+  __device__ T* out_at(size_t row, int) const { return out_w_ + row * D; }
+  __device__ float* lse_out() const { return lse_w_; }
   __device__ int N() const { return g.N; }
   __device__ int heads() const { return g.nh; }
   __device__ float scale() const { return g.scale; }
@@ -521,6 +545,20 @@ pw_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ part, Geom g, int n_chunks) {
   const PackedAccess<T, D> a{q, k, v, bias, mask, out, dout, lse, dq, dk, dv, g};
   fused_bwd_body<T, D, NT>(a, part, n_chunks);
+}
+
+// ---------------------------------------------------------------- fused forward
+// Grid (problems, heads); blockDim 32 * ceil(N / 16) <= 32 * NT, one warp
+// per 16 query rows; the window kernel's blocks per SM (4 at NT 4, 2 at NT 9).
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(32 * NT, NT <= 4 ? 4 : 2)
+pw_fwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ bias,
+                    const T* __restrict__ mask, T* __restrict__ out,
+                    float* __restrict__ lse, Geom g) {
+  const PackedAccess<T, D> a{q,       k,       v,       bias, mask, out, nullptr, lse,
+                             nullptr, nullptr, nullptr, g,    out,  lse};
+  fused_fwd_body<T, D, NT>(a);
 }
 
 // ---------------------------------------------------------------- launch
@@ -613,6 +651,39 @@ cudaError_t launch_bwd_fused(const void* q, const void* k, const void* v,
                                 stream);
 }
 
+// The fused forward: one block per (problem, head).
+template <typename T, int D>
+cudaError_t launch_fwd_fused(const void* q, const void* k, const void* v,
+                             const void* bias, const void* mask, void* out, void* lse,
+                             Geom g, cudaStream_t stream) {
+  const int nt = (g.N + 15) / 16;
+  g.scale = 1.f / sqrtf(static_cast<float>(D));
+  const size_t smem = fwd_fused_smem_bytes(nt * 16, D);
+  auto kernel = nt <= 4 ? &pw_fwd_fused_kernel<T, D, 4> : &pw_fwd_fused_kernel<T, D, 9>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(g.BW, g.nh), 32 * nt, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(bias), static_cast<const T*>(mask), static_cast<T*>(out),
+      static_cast<float*>(lse), g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_fwd_fused(int D, const void* q, const void* k, const void* v,
+                               const void* bias, const void* mask, void* out, void* lse,
+                               const Geom& g, cudaStream_t s) {
+  switch (D) {
+#define PW_FWD_FUSED_CASE(DD) \
+  case DD:                    \
+    return launch_fwd_fused<T, DD>(q, k, v, bias, mask, out, lse, g, s);
+    FUSED_HEAD_DIMS(PW_FWD_FUSED_CASE)
+#undef PW_FWD_FUSED_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch_bwd_fused(int D, const void* q, const void* k, const void* v,
                                const void* bias, const void* mask, const void* out,
@@ -696,6 +767,27 @@ extern "C" int packed_window_attention_fwd(const void* q, const void* k,
     err = dispatch_fwd<float>(D, q, k, v, bias, mask, out, lse, g, s);
   } else if (dtype == 1) {
     err = dispatch_fwd<__nv_bfloat16>(D, q, k, v, bias, mask, out, lse, g, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The same forward by the fused route, for N <= 144 and head dims up to 48
+// (anything else returns cudaErrorInvalidValue); the same arguments.
+extern "C" int packed_window_attention_fwd_fused(const void* q, const void* k,
+                                                 const void* v, const void* bias,
+                                                 const void* mask, void* out, void* lse,
+                                                 int BW, int nh, int N, int D, int nW,
+                                                 int mL, int mW, int dtype, void* stream) {
+  Geom g;
+  if (!make_geom(g, BW, nh, N, nW, mL, mW) || N > kFusedMaxN || D > kFusedMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dispatch_fwd_fused<float>(D, q, k, v, bias, mask, out, lse, g, s);
+  } else if (dtype == 1) {
+    err = dispatch_fwd_fused<__nv_bfloat16>(D, q, k, v, bias, mask, out, lse, g, s);
   }
   return static_cast<int>(err);
 }

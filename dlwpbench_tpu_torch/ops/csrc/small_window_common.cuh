@@ -1,9 +1,9 @@
 // Building blocks shared by the small-window attention kernels
 // (window_attention_qkv.cu, packed_window_attention.cu): row-per-thread
 // fp32 arithmetic on shared-memory tiles, the block plan, the ordered
-// dbias chunk sum, the 3xTF32 `mma.sync` helpers and the fused backward's
-// body, a template over each source's addressing.  Each source includes
-// this once, so everything here has internal linkage.
+// dbias chunk sum, the 3xTF32 `mma.sync` helpers and the fused forward's
+// and backward's bodies, templates over each source's addressing.  Each
+// source includes this once, so everything here has internal linkage.
 
 #pragma once
 
@@ -491,6 +491,202 @@ __device__ __forceinline__ void fused_bwd_body(const Acc& a, float* __restrict__
           const int qc = j * 16 + 8 * n + 2 * tq + i % 2;
           if (kr < N && qc < N) pp[a.part_at(kr, qc)] = db[j][n][i];
         }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- fused forward
+// Shared memory of one fused forward block: Q * scale, K, V as fp32
+// [Np][D + 4], and the rows' token offsets.
+inline size_t fwd_fused_smem_bytes(int Np, int D) {
+  return sizeof(float) * 3 * Np * (D + 4) + sizeof(size_t) * Np;
+}
+
+// The body of the fused forward (one tensor-core pass per (member, head)),
+// shared by the window kernel (window_attention_qkv.cu, whose header
+// comment describes the design) and the packed kernel
+// (packed_window_attention.cu).  It runs for block (member m, head h) with
+// blockDim 32 * ceil(N / 16) <= 32 * NT, one warp per 16 query rows, and
+// `fwd_fused_smem_bytes` of dynamic shared memory.  Besides the backward's
+// N(), heads(), scale(), row(), q/k/v() and bm(), the access policy gives
+//  - fwd_member(m): member m, with its mask block `mask` and its index `m`
+//    (its lse row is lse_out() + (m * heads + h) * N);
+//  - fwd_bias(mb, h): the bias block of member mb, head h;
+//  - out_at(row, h): where the head's D output values of a row go.
+template <typename T, int D, int NT, typename Acc>
+__device__ __forceinline__ void fused_fwd_body(const Acc& a) {
+  constexpr int DP = D + 4;  // operand pitch: conflict-free fragments
+  constexpr int ND = D / 8;  // 8-wide slices of the head dim
+  constexpr int V4 = D / 4;
+  const int N = a.N();
+  const int nt = blockDim.x / 32;
+  const int Np = nt * 16;
+  const float scale = a.scale();
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [Np][DP], times scale
+  float* k_s = q_s + Np * DP;
+  float* v_s = k_s + Np * DP;
+  size_t* off_s = reinterpret_cast<size_t*>(v_s + Np * DP);
+
+  const typename Acc::Member mb = a.fwd_member(blockIdx.x);
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
+  const int r0 = warp * 16;  // the warp's query rows
+  const T* bp = a.fwd_bias(mb, h);
+  const T* mp = mb.mask;
+
+  for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = a.row(mb, h, j);
+  __syncthreads();
+  for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
+    const int j = i / V4;
+    const int cc = (i % V4) * 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 q4 = z, k4 = z, v4 = z;
+    if (j < N) {
+      q4 = load4(a.q(off_s[j], h) + cc);
+      k4 = load4(a.k(off_s[j], h) + cc);
+      v4 = load4(a.v(off_s[j], h) + cc);
+      q4 = make_float4(q4.x * scale, q4.y * scale, q4.z * scale, q4.w * scale);
+    }
+    *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
+    *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
+    *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
+  }
+
+  // The scores of query rows r0 + g (+8) against every key, 16 keys a
+  // tile, start as bias + mask (-inf past N); their loads are issued
+  // before the barrier, so they overlap the staging.
+  float s[NT][2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qr = r0 + gq + 8 * (i / 2);
+        const int kc = j * 16 + 8 * n + 2 * tq + i % 2;
+        s[j][n][i] = kc >= N ? -INFINITY : (qr < N ? a.bm(bp, mp, kc, qr) : 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // S += (Q scale) K^T: each Q fragment split once, used for every key tile
+#pragma unroll
+  for (int kk = 0; kk < ND; ++kk) {
+    float af[4];
+    frag_a(af, q_s, DP, r0, kk * 8, gq, tq);
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Split3 x = split_tf32(af[i]);
+      ab[i] = x.big;
+      as[i] = x.small;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float bk[2];
+          frag_bt(bk, k_s, DP, kk * 8, j * 16 + 8 * n, gq, tq);
+          const Split3 b0 = split_tf32(bk[0]), b1 = split_tf32(bk[1]);
+          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
+          mma_3xtf32_split(s[j][n], ab, as, bb, bs);
+        }
+      }
+    }
+  }
+
+  // The full-row softmax in registers: rows g and g + 8 of the warp's
+  // tile, each spread over the quad's 4 lanes.
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[j][n][i]);
+      }
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[j][n][i] = expf(s[j][n][i] - mx[i / 2]);
+          sum[i / 2] += s[j][n][i];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+
+  // O = P V.  The keys of each 8-key step are taken in the order 0, 2, 4,
+  // 6, 1, 3, 5, 7, so the C fragment of P is its A fragment as it stands
+  // (a = c0, c2, c1, c3) and no shuffle or shared tile is needed; V's B
+  // fragment reads the same order.
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float pa[4] = {s[j][n][0], s[j][n][2], s[j][n][1], s[j][n][3]};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Split3 x = split_tf32(pa[i]);
+          ab[i] = x.big;
+          as[i] = x.small;
+        }
+        const float* vr = v_s + (j * 16 + 8 * n + 2 * tq) * DP + gq;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const Split3 b0 = split_tf32(vr[nd * 8]), b1 = split_tf32(vr[DP + nd * 8]);
+          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
+          mma_3xtf32_split(o[nd], ab, as, bb, bs);
+        }
+      }
+    }
+  }
+
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = r0 + gq + 8 * (i / 2);
+      if (qr < N) store_f(a.out_at(off_s[qr], h) + nd * 8 + 2 * tq + i % 2, o[nd][i] * inv[i / 2]);
+    }
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = r0 + gq + 8 * r;
+      if (qr < N) {
+        a.lse_out()[(static_cast<size_t>(mb.m) * a.heads() + h) * N + qr] = mx[r] + logf(sum[r]);
       }
     }
   }

@@ -58,7 +58,9 @@
 //             at Pangu's stage 1, 18.3 GFLOP as 3xTF32 (0.11 ms at 495 / 3
 //             TFLOP/s) under about 0.5 GB of operands (0.16 ms at 3.35
 //             TB/s); each 3xTF32 product also costs 12 conversions on the
-//             ALU pipes, which likely sets the pace.
+//             ALU pipes, which likely sets the pace.  The body is
+//             `fused_fwd_body` in small_window_common.cuh, shared with the
+//             packed kernel through `WindowAccess`.
 //  row        everything else up to N 1023 (the row kernel below).
 //
 // Row kernels (the row forward and the general backward).  A thread owns one
@@ -558,11 +560,21 @@ struct WindowAccess {
   const float* lse;
   T* dqkv_;
   Geom g;
+  T* out_w_ = nullptr;  // the forward's outputs
+  float* lse_w_ = nullptr;
 
   struct Member {
     int b, l, w, m;
     const T* mask;
   };
+  // the forward's member m = (b * L + l) * nW + w, its bias, its outputs
+  __device__ Member fwd_member(int m) const {
+    const int b = m / (g.nW * g.L), l = (m / g.nW) % g.L, w = m % g.nW;
+    return {b, l, w, m, mask_ptr(mask_, g, l, w)};
+  }
+  __device__ const T* fwd_bias(const Member& mb, int h) const { return bias_ptr(bias_, g, mb.w, h); }
+  __device__ T* out_at(size_t row, int h) const { return out_w_ + at1(row, h); }
+  __device__ float* lse_out() const { return lse_w_; }
   __device__ int N() const { return g.N; }
   __device__ int heads() const { return g.nh; }
   __device__ float scale() const { return g.scale; }
@@ -609,199 +621,18 @@ wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------- fused forward
-// Shared memory of one block: Q * scale, K, V as fp32 [Np][D + 4], and the
-// rows' token offsets.
-inline size_t fwd_fused_smem_bytes(int Np, int D) {
-  return sizeof(float) * 3 * Np * (D + 4) + sizeof(size_t) * Np;
-}
-
 // Grid (members, heads); blockDim 32 * ceil(N / 16) <= 32 * NT, one warp
 // per 16 query rows.  Blocks each SM should hold: 4 at NT 4 (N <= 64),
 // which caps ptxas at 128 registers, and 2 at NT 9, which caps it at 112
-// and leaves room for N 144's 72 score registers.
+// and leaves room for N 144's 72 score registers.  The body is
+// `fused_fwd_body` (small_window_common.cuh) through `WindowAccess`.
 template <typename T, int D, int NT, typename Layout>
 __global__ void __launch_bounds__(32 * NT, NT <= 4 ? 4 : 2)
 wa_fwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                     const T* __restrict__ mask, T* __restrict__ out,
                     float* __restrict__ lse, Geom g) {
-  constexpr int DP = D + 4;  // operand pitch: conflict-free fragments
-  constexpr int ND = D / 8;  // 8-wide slices of the head dim
-  constexpr int V4 = D / 4;
-  const int N = g.N;
-  const int C = g.nh * D;
-  const int nt = blockDim.x / 32;
-  const int Np = nt * 16;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [Np][DP], times scale
-  float* k_s = q_s + Np * DP;
-  float* v_s = k_s + Np * DP;
-  size_t* off_s = reinterpret_cast<size_t*>(v_s + Np * DP);
-
-  const int m = blockIdx.x;
-  const Member mb(g, m);
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int gq = (threadIdx.x % 32) / 4;
-  const int tq = threadIdx.x % 4;
-  const int r0 = warp * 16;  // the warp's query rows
-  const T* bp = bias_ptr(bias, g, mb.w, h);
-  const T* mp = mask_ptr(mask, g, mb.l, mb.w);
-
-  for (int j = threadIdx.x; j < N; j += blockDim.x) off_s[j] = Layout::row(g, mb.b, mb.l, mb.w, j);
-  __syncthreads();
-  for (int i = threadIdx.x; i < Np * V4; i += blockDim.x) {
-    const int j = i / V4;
-    const int cc = (i % V4) * 4;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 q4 = z, k4 = z, v4 = z;
-    if (j < N) {
-      const T* row = qkv + off_s[j] * 3 * C + h * D + cc;
-      q4 = load4(row);
-      k4 = load4(row + C);
-      v4 = load4(row + 2 * C);
-      q4 = make_float4(q4.x * g.scale, q4.y * g.scale, q4.z * g.scale, q4.w * g.scale);
-    }
-    *reinterpret_cast<float4*>(q_s + j * DP + cc) = q4;
-    *reinterpret_cast<float4*>(k_s + j * DP + cc) = k4;
-    *reinterpret_cast<float4*>(v_s + j * DP + cc) = v4;
-  }
-
-  // The scores of query rows r0 + g (+8) against every key, 16 keys a
-  // tile, start as bias + mask (-inf past N); their loads are issued
-  // before the barrier, so they overlap the staging.
-  float s[NT][2][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qr = r0 + gq + 8 * (i / 2);
-        const int kc = j * 16 + 8 * n + 2 * tq + i % 2;
-        const size_t o = static_cast<size_t>(kc) * N + qr;
-        s[j][n][i] = kc >= N ? -INFINITY
-                             : (qr < N ? load_f(bp + o) + load_f(mp + o) : 0.f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // S += (Q scale) K^T: each Q fragment split once, used for every key tile
-#pragma unroll
-  for (int kk = 0; kk < ND; ++kk) {
-    float af[4];
-    frag_a(af, q_s, DP, r0, kk * 8, gq, tq);
-    uint32_t ab[4], as[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const Split3 x = split_tf32(af[i]);
-      ab[i] = x.big;
-      as[i] = x.small;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          float bk[2];
-          frag_bt(bk, k_s, DP, kk * 8, j * 16 + 8 * n, gq, tq);
-          const Split3 b0 = split_tf32(bk[0]), b1 = split_tf32(bk[1]);
-          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
-          mma_3xtf32_split(s[j][n], ab, as, bb, bs);
-        }
-      }
-    }
-  }
-
-  // The full-row softmax in registers: rows g and g + 8 of the warp's
-  // tile, each spread over the quad's 4 lanes.
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < nt) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[j][n][i]);
-      }
-    }
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < nt) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[j][n][i] = expf(s[j][n][i] - mx[i / 2]);
-          sum[i / 2] += s[j][n][i];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
-
-  // O = P V.  The keys of each 8-key step are taken in the order 0, 2, 4,
-  // 6, 1, 3, 5, 7, so the C fragment of P is its A fragment as it stands
-  // (a = c0, c2, c1, c3) and no shuffle or shared tile is needed; V's B
-  // fragment reads the same order.
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < nt) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const float pa[4] = {s[j][n][0], s[j][n][2], s[j][n][1], s[j][n][3]};
-        uint32_t ab[4], as[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const Split3 x = split_tf32(pa[i]);
-          ab[i] = x.big;
-          as[i] = x.small;
-        }
-        const float* vr = v_s + (j * 16 + 8 * n + 2 * tq) * DP + gq;
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          const Split3 b0 = split_tf32(vr[nd * 8]), b1 = split_tf32(vr[DP + nd * 8]);
-          const uint32_t bb[2] = {b0.big, b1.big}, bs[2] = {b0.small, b1.small};
-          mma_3xtf32_split(o[nd], ab, as, bb, bs);
-        }
-      }
-    }
-  }
-
-  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = r0 + gq + 8 * (i / 2);
-      if (qr < N) {
-        store_f(out + off_s[qr] * C + h * D + nd * 8 + 2 * tq + i % 2, o[nd][i] * inv[i / 2]);
-      }
-    }
-  }
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qr = r0 + gq + 8 * r;
-      if (qr < N) lse[(static_cast<size_t>(m) * g.nh + h) * N + qr] = mx[r] + logf(sum[r]);
-    }
-  }
+  const WindowAccess<T, D, Layout> a{qkv, bias, mask, out, nullptr, lse, nullptr, g, out, lse};
+  fused_fwd_body<T, D, NT>(a);
 }
 
 // ---------------------------------------------------------------- launch

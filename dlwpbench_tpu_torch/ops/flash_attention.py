@@ -15,7 +15,10 @@ pre-scale.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/flash_window_attention.cu` forward, `csrc/flash_window_attention_bwd.cu`
 backward, built at first use) or raises: on an unsupported dtype, head
-dim, layout, a failed build or a failed launch.  The plain versions run
+dim, layout, a failed build or a failed launch.  The backward has two
+designs, chosen from the head dim by `bwd_route`: three passes on the
+tensor cores (3xTF32 `mma.sync`) for D <= 64, every model path, and three
+row passes on the fp32 CUDA cores for the rest.  The plain versions run
 only for tensors on the CPU.  `flash_window_attention` and
 `flash_window_attention_lse` are `torch.autograd.Function`s whose backward
 goes through `flash_window_attention_bwd`; the raw
@@ -33,6 +36,7 @@ from dlwpbench_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+MMA_MAX_HEAD_DIM = 64  # the backward's tensor-core design (`bwd_route`)
 
 
 def _check_shapes(q, k, v, bias) -> int:
@@ -170,14 +174,54 @@ def flash_window_attention_fwd(q, k, v, bias):
 flash_window_attention_fwd.launches = 0
 
 
+def bwd_route(N, D):
+    """Which backward design takes q [.., N, D]: "mma" (three passes on the
+    tensor cores, 3xTF32, for head dims up to MMA_MAX_HEAD_DIM at any N:
+    four operand tiles of 64 x (D + 4) {big, small} pairs in shared memory,
+    139 KB at D 64, and the dK/dV accumulators in registers) or "rows"
+    (three passes on the fp32 CUDA cores, head dims up to MAX_HEAD_DIM).
+    Decided from the shape before the launch, never as a retry; N does not
+    enter the choice."""
+    del N
+    return "mma" if D <= MMA_MAX_HEAD_DIM else "rows"
+
+
+def _launch_bwd(q, k, v, bias, out, lse, do, drow, route=None):
+    """Launches the backward of `route` ("mma" or "rows"; by default the one
+    `bwd_route` names, as the public wrapper takes it) on checked CUDA
+    tensors; returns (dq, dk, dv, dbias, route)."""
+    B, H, N, D = q.shape
+    G = _check_shapes(q, k, v, bias)
+    route = route or bwd_route(N, D)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    symbol = "flash_window_attention_bwd_mma" if route == "mma" else "flash_window_attention_bwd"
+    fn = _kernel_fn("flash_window_attention_bwd", symbol, 11, 6)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), drow.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), B, H, N, D, G,
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_window_attention_bwd: CUDA error {err} on the {route} route for q "
+            f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}"
+        )
+    return dq, dk, dv, dbias, route
+
+
 def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     """(dq, dk, dv, dbias) of `flash_window_attention_fwd`; see
     `flash_window_attention_bwd_plain` for the arguments.
 
     CPU tensors take the plain version; CUDA tensors the kernels of
-    `csrc/flash_window_attention_bwd.cu` (one counted launch in
-    `flash_window_attention_bwd.launches` runs all its passes)."""
-    G = _check_shapes(q, k, v, bias)
+    `csrc/flash_window_attention_bwd.cu` in the design `bwd_route` names:
+    one counted launch in `flash_window_attention_bwd.launches` runs all its
+    passes, and `flash_window_attention_bwd.mma_launches` counts those of
+    the "mma" design."""
+    _check_shapes(q, k, v, bias)
     B, H, N, D = q.shape
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"dO {tuple(do.shape)} does not match q {tuple(q.shape)}")
@@ -189,28 +233,15 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     _check_cuda("flash_window_attention_bwd", (q, k, v, bias, do))
     if lse.dtype != torch.float32 or drow.dtype != torch.float32:
         raise TypeError(f"lse and drow must be float32, got {lse.dtype}, {drow.dtype}")
-    lse, drow = lse.contiguous(), drow.contiguous()
-
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbias = torch.empty_like(bias)
-    fn = _kernel_fn("flash_window_attention_bwd", "flash_window_attention_bwd", 11, 6)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), drow.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), B, H, N, D, G,
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_window_attention_bwd: CUDA error {err} for q "
-            f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}"
-        )
+    dq, dk, dv, dbias, route = _launch_bwd(q, k, v, bias, out, lse.contiguous(), do,
+                                           drow.contiguous())
     flash_window_attention_bwd.launches += 1
+    flash_window_attention_bwd.mma_launches += route == "mma"
     return dq, dk, dv, dbias
 
 
 flash_window_attention_bwd.launches = 0
+flash_window_attention_bwd.mma_launches = 0
 
 
 class _FlashWindowAttention(torch.autograd.Function):

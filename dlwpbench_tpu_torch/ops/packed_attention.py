@@ -20,9 +20,10 @@ so the port raises instead.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/packed_window_attention.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
-The backward has the window kernels' two designs, chosen from (N, D) by
-`window_attention.bwd_route`: the fused tensor-core pass for N <= 144 and
-D <= 48 (every Pangu shape), the four-pass row kernels for the rest.  The
+Forward and backward have the window kernels' two designs, chosen from
+(N, D) by `window_attention.fwd_route` and `bwd_route`: the fused
+tensor-core kernels for N <= 144 and D <= 48 (every Pangu shape), the row
+kernels (the backward's in four passes) for the rest.  The
 plain versions run only for tensors on the CPU.  The differentiable
 entry `packed_window_attention` is a `torch.autograd.Function` whose
 backward goes through `packed_window_attention_bwd`; the mask is a
@@ -40,6 +41,7 @@ from dlwpbench_tpu_torch.ops.window_attention import (
     _fused_chunks,
     _zero_mask,
     bwd_route,
+    fwd_route,
 )
 
 _SOURCE = "packed_window_attention"
@@ -114,38 +116,53 @@ def packed_window_attention_bwd_plain(q, k, v, bias, mask, out, lse, do):
 
 
 # ---------------------------------------------------------------- CUDA wrappers
+def _launch_fwd(q, k, v, bias, mask, route=None):
+    """Launches the forward of `route` ("fused" or "row"; by default the
+    one `fwd_route` names, as the public wrapper takes it) on checked CUDA
+    tensors, mask not None; returns (out, lse, route)."""
+    BW, nh, N, D = q.shape
+    route = route or fwd_route(N, D)
+    out = torch.empty_like(q)
+    lse = torch.empty((BW, nh, 1, N), dtype=torch.float32, device=q.device)
+    symbol = "packed_window_attention_fwd_fused" if route == "fused" else "packed_window_attention_fwd"
+    fn = _kernel_fn(_SOURCE, symbol, 7, 8)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), BW, nh, N, D, bias.shape[0], mask.shape[0],
+                 mask.shape[1], _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packed_window_attention_fwd: CUDA error {err} on the {route} route "
+                           f"for q {tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}, "
+                           f"mask {tuple(mask.shape)}")
+    return out, lse, route
+
+
 def packed_window_attention_fwd(q, k, v, bias, mask):
     """(out [BW,nh,N,D], lse [BW,nh,1,N] fp32).
 
-    CPU tensors take the plain version; CUDA tensors the kernel, whose
-    launches are counted in `packed_window_attention_fwd.launches`.  Not
-    differentiable on CUDA tensors: use `packed_window_attention`."""
-    nW = _check_shapes(q, k, v, bias, mask)
+    CPU tensors take the plain version; CUDA tensors the kernel of
+    `fwd_route`'s design, whose launches are counted in
+    `packed_window_attention_fwd.launches`, and those of the fused route in
+    `.fused_launches` too.  Not differentiable on CUDA tensors: use
+    `packed_window_attention`."""
+    _check_shapes(q, k, v, bias, mask)
     if _device_of((q, k, v, bias) + (() if mask is None else (mask,))).type == "cpu":
         return packed_window_attention_plain(q, k, v, bias, mask)
-    BW, nh, N, D = q.shape
+    N, D = q.shape[2:]
     mask = _zero_mask(N, q) if mask is None else mask
     _check_cuda("packed_window_attention_fwd", (q, k, v, bias, mask), D, N)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         raise NotImplementedError(
             "packed_window_attention_fwd is not differentiable; call "
             "packed_window_attention, whose backward launches the CUDA backward kernels")
-    out = torch.empty_like(q)
-    lse = torch.empty((BW, nh, 1, N), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn(_SOURCE, "packed_window_attention_fwd", 7, 8)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), BW, nh, N, D, nW, mask.shape[0],
-                 mask.shape[1], _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"packed_window_attention_fwd: CUDA error {err} for q "
-                           f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}, "
-                           f"mask {tuple(mask.shape)}")
+    out, lse, route = _launch_fwd(q, k, v, bias, mask)
     packed_window_attention_fwd.launches += 1
+    packed_window_attention_fwd.fused_launches += route == "fused"
     return out, lse
 
 
 packed_window_attention_fwd.launches = 0
+packed_window_attention_fwd.fused_launches = 0
 
 
 def _bwd_plan(BW, nh, N, D, nW, route=None):

@@ -490,3 +490,132 @@ def test_packed_kernels_refuse_what_they_cannot_take(cuda):
     q = torch.zeros(4, 2, 16, 8, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError):
         pk.packed_window_attention_fwd(q, q, q, torch.zeros(2, 2, 16, 16, device=cuda), None)
+
+
+# ---------------------------------------------------------------- flash backward designs
+# (label, B, H, N, D, G or 0 for a 3D bias, bias kind): the Swin train
+# path's shapes at batch 32 (stage 0 with a 3D bias and with the shifted
+# [1, H, N, N] bias, stage 1), the tail and G = B cases, and D 64, the
+# largest head dim the mma design takes
+FLASH_DESIGN_CASES = [
+    ("stage0 3d", 32, 4, 2048, 24, 0, "random"),
+    ("stage0 shifted", 32, 4, 2048, 24, 1, "swin-shift"),
+    ("stage1", 32, 4, 512, 48, 0, "random"),
+    ("tail N1000 G4", 8, 3, 1000, 32, 4, "random"),
+    ("G=B N200 D64", 4, 2, 200, 64, 4, "random"),
+]
+
+
+def _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed):
+    """q, k, v, bias, out, lse, dO and drow with an lse cotangent folded in
+    (drow = rowsum(dO * out) - g_lse), on the card."""
+    from dlwpbench_tpu_torch.models.swin import shift_window_groups
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, N, D, device=cuda, generator=g) for _ in range(4))
+    if kind == "swin-shift":  # 32 x 64 window: a table-like bias + the -100 shift mask
+        groups = torch.as_tensor(shift_window_groups(32, 64, 32, 64, 16, 32), device=cuda)
+        mask = torch.where(groups[:, None, :] != groups[:, :, None], -100.0, 0.0)
+        bias = 0.02 * torch.randn(H, N, N, device=cuda, generator=g) + mask[:, None]
+    else:
+        bias = torch.randn((H, N, N) if G == 0 else (G, H, N, N), device=cuda, generator=g)
+    q, k, v, do, bias = (t.to(dtype).contiguous() for t in (q, k, v, do, bias))
+    out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
+    g_lse = torch.randn(B, H, 1, N, device=cuda, generator=g)
+    drow = (do.float() * out.float()).sum(-1)[:, :, None, :] - g_lse
+    return q, k, v, bias, out, lse, do, drow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label, B, H, N, D, G, kind", FLASH_DESIGN_CASES)
+def test_flash_backward_mma_design_on_card(cuda, dtype, label, B, H, N, D, G, kind):
+    """The backward at these shapes takes the mma design (its counter moves
+    with it), matches the plain version and the row design on the same
+    inputs, lse cotangent included, and repeats bit for bit."""
+    args = _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed=N + D + G)
+    bwd = fa.flash_window_attention_bwd
+    before = (bwd.launches, bwd.mma_launches)
+    got = bwd(*args)
+    again = bwd(*args)
+    torch.cuda.synchronize()
+    assert fa.bwd_route(N, D) == "mma"
+    assert (bwd.launches - before[0], bwd.mma_launches - before[1]) == (2, 2)
+    for a, b in zip(got, again):  # no atomics: bit-identical
+        assert torch.equal(a, b)
+    want = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
+    rows = fa._launch_bwd(*args, route="rows")
+    torch.cuda.synchronize()
+    assert rows[4] == "rows"
+    # a share of max|ref|: fp32 sums over up to 2048 keys and 32 members in
+    # other orders; bf16 rounds the fp32 result once
+    share = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, w, r in zip(("dq", "dk", "dv", "dbias"), got, want, rows[:4]):
+        assert a.dtype == args[0].dtype and a.shape == w.shape, name
+        tol = share * w.abs().max().item()
+        torch.testing.assert_close(a.float(), w, rtol=0, atol=tol, msg=name)
+        torch.testing.assert_close(a.float(), r.float(), rtol=0, atol=2 * tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_backward_past_the_mma_design_takes_the_rows(cuda):
+    """D 72 is past the mma design: the row passes, counted as such."""
+    args = _flash_design_inputs(cuda, torch.float32, 2, 2, 100, 72, 2, "random", seed=3)
+    bwd = fa.flash_window_attention_bwd
+    before = (bwd.launches, bwd.mma_launches)
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    assert (bwd.launches - before[0], bwd.mma_launches - before[1]) == (1, 0)
+    want = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * w.abs().max().item(), msg=name)
+
+
+# ---------------------------------------------------------------- B5's forward designs
+# (B_, nh, N, D, nW, mask lead dims, mask kind, route): Pangu's stage-1 and
+# stage-2 shapes at a small batch, an asymmetric N 100 mask, and a shape
+# past the fused region
+PACKED_FORWARD_CASES = [
+    (6, 6, 144, 32, 6, (6, 6), "block", "fused"),
+    (6, 12, 144, 32, 3, (3, 3), "block", "fused"),
+    (8, 4, 100, 24, 4, (4, 1), "random", "fused"),
+    (4, 2, 200, 32, 2, (2, 2), "random", "row"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B_, nh, N, D, nW, lead, kind, route", PACKED_FORWARD_CASES)
+def test_packed_forward_takes_its_route_on_card(cuda, dtype, B_, nh, N, D, nW, lead, kind,
+                                                route):
+    """B5's forward runs on the route `fwd_route` names (its fused counter
+    moves with it or not at all), matches the plain version on the CPU, and
+    on the fused route agrees with the row kernel (the module's private
+    launcher) on the same inputs."""
+    q, k, v, bias, mask, _ = _packed_inputs(cuda, dtype, B_, nh, N, D, nW, lead, kind,
+                                            seed=N * D + nW + 1)
+    fwd = pk.packed_window_attention_fwd
+    before = (fwd.launches, fwd.fused_launches)
+    out, lse = fwd(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert wa.fwd_route(N, D) == route
+    assert (fwd.launches - before[0], fwd.fused_launches - before[1]) == \
+        (1, 1 if route == "fused" else 0)
+    f32 = [t.float().cpu() for t in (q, k, v, bias, mask)]
+    want, want_lse = pk.packed_window_attention_plain(*f32)
+    # fp32: other summation orders; bf16: the result is rounded once to bf16
+    atol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float().cpu(), want, rtol=0,
+                               atol=atol * max(1.0, want.abs().max().item()))
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=0,
+                               atol=2e-5 * max(1.0, want_lse.abs().max().item()))
+    if route == "fused":
+        row_out, row_lse, taken = pk._launch_fwd(q, k, v, bias, mask, route="row")
+        torch.cuda.synchronize()
+        assert taken == "row"
+        # both results rounded: up to one bf16 ulp apart
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(out.float(), row_out.float(), rtol=0,
+                                   atol=(atol if dtype == torch.float32 else 4 * atol) * scale)
+        torch.testing.assert_close(lse, row_lse, rtol=0,
+                                   atol=2e-5 * max(1.0, want_lse.abs().max().item()))

@@ -14,6 +14,9 @@ normal inputs, |grad| < 10): the two sides sum over up to 200 keys and
 `test_torch_cuda_kernels.py`.
 """
 
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,9 +115,10 @@ def test_plain_backward_direct_call():
     q, k, v, bias, g_out, _ = map(torch.from_numpy, _inputs(60, 8, "g2", 11))
     out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
     drow = (g_out * out).sum(-1)[:, :, None, :]
-    before = fa.flash_window_attention_bwd.launches
+    counter = fa.flash_window_attention_bwd
+    before = (counter.launches, counter.mma_launches)
     got = fa.flash_window_attention_bwd(q, k, v, bias, out, lse, g_out, drow)
-    assert fa.flash_window_attention_bwd.launches == before
+    assert (counter.launches, counter.mma_launches) == before
     want = fa.flash_window_attention_bwd_plain(q, k, v, bias, out, lse, g_out, drow)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -129,3 +133,49 @@ def test_backward_checks_shapes():
         fa.flash_window_attention_bwd(q, q, q, bias, q, lse, torch.zeros(2, 2, 16, 4), lse)
     with pytest.raises(ValueError, match="drow"):
         fa.flash_window_attention_bwd(q, q, q, bias, q, lse, q, torch.zeros(2, 2, 16))
+
+
+@pytest.mark.parametrize("N, D, route", [
+    (2048, 24, "mma"),   # Swin stage 0
+    (512, 48, "mma"),    # Swin stage 1
+    (1000, 32, "mma"),   # the tail case, G 4
+    (200, 64, "mma"),    # G = B at the largest head dim the design takes
+    (1, 8, "mma"),
+    (200, 72, "rows"),   # the first head dim past it
+    (65, 128, "rows"),
+])
+def test_backward_route_is_chosen_by_shape(N, D, route):
+    assert fa.bwd_route(N, D) == route
+
+
+def _fake_card(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors: the device reads "cuda" and
+    each C entry is a stub returning 0; returns the symbols called."""
+    calls = []
+    monkeypatch.setattr(fa, "_device_of", lambda tensors: torch.device("cuda"))
+    monkeypatch.setattr(fa, "_kernel_fn",
+                        lambda source, symbol, n_ptr, n_int: calls.append(symbol) or (lambda *a: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("N, D, G, route", [
+    (128, 24, 0, "mma"), (60, 48, 2, "mma"), (40, 64, 4, "mma"), (40, 72, 1, "rows"),
+])
+def test_wrapper_launches_the_design_bwd_route_names(monkeypatch, N, D, G, route):
+    """On a (faked) CUDA tensor the wrapper calls the C entry of the design
+    `bwd_route` names, once, and counts it: `.launches` always,
+    `.mma_launches` on the mma design only."""
+    calls = _fake_card(monkeypatch)
+    counter = fa.flash_window_attention_bwd
+    monkeypatch.setattr(counter, "launches", 0)
+    monkeypatch.setattr(counter, "mma_launches", 0)
+    q = torch.zeros(4, 2, N, D)
+    bias = torch.zeros((2, N, N) if G == 0 else (G, 2, N, N))
+    lse = torch.zeros(4, 2, 1, N)
+    dq, dk, dv, dbias = fa.flash_window_attention_bwd(q, q, q, bias, q, lse, q, lse)
+    assert calls == ["flash_window_attention_bwd_mma" if route == "mma"
+                     else "flash_window_attention_bwd"]
+    assert (counter.launches, counter.mma_launches) == (1, int(route == "mma"))
+    assert dq.shape == q.shape and dbias.shape == bias.shape

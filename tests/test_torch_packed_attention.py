@@ -15,6 +15,9 @@ product, which moves results by a few ulps of values up to about 10 (dbias
 sums over up to 6 members).
 """
 
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,12 +193,11 @@ def test_plain_equals_5d_plain_on_a_partitioned_field(masked):
 
 def test_wrappers_count_no_launch_on_the_cpu():
     arrays = _inputs(2, 2, 8, 8, 2, "block", 1, seed=0)
-    before = (pk.packed_window_attention_fwd.launches, pk.packed_window_attention_bwd.launches,
-              pk.packed_window_attention_bwd.fused_launches)
+    counters = (pk.packed_window_attention_fwd, pk.packed_window_attention_bwd)
+    before = [(c.launches, c.fused_launches) for c in counters]
     out, lse = pk.packed_window_attention_fwd(*map(_t, arrays[:5]))
     pk.packed_window_attention_bwd(*map(_t, arrays[:5]), out, lse, _t(arrays[5]))
-    assert (pk.packed_window_attention_fwd.launches, pk.packed_window_attention_bwd.launches,
-            pk.packed_window_attention_bwd.fused_launches) == before
+    assert [(c.launches, c.fused_launches) for c in counters] == before
 
 
 @pytest.mark.parametrize("BW, nh, N, D, nW, route, chunks", [
@@ -209,6 +211,36 @@ def test_backward_plan_is_chosen_by_shape(BW, nh, N, D, nW, route, chunks):
     that design's chunk plan over the BW / nW problems of a window type."""
     assert pk._bwd_plan(BW, nh, N, D, nW) == (route, chunks)
     assert wa.bwd_route(N, D) == route
+
+
+@pytest.mark.parametrize("N, D, route", [
+    (144, 32, "fused"),  # Pangu stages 1 and 2
+    (72, 16, "fused"),   # the round-2 shape
+    (100, 24, "fused"),  # the asymmetric-mask case
+    (144, 48, "fused"),  # the largest block the fused route takes
+    (200, 32, "row"),    # past the region: the row forward
+    (144, 56, "row"),
+])
+def test_forward_is_routed_by_fwd_route(monkeypatch, N, D, route):
+    """On a (faked) CUDA tensor the forward wrapper calls the C entry of the
+    design `window_attention.fwd_route` names, once, and counts it:
+    `.launches` always, `.fused_launches` on the fused route only."""
+    calls = []
+    monkeypatch.setattr(pk, "_device_of", lambda tensors: torch.device("cuda"))
+    monkeypatch.setattr(pk, "_kernel_fn",
+                        lambda source, symbol, n_ptr, n_int: calls.append(symbol) or (lambda *a: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    fwd = pk.packed_window_attention_fwd
+    monkeypatch.setattr(fwd, "launches", 0)
+    monkeypatch.setattr(fwd, "fused_launches", 0)
+    q = torch.zeros(4, 2, N, D)
+    out, lse = fwd(q, q, q, torch.zeros(2, 2, N, N), torch.zeros(2, 1, N, N))
+    assert wa.fwd_route(N, D) == route
+    assert calls == ["packed_window_attention_fwd_fused" if route == "fused"
+                     else "packed_window_attention_fwd"]
+    assert (fwd.launches, fwd.fused_launches) == (1, int(route == "fused"))
+    assert out.shape == q.shape and lse.shape == (4, 2, 1, N)
 
 
 def test_shapes_are_checked():
