@@ -11,16 +11,21 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
    one nvcc per source, all started together; prints ptxas's registers
    and spills of the fused instances (window forward and backward, packed
-   forward and backward) and of the flash backward's mma passes;
+   forward and backward) and of the flash forward's and backward's mma
+   kernels, and the instructions per mma of the flash forward's step loop
+   (fp32, D 24 and 48) from cuobjdump's SASS;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, fp32 and bf16, TF32 off (backward calls twice, which
-   must agree bit for bit; each window and packed case's forward and
-   backward must take the designs `fwd_route` and `bwd_route` name, and
-   each flash backward case the one `flash_attention.bwd_route` names; one
-   window and one packed case lie past the fused region), and
+   must agree bit for bit, and so must two flash forward calls; each
+   window and packed case's forward and backward must take the designs
+   `fwd_route` and `bwd_route` name, and each flash case the ones
+   `flash_attention.fwd_route` and `bwd_route` name; one window and one
+   packed case lie past the fused region; one flash case is Pangu's flash
+   route at stage 1), and
    times the kernel, the old design on the new design's cases (the row
-   forwards, the four-pass packed backward, the flash backward's row
-   passes, through the modules' private launchers), the plain version, the
+   forwards, the flash forward's row kernel, the four-pass packed
+   backward, the flash backward's row passes, through the modules' private
+   launchers), the plain version, the
    least time the card could take (`bound_ms`) and one PyTorch library
    call computing the same function (`library_ms`, a yardstick the port
    never calls); the packed kernel (B5) also against the 5D window kernel
@@ -48,7 +53,9 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      window-attention kernels), its card-vs-CPU gradients on the forced
      token-major route and a profiler breakdown of one training step;
    on every path each window forward and backward launch must take the
-   fused route, and each flash backward launch the mma design;
+   fused route, and each flash forward and backward launch the mma
+   design, as must every launch of the card-vs-CPU gradient checks (Pangu
+   also on its forced flash route);
    - the packed path: B5's public `packed_window_attention` has no model
      caller, so three emulated Pangu attention steps at batch 32 drive it,
      forward and backward at each of the shipped Pangu's 16 blocks' shapes
@@ -124,29 +131,62 @@ def build_all():
     for name, path in libs.items():
         print(f"built {name} -> {os.path.relpath(path, REPO)}")
     print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
-    fused = (fused_ptxas(libs["window_attention_qkv"][:-3] + ".log")
-             + fused_ptxas(libs["packed_window_attention"][:-3] + ".log")
-             + fused_ptxas(libs["flash_window_attention_bwd"][:-3] + ".log"))
+    fused = [row for lib in ("window_attention_qkv", "packed_window_attention",
+                             "flash_window_attention", "flash_window_attention_bwd")
+             for row in fused_ptxas(libs[lib][:-3] + ".log")]
     for kind in ("window backward", "window forward", "packed backward", "packed forward",
-                 "flash backward mma dq", "flash backward mma dbias", "flash backward mma dkv"):
+                 "flash forward mma", "flash backward mma dq", "flash backward mma dbias",
+                 "flash backward mma dkv"):
         rows = [r for r in fused if r[0] == kind]
         spilled = [f"{k}: {s} B" for _, k, _, s in rows if s]
         print(f"ptxas -v, the {len(rows)} {kind} instances (dtype, hd, tiles, layout: "
               f"registers): {'; '.join(f'{k}: {r}' for _, k, r, _ in rows)}; spill stores "
               f"{', '.join(spilled) if spilled else 'none'}")
+    for inst in ("flash_fwd_mma_kernelIfLi24E", "flash_fwd_mma_kernelIfLi48E"):
+        counts = sass_loop_counts(libs["flash_window_attention"], inst)
+        print(f"sass, {inst}: " + (
+            f"its innermost loop with mma issues {counts[0]} instructions for {counts[1]} mma "
+            f"({counts[0] / counts[1]:.2f} an mma)" if counts else
+            "cuobjdump not found or no loop with mma in its SASS; not measured"))
     return names
+
+
+def sass_loop_counts(lib_path: str, instance: str):
+    """(instructions, mma) in the body of the innermost loop that holds
+    `mma.sync` (HMMA) in the kernel whose mangled name holds `instance`:
+    the instructions between a backward branch and its target, from
+    cuobjdump's SASS of the library; None without cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    body = sass[sass.index(instance):]
+    body = body[:body.index("Function :", 1)] if "Function :" in body[1:] else body
+    insts = {}  # address -> (opcode text, branch target address or None)
+    for line in body.splitlines():
+        if m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line):
+            target = re.search(r"\bBRA\s+(0x[0-9a-f]+)", m.group(2))
+            insts[int(m.group(1), 16)] = (m.group(2), int(target.group(1), 16) if target else None)
+    loops = [(sum(1 for b in insts if t <= b <= a), sum("HMMA" in insts[b][0] for b in insts if t <= b <= a))
+             for a, (_, t) in insts.items() if t is not None and t <= a]
+    return min((lp for lp in loops if lp[1]), default=None)
 
 
 FUSED_KINDS = {"wa_bwd": "window backward", "wa_fwd": "window forward",
                "pw_bwd": "packed backward", "pw_fwd": "packed forward",
-               "dq": "flash backward mma dq", "dbias": "flash backward mma dbias",
-               "dkv": "flash backward mma dkv"}
+               "fwd": "flash forward mma", "bwd_dq": "flash backward mma dq",
+               "bwd_dbias": "flash backward mma dbias", "bwd_dkv": "flash backward mma dkv"}
 
 
 def fused_ptxas(log_path: str):
     """[(kind, instance, registers, spill-store bytes)] of every fused
-    window or packed kernel and every flash backward mma pass, from the
-    ptxas -v report the build keeps beside the library."""
+    window or packed kernel, the flash forward's mma kernel and every flash
+    backward mma pass, from the ptxas -v report the build keeps beside the
+    library."""
     import re
 
     rows, entry, spill = [], None, 0
@@ -165,7 +205,8 @@ def fused_ptxas(log_path: str):
                     rows.append((FUSED_KINDS[t.group(1)],
                                  f"{dtype} hd {t.group(3)} NT {t.group(4)} {layout}",
                                  int(m.group(1)), spill))
-                elif t := re.search(r"flash_bwd_(dq|dbias|dkv)_mma_kernelI(\w+?)Li(\d+)E", entry):
+                elif t := re.search(r"flash_(fwd|bwd_dq|bwd_dbias|bwd_dkv)_mma_kernelI(\w+?)Li(\d+)E",
+                                    entry):
                     dtype = "fp32" if t.group(2) == "f" else "bf16"
                     rows.append((FUSED_KINDS[t.group(1)], f"{dtype} D {t.group(3)}",
                                  int(m.group(1)), spill))
@@ -180,10 +221,16 @@ FLASH_CASES = [
     ("stage0 shifted", EVAL_BATCH, 4, 2048, 24, 1, "swin-shift"),
     ("stage1 unshifted", EVAL_BATCH, 4, 512, 48, 0, "random"),
     ("tail N=1000 G=4", 8, 3, 1000, 32, 4, "random"),
+    # Pangu's flash route (`use_flash_attention: true`) at stage 1 and batch
+    # 32: 32 x nLon 6 x nW 6 windows, the earth bias plus the shift mask, one
+    # group per (lon, window)
+    ("pangu stage1 flash G=36", EVAL_BATCH * 36, 6, 144, 32, 36, "pangu-shift"),
 ]
 # fp32: online versus two-pass softmax, sums in another order.  bf16: the
-# kernel rounds its fp32 result once to bf16 (|out| < 2 here, so half an
-# ulp is < 4e-3); the plain version is computed in fp32 on the same values.
+# kernel rounds its fp32 result once to bf16 (half an ulp is < 4e-3 where
+# |out| < 2; the bf16 bound grows with max|out| / 2 past that, as at
+# Pangu's flash-route case); the plain version is computed in fp32 on the
+# same values.
 FLASH_TOL = {"float32": {"out": 5e-5, "lse": 5e-5}, "bfloat16": {"out": 1e-2, "lse": 5e-5}}
 
 
@@ -200,6 +247,12 @@ def _flash_inputs(B, H, N, D, G, kind, dtype, gen):
         groups = torch.as_tensor(shift_window_groups(h, w, h, w, h // 2, w // 2), device="cuda")
         mask = torch.where(groups[:, None, :] != groups[:, :, None], -100.0, 0.0)
         bias = expand_relative_bias(table, h, w)[None] + mask[:, None]
+    elif kind == "pangu-shift":  # as the model's flash route builds it
+        from dlwpbench_tpu_torch.models.pangu import shift_window_mask
+
+        mask = torch.as_tensor(shift_window_mask((2, 36, 72), PANGU_WIN, PANGU_SHIFT),
+                               device="cuda")
+        bias = (_earth_bias(6, H, gen)[None] + mask[:, :, None]).reshape(G, H, N, N)
     else:
         bias = torch.randn(shape, device="cuda", generator=gen)
     assert tuple(bias.shape) == shape
@@ -224,6 +277,9 @@ def _bound(B, H, N, D, G, dtype_name, backward=False):
 
 
 def check_flash(card: str):
+    """The flash forward against its plain version, fp32 and bf16: each
+    case must take the design `fwd_route` names and repeat bit for bit;
+    the row kernel is timed beside the mma design."""
     import torch
     import torch.nn.functional as F
 
@@ -235,14 +291,25 @@ def check_flash(card: str):
         dname = str(dtype).split(".")[-1]
         for label, B, H, N, D, G, kind in FLASH_CASES:
             q, k, v, bias = _flash_inputs(B, H, N, D, G, kind, dtype, gen)
+            mma0 = fa.flash_window_attention_fwd.mma_launches
             out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
+            again = fa.flash_window_attention_fwd(q, k, v, bias)
             torch.cuda.synchronize()
+            design = "mma" if fa.flash_window_attention_fwd.mma_launches - mma0 == 2 else "rows"
+            identical = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            del again
             p_out, p_lse = fa.flash_window_attention_plain(q.float(), k.float(), v.float(), bias.float())
             err = (out.float() - p_out).abs().max().item()
             lse_err = (lse - p_lse).abs().max().item()
-            tol = FLASH_TOL[dname]
-            ok = err <= tol["out"] and lse_err <= tol["lse"]
+            tol = dict(FLASH_TOL[dname])
+            if dname == "bfloat16":
+                tol["out"] *= max(1.0, p_out.abs().max().item() / 2)
+            ok = err <= tol["out"] and lse_err <= tol["lse"] and identical \
+                and design == fa.fwd_route(N, D)
             ms = cuda_ms(lambda: fa.flash_window_attention_fwd(q, k, v, bias), 20)
+            old_ms = None  # the old design at an mma case: the row kernel
+            if design == "mma":
+                old_ms = cuda_ms(lambda: fa._launch_fwd(q, k, v, bias, route="rows"), 20)
             plain_ms = cuda_ms(lambda: fa.flash_window_attention_plain(q, k, v, bias), 3)
             mask = bias if G <= 1 else bias.repeat(B // G, 1, 1, 1)  # bias[b % G] per b
             library_ms = cuda_ms(
@@ -251,14 +318,18 @@ def check_flash(card: str):
             bound_ms, bound_by, flops, nbytes = _bound(B, H, N, D, G, dname)
             rec = dict(case=label, dtype=dname, B=B, H=H, N=N, D=D,
                        bias=list(bias.shape), max_abs_err=err, lse_max_abs_err=lse_err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       tol=tol, bit_identical=identical, design=design, ms=ms, old_ms=old_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
             checks.append(rec)
             print(
                 f"flash_window_attention {dname} {label} q[{B},{H},{N},{D}] bias{list(bias.shape)}: "
                 f"max|out diff| {err:.3e} max|lse diff| {lse_err:.3e} "
-                f"(tol {tol['out']:.0e}/{tol['lse']:.0e}) {'ok' if ok else 'FAIL'}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+                f"(tol {tol['out']:.1e}/{tol['lse']:.0e}), design {design}, two calls "
+                f"{'bit-identical' if identical else 'DIFFER'} {'ok' if ok else 'FAIL'}; "
+                f"kernel {ms:.4f} ms"
+                + (f" (row kernel {old_ms:.4f})" if old_ms is not None else "")
+                + f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s) [{card}]"
             )
             if not ok:
@@ -860,7 +931,7 @@ def counters_of():
 def new_design_counter(fn):
     """The attribute counting a two-design kernel's launches of its new
     design ("fused_launches": window and B5 kernels; "mma_launches": the
-    flash backward), or None for a kernel with one design."""
+    flash forward and backward), or None for a kernel with one design."""
     return next((a for a in ("fused_launches", "mma_launches") if hasattr(fn, a)), None)
 
 
@@ -879,11 +950,11 @@ def reset_counters(counters):
 
 def check_fused(label: str, counters, launches):
     """Every launch of a path's kernels with two designs (the window
-    forwards and backwards, B5's forward and backward, the flash backward)
-    took the new design: the paths' shapes (window N 64 and 144 at hd 24,
-    32, 48; flash D 24 and 48) all lie in its region."""
+    forwards and backwards, B5's forward and backward, the flash forward
+    and backward) took the new design: the paths' shapes (window N 64 and
+    144 at hd 24, 32, 48; flash D 24, 32 and 48) all lie in its region."""
     fused = new_design_launches(counters)
-    print(f"{label} new-design launches (fused, or mma for the flash backward) {fused} of "
+    print(f"{label} new-design launches (fused, or mma for the flash kernels) {fused} of "
           f"{({n: launches[n] for n in fused})}")
     if any(fused[n] != launches[n] for n in fused):
         raise SystemExit(f"{label}: new-design launches {fused}, want all of "
@@ -1151,7 +1222,8 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
 def check_train_grads(cfg, train_ds, card: str, card_route=None):
     """The full-width model's loss and every parameter gradient, 2 samples x
     2 steps, on the card (kernels; `card_route` forces an attention route)
-    against the CPU (auto: plain einsum or the kernels' plain versions)."""
+    against the CPU (auto: plain einsum or the kernels' plain versions).
+    Every launch of a kernel with two designs must take the new one."""
     import torch
 
     from dlwpbench_tpu_torch.models import registry
@@ -1174,8 +1246,8 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
     after_fused = new_design_launches(counters)
-    used.update({f"{n} new design": after_fused[n] - before_fused[n]
-                 for n in before_fused if n in used})
+    new = {n: after_fused[n] - before_fused[n] for n in before_fused if n in used}
+    used.update({f"{n} new design": c for n, c in new.items()})
     (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
     worst = max(
         ((g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
@@ -1192,6 +1264,8 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
           f"{len(g_cpu)} tensors {worst[0]:.3e} ({worst[1]}) (tol {tol:.0e})")
     if not (worst[0] <= tol and loss_rel <= 1e-5 and used):
         raise SystemExit("the card's gradients disagree with the CPU reference")
+    if any(c != used[n] for n, c in new.items()):
+        raise SystemExit(f"gradients: launches {used}, not all on the new designs")
     return worst[0]
 
 
@@ -1349,6 +1423,9 @@ def main() -> int:
     paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
     # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64)
     check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d")
+    # Pangu's flash route (`use_flash_attention: true`): every block's
+    # windows through the flash forward and backward (N 144, D 32)
+    check_train_grads(ptcfg, ptrain_ds, card, card_route=True)
     profile_train_step(ptcfg, ptrain_ds, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
@@ -1363,7 +1440,7 @@ def main() -> int:
     # dtype); the error is the worst over its fp32 cases.  `launches`
     # counts the path of the kernel's slice, `launches_by_path` every path.
     # A kernel with two designs adds its new design's launches on that path
-    # (`fused_launches`; `mma_launches` for the flash backward), the design
+    # (`fused_launches`; `mma_launches` for the flash kernels), the design
     # its case took, and the old design's time there (`old_ms`: the row
     # forwards, the four-pass packed backward, the flash backward's row
     # passes).

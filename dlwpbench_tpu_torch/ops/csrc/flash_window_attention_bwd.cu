@@ -338,17 +338,6 @@ constexpr int kMmaMaxD = 64;
 constexpr int kDkvSteps = 4;
 constexpr int kDqSteps = 4;
 
-// x as a TF32 big part (x with its 13 low mantissa bits cleared) and the
-// remainder x - big (exact in fp32), its low bits cleared too: two bit
-// masks and a subtraction, where `split_tf32`'s two conversions run on a
-// slower pipe.  Truncating instead of rounding leaves the product within
-// about 2^-20 of fp32's, far inside every tolerance here.
-__device__ __forceinline__ uint2 split2(float x) {
-  const uint32_t big = __float_as_uint(x) & 0xffffe000u;
-  const float rest = x - __uint_as_float(big);
-  return make_uint2(big, __float_as_uint(rest) & 0xffffe000u);
-}
-
 // A 64-row tile of a [rows, D] operand in registers, D / 8 float4 a thread
 // of the 128-thread block: the next tile's loads stay in flight while the
 // current tile computes.
@@ -380,44 +369,6 @@ struct TileRegs {
     }
   }
 };
-
-// Fragments (lane = 4 g + t, as `frag_a` and friends) of a split tile s of
-// pitch p, big parts into *b, remainders into *s.
-// A[r][c] = s[r0 + r][c0 + c]
-__device__ __forceinline__ void sfrag_a(uint32_t (&ab)[4], uint32_t (&as)[4], const uint2* s,
-                                        int p, int r0, int c0, int g, int t) {
-  const uint2 x0 = s[(r0 + g) * p + c0 + t], x1 = s[(r0 + g + 8) * p + c0 + t];
-  const uint2 x2 = s[(r0 + g) * p + c0 + t + 4], x3 = s[(r0 + g + 8) * p + c0 + t + 4];
-  ab[0] = x0.x, ab[1] = x1.x, ab[2] = x2.x, ab[3] = x3.x;
-  as[0] = x0.y, as[1] = x1.y, as[2] = x2.y, as[3] = x3.y;
-}
-// B[k][n] = s[n0 + n][k0 + k]
-__device__ __forceinline__ void sfrag_bt(uint32_t (&bb)[2], uint32_t (&bs)[2], const uint2* s,
-                                         int p, int k0, int n0, int g, int t) {
-  const uint2 x0 = s[(n0 + g) * p + k0 + t], x1 = s[(n0 + g) * p + k0 + t + 4];
-  bb[0] = x0.x, bb[1] = x1.x;
-  bs[0] = x0.y, bs[1] = x1.y;
-}
-// B[k][n] = s[k0 + k'][n0 + n], the step's 8 rows k' taken in the order
-// 0, 2, 4, 6, 1, 3, 5, 7 (k = t reads row 2t, k = t + 4 row 2t + 1), the
-// order `frag_ac` gives the columns of its C fragment.
-__device__ __forceinline__ void sfrag_bp(uint32_t (&bb)[2], uint32_t (&bs)[2], const uint2* s,
-                                         int p, int k0, int n0, int g, int t) {
-  const uint2 x0 = s[(k0 + 2 * t) * p + n0 + g], x1 = s[(k0 + 2 * t + 1) * p + n0 + g];
-  bb[0] = x0.x, bb[1] = x1.x;
-  bs[0] = x0.y, bs[1] = x1.y;
-}
-// The C fragment of a 16 x 8 product, its columns taken in that order, as
-// the A fragment of the next (a = c0, c2, c1, c3), split.
-__device__ __forceinline__ void frag_ac(uint32_t (&ab)[4], uint32_t (&as)[4], const float (&c)[4]) {
-  const float a[4] = {c[0], c[2], c[1], c[3]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint2 x = split2(a[i]);
-    ab[i] = x.x;
-    as[i] = x.y;
-  }
-}
 
 // ---------------------------------------------------------------- mma pass 1
 // dK + dV.  Grid (key tiles, H, B); warp w owns key rows 16w .. 16w + 15

@@ -1,9 +1,10 @@
-// Building blocks shared by the small-window attention kernels
-// (window_attention_qkv.cu, packed_window_attention.cu): row-per-thread
-// fp32 arithmetic on shared-memory tiles, the block plan, the ordered
-// dbias chunk sum, the 3xTF32 `mma.sync` helpers and the fused forward's
-// and backward's bodies, templates over each source's addressing.  Each
-// source includes this once, so everything here has internal linkage.
+// Building blocks shared by the attention kernels (window_attention_qkv.cu,
+// packed_window_attention.cu, flash_window_attention{,_bwd}.cu):
+// row-per-thread fp32 arithmetic on shared-memory tiles, the block plan,
+// the ordered dbias chunk sum, the 3xTF32 `mma.sync` helpers, the split
+// operand tiles of the flash kernels and the fused forward's and
+// backward's bodies, templates over each source's addressing.  Each source
+// includes this once, so everything here has internal linkage.
 
 #pragma once
 
@@ -225,6 +226,74 @@ __device__ __forceinline__ void store_c(float* s, int p, int r0, int c0,
                                         const float (&c)[4], int g, int t) {
   *reinterpret_cast<float2*>(s + (r0 + g) * p + c0 + 2 * t) = make_float2(c[0], c[1]);
   *reinterpret_cast<float2*>(s + (r0 + g + 8) * p + c0 + 2 * t) = make_float2(c[2], c[3]);
+}
+
+// ---------------------------------------------------------------- split tiles
+// Operand tiles staged once already split into their TF32 parts, for the
+// flash kernels' tensor-core designs (flash_window_attention{,_bwd}.cu).
+
+// x as a TF32 big part (x with its 13 low mantissa bits cleared) and the
+// remainder x - big (exact in fp32), its low bits cleared too: two bit
+// masks and a subtraction, where `split_tf32`'s two conversions run on a
+// slower pipe.  Truncating instead of rounding leaves the product within
+// about 2^-20 of fp32's, far inside every tolerance here.
+__device__ __forceinline__ uint2 split2(float x) {
+  const uint32_t big = __float_as_uint(x) & 0xffffe000u;
+  const float rest = x - __uint_as_float(big);
+  return make_uint2(big, __float_as_uint(rest) & 0xffffe000u);
+}
+
+// Fragments (lane = 4 g + t, as `frag_a` and friends) of a split tile s of
+// pitch p, big parts into *b, remainders into *s.
+// A[r][c] = s[r0 + r][c0 + c]
+__device__ __forceinline__ void sfrag_a(uint32_t (&ab)[4], uint32_t (&as)[4], const uint2* s,
+                                        int p, int r0, int c0, int g, int t) {
+  const uint2 x0 = s[(r0 + g) * p + c0 + t], x1 = s[(r0 + g + 8) * p + c0 + t];
+  const uint2 x2 = s[(r0 + g) * p + c0 + t + 4], x3 = s[(r0 + g + 8) * p + c0 + t + 4];
+  ab[0] = x0.x, ab[1] = x1.x, ab[2] = x2.x, ab[3] = x3.x;
+  as[0] = x0.y, as[1] = x1.y, as[2] = x2.y, as[3] = x3.y;
+}
+// B[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ void sfrag_bt(uint32_t (&bb)[2], uint32_t (&bs)[2], const uint2* s,
+                                         int p, int k0, int n0, int g, int t) {
+  const uint2 x0 = s[(n0 + g) * p + k0 + t], x1 = s[(n0 + g) * p + k0 + t + 4];
+  bb[0] = x0.x, bb[1] = x1.x;
+  bs[0] = x0.y, bs[1] = x1.y;
+}
+// B[k][n] = s[k0 + k'][n0 + n], the step's 8 rows k' taken in the order
+// 0, 2, 4, 6, 1, 3, 5, 7 (k = t reads row 2t, k = t + 4 row 2t + 1), the
+// order `frag_ac` gives the columns of its C fragment.
+__device__ __forceinline__ void sfrag_bp(uint32_t (&bb)[2], uint32_t (&bs)[2], const uint2* s,
+                                         int p, int k0, int n0, int g, int t) {
+  const uint2 x0 = s[(k0 + 2 * t) * p + n0 + g], x1 = s[(k0 + 2 * t + 1) * p + n0 + g];
+  bb[0] = x0.x, bb[1] = x1.x;
+  bs[0] = x0.y, bs[1] = x1.y;
+}
+// The C fragment of a 16 x 8 product, its columns taken in that order, as
+// the A fragment of the next (a = c0, c2, c1, c3), split.
+__device__ __forceinline__ void frag_ac(uint32_t (&ab)[4], uint32_t (&as)[4], const float (&c)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint2 x = split2(a[i]);
+    ab[i] = x.x;
+    as[i] = x.y;
+  }
+}
+
+// 2 consecutive elements as fp32 (8-byte fp32 or 4-byte bf16 load: p must
+// be aligned to two elements), and their store in the element type.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // Floats of the fused backward's [Np, Np + 4] P^T / dS^T tile, which first

@@ -15,10 +15,11 @@ pre-scale.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/flash_window_attention.cu` forward, `csrc/flash_window_attention_bwd.cu`
 backward, built at first use) or raises: on an unsupported dtype, head
-dim, layout, a failed build or a failed launch.  The backward has two
-designs, chosen from the head dim by `bwd_route`: three passes on the
-tensor cores (3xTF32 `mma.sync`) for D <= 64, every model path, and three
-row passes on the fp32 CUDA cores for the rest.  The plain versions run
+dim, layout, a failed build or a failed launch.  Each has two designs,
+chosen from the head dim by `fwd_route` and `bwd_route`: on the tensor
+cores (3xTF32 `mma.sync`; the forward in one pass, the backward in three)
+for D <= 64, every model path, and on the fp32 CUDA cores (one row of
+queries or keys a thread) for the rest.  The plain versions run
 only for tensors on the CPU.  `flash_window_attention` and
 `flash_window_attention_lse` are `torch.autograd.Function`s whose backward
 goes through `flash_window_attention_bwd`; the raw
@@ -36,7 +37,7 @@ from dlwpbench_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MMA_MAX_HEAD_DIM = 64  # the backward's tensor-core design (`bwd_route`)
+MMA_MAX_HEAD_DIM = 64  # the tensor-core designs (`fwd_route`, `bwd_route`)
 
 
 def _check_shapes(q, k, v, bias) -> int:
@@ -134,14 +135,53 @@ def _device_of(tensors):
     return dev
 
 
+def fwd_route(N, D):
+    """Which forward design takes q [.., N, D]: "mma" (one pass on the
+    tensor cores, 3xTF32, for head dims up to MMA_MAX_HEAD_DIM at any N:
+    K and V tiles of 64 x (D + 4) {big, small} pairs and the next tiles as
+    copied in shared memory, 102 KB at D 64, and the warp's Q fragments
+    and O accumulator in registers) or "rows" (the fp32 CUDA cores, head
+    dims up to MAX_HEAD_DIM).  Decided from the shape before the launch,
+    never as a retry; N does not enter the choice."""
+    del N
+    return "mma" if D <= MMA_MAX_HEAD_DIM else "rows"
+
+
+def _launch_fwd(q, k, v, bias, route=None):
+    """Launches the forward of `route` ("mma" or "rows"; by default the one
+    `fwd_route` names, as the public wrapper takes it) on checked CUDA
+    tensors; returns (out, lse, route)."""
+    B, H, N, D = q.shape
+    G = _check_shapes(q, k, v, bias)
+    route = route or fwd_route(N, D)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, 1, N), dtype=torch.float32, device=q.device)
+    symbol = "flash_window_attention_fwd_mma" if route == "mma" else "flash_window_attention_fwd"
+    fn = _kernel_fn("flash_window_attention", symbol, 6, 6)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, H, N, D, G,
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_window_attention_fwd: CUDA error {err} on the {route} route for q "
+            f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}"
+        )
+    return out, lse, route
+
+
 def flash_window_attention_fwd(q, k, v, bias):
     """(out, lse): out [B,H,N,D] in q's dtype, lse [B,H,1,N] fp32.
 
-    CPU tensors take the plain version; CUDA tensors the kernel, whose
-    launches are counted in `flash_window_attention_fwd.launches`.  Not
+    CPU tensors take the plain version; CUDA tensors the kernel of
+    `csrc/flash_window_attention.cu` in the design `fwd_route` names, its
+    launches counted in `flash_window_attention_fwd.launches` and those of
+    the "mma" design in `flash_window_attention_fwd.mma_launches`.  Not
     differentiable on CUDA tensors: use `flash_window_attention` or
     `flash_window_attention_lse` for gradients."""
-    G = _check_shapes(q, k, v, bias)
+    _check_shapes(q, k, v, bias)
     if _device_of((q, k, v, bias)).type == "cpu":
         return flash_window_attention_plain(q, k, v, bias)
     _check_cuda("flash_window_attention_fwd", (q, k, v, bias))
@@ -151,27 +191,14 @@ def flash_window_attention_fwd(q, k, v, bias):
             "flash_window_attention (or flash_window_attention_lse), whose "
             "backward launches the CUDA backward kernels"
         )
-
-    B, H, N, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, 1, N), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn("flash_window_attention", "flash_window_attention_fwd", 6, 6)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, H, N, D, G,
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_window_attention_fwd: CUDA error {err} for q "
-            f"{tuple(q.shape)} {q.dtype}, bias {tuple(bias.shape)}"
-        )
+    out, lse, route = _launch_fwd(q, k, v, bias)
     flash_window_attention_fwd.launches += 1
+    flash_window_attention_fwd.mma_launches += route == "mma"
     return out, lse
 
 
 flash_window_attention_fwd.launches = 0
+flash_window_attention_fwd.mma_launches = 0
 
 
 def bwd_route(N, D):

@@ -571,6 +571,75 @@ def test_flash_backward_past_the_mma_design_takes_the_rows(cuda):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * w.abs().max().item(), msg=name)
 
 
+# ---------------------------------------------------------------- flash forward designs
+# (label, B, H, N, D, G or 0 for a 3D bias, bias kind): the Swin paths'
+# shapes at batch 32 (stage 0 with a 3D bias and with the shifted
+# [1, H, N, N] bias, stage 1), the tail case, Pangu's flash route at
+# stage 1 (N 144, G = nLon x nW = 36) and N 60 at D 64, the largest head
+# dim the mma design takes
+FLASH_FWD_CASES = [
+    ("stage0 3d", 32, 4, 2048, 24, 0, "random"),
+    ("stage0 shifted", 32, 4, 2048, 24, 1, "swin-shift"),
+    ("stage1", 32, 4, 512, 48, 0, "random"),
+    ("tail N1000 G4", 8, 3, 1000, 32, 4, "random"),
+    ("pangu N144 G36", 72, 6, 144, 32, 36, "random"),
+    ("N60 D64", 4, 2, 60, 64, 2, "random"),
+]
+# fp32: online versus two-pass softmax, sums in another order; bf16: the
+# result is rounded once to bf16 (half an ulp is < 4e-3 where |out| < 2,
+# the bound grows with max|out| / 2 past that); lse fp32 on both sides
+# (chip_smoke.py's FLASH_TOL)
+FLASH_FWD_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (1e-2, 5e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label, B, H, N, D, G, kind", FLASH_FWD_CASES)
+def test_flash_forward_mma_design_on_card(cuda, dtype, label, B, H, N, D, G, kind):
+    """The forward at these shapes takes the mma design (its counter moves
+    with it), matches the plain version and the row design on the same
+    inputs, and repeats bit for bit."""
+    q, k, v, bias = _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed=N + D + G + 7)[:4]
+    fwd = fa.flash_window_attention_fwd
+    before = (fwd.launches, fwd.mma_launches)
+    out, lse = fwd(q, k, v, bias)
+    again = fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.fwd_route(N, D) == "mma"
+    assert (fwd.launches - before[0], fwd.mma_launches - before[1]) == (2, 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])  # no atomics
+    want, want_lse = fa.flash_window_attention_plain(q.float(), k.float(), v.float(),
+                                                     bias.float())
+    rows_out, rows_lse, taken = fa._launch_fwd(q, k, v, bias, route="rows")
+    torch.cuda.synchronize()
+    assert taken == "rows" and out.dtype == dtype and lse.dtype == torch.float32
+    out_tol, lse_tol = FLASH_FWD_TOL[dtype]
+    atol = out_tol * (1.0 if dtype == torch.float32 else max(1.0, want.abs().max().item() / 2))
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(out.float(), rows_out.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=lse_tol)
+    torch.testing.assert_close(lse, rows_lse, rtol=0, atol=lse_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_past_the_mma_design_takes_the_rows(cuda, dtype):
+    """D 72 is past the mma design: the row kernel, counted as such."""
+    q, k, v, bias = _flash_design_inputs(cuda, dtype, 4, 2, 100, 72, 2, "random", seed=9)[:4]
+    fwd = fa.flash_window_attention_fwd
+    before = (fwd.launches, fwd.mma_launches)
+    out, lse = fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.fwd_route(100, 72) == "rows"
+    assert (fwd.launches - before[0], fwd.mma_launches - before[1]) == (1, 0)
+    want, want_lse = fa.flash_window_attention_plain(q.float(), k.float(), v.float(),
+                                                     bias.float())
+    out_tol, lse_tol = FLASH_FWD_TOL[dtype]
+    atol = out_tol * (1.0 if dtype == torch.float32 else max(1.0, want.abs().max().item() / 2))
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=lse_tol)
+
+
 # ---------------------------------------------------------------- B5's forward designs
 # (B_, nh, N, D, nW, mask lead dims, mask kind, route): Pangu's stage-1 and
 # stage-2 shapes at a small batch, an asymmetric N 100 mask, and a shape

@@ -7,6 +7,9 @@ On the CPU the port's wrapper takes its plain version; it is held against
 The CUDA kernel itself is tested in `test_torch_cuda_kernels.py`.
 """
 
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,3 +106,41 @@ def test_library_key_covers_the_shared_headers(monkeypatch, tmp_path):
     before = _build.library_path("k")
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert _build.library_path("k") != before
+
+
+@pytest.mark.parametrize("N, D, route", [
+    (2048, 24, "mma"),   # Swin stage 0
+    (512, 48, "mma"),    # Swin stage 1
+    (144, 32, "mma"),    # Pangu's flash route, G 36
+    (1000, 32, "mma"),   # the tail case, G 4
+    (60, 64, "mma"),     # the largest head dim the design takes
+    (200, 72, "rows"),   # the first head dim past it
+    (65, 128, "rows"),
+])
+def test_forward_route_is_chosen_by_shape(N, D, route):
+    assert fa.fwd_route(N, D) == route
+
+
+@pytest.mark.parametrize("N, D, G, route", [
+    (128, 24, 0, "mma"), (60, 48, 2, "mma"), (144, 32, 4, "mma"), (40, 72, 1, "rows"),
+])
+def test_wrapper_launches_the_design_fwd_route_names(monkeypatch, N, D, G, route):
+    """On a (faked) CUDA tensor the wrapper calls the C entry of the design
+    `fwd_route` names, once, and counts it: `.launches` always,
+    `.mma_launches` on the mma design only."""
+    calls = []
+    monkeypatch.setattr(fa, "_device_of", lambda tensors: torch.device("cuda"))
+    monkeypatch.setattr(fa, "_kernel_fn",
+                        lambda source, symbol, n_ptr, n_int: calls.append(symbol) or (lambda *a: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    counter = fa.flash_window_attention_fwd
+    monkeypatch.setattr(counter, "launches", 0)
+    monkeypatch.setattr(counter, "mma_launches", 0)
+    q = torch.zeros(4, 2, N, D)
+    bias = torch.zeros((2, N, N) if G == 0 else (G, 2, N, N))
+    out, lse = fa.flash_window_attention_fwd(q, q, q, bias)
+    assert calls == ["flash_window_attention_fwd_mma" if route == "mma"
+                     else "flash_window_attention_fwd"]
+    assert (counter.launches, counter.mma_launches) == (1, int(route == "mma"))
+    assert out.shape == q.shape and lse.shape == (4, 2, 1, N) and lse.dtype == torch.float32
