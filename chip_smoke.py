@@ -30,11 +30,12 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
    call computing the same function (`library_ms`, a yardstick the port
    never calls); the packed kernel (B5) also against the 5D window kernel
    on one Pangu stage-1 field, shifted and unshifted;
-4. six paths, each with every launch counter set to 0 just before and
-   read just after and the counts asserted exactly; five at the shipped
-   widths (32x64 synthetic grid, fp32, seeded random weights), with the
-   counts the port's routing rule derives from the model's geometry and
-   the batch sizes (no model routes to B5, so it launches 0 times there):
+4. the paths, each with every launch counter set to 0 just before and
+   read just after and the counts asserted exactly (the bf16-instance
+   counts too); at the shipped widths (32x64 synthetic grid, seeded
+   random weights), with the counts the port's routing rule derives from
+   the model's geometry and the batch sizes (no model routes to B5, and
+   the U-Net launches no attention kernel at all):
    - Swin evaluate: `python -m dlwpbench_tpu_torch.evaluate
      model=swintransformer data=synthetic` at batch 32, 16-step rollouts
      (flash forward); finite forecasts, the card against the CPU on 2
@@ -52,6 +53,11 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      model.use_flash_attention=null` for 1 epoch (the token-major
      window-attention kernels), its card-vs-CPU gradients on the forced
      token-major route and a profiler breakdown of one training step;
+     then its epoch before the prefetch (a pageable copy and a sync per
+     step, the trainer's loop until the prefetch) and after it (the
+     trainer's own epoch, its steps under
+     `torch.cuda.set_sync_debug_mode("error")`), in turns: seconds per
+     step, the device's busy share, and what the host does;
    on every path each window forward and backward launch must take the
    fused route, and each flash forward and backward launch the mma
    design, as must every launch of the card-vs-CPU gradient checks (Pangu
@@ -61,7 +67,21 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      forward and backward at each of the shipped Pangu's 16 blocks' shapes
      (48 launches each way, all 48 forward and 48 backward launches fused,
      0 of every other kernel);
-5. the card line, the `kernels` line and, last, `{"ok": true, ...}`.
+   - U-Net evaluate at `bench.py`'s shape: `python -m
+     dlwpbench_tpu_torch.evaluate model=unet
+     model.hidden_channels=[64,128,256] data=synthetic data.n_time=36000
+     --batch-size 128` (three batches of 16-step rollouts, fp32, 0
+     attention launches), the same rollout in fp32 and in bf16 (parameters
+     and inputs cast as `bench.py` casts them) with and without the host
+     copies, and the card against the CPU on 2 samples x 2 steps;
+   - training in bf16 compute (`training.compute_dtype=bfloat16`): the
+     U-Net at `configs/model/unet.yaml` in fp32 and in bf16, the Swin and
+     Pangu for one epoch each in bf16 beside their fp32 paths, every
+     training-step attention launch on the kernels' bf16 instances;
+     card-vs-CPU bf16 gradients of the Swin and Pangu; a profiler
+     breakdown of Pangu's bf16 step with the GEMMs' share;
+5. the run's seconds, the card line, the `kernels` line and, last,
+   `{"ok": true, ...}`.
 
 Every time printed stands beside the card's name and power limit.
 """
@@ -941,9 +961,9 @@ def new_design_launches(counters):
 
 
 def reset_counters(counters):
-    """Every launch counter to 0, the new-design counters too."""
+    """Every launch counter to 0, the new-design and bf16 counters too."""
     for fn in counters.values():
-        fn.launches = 0
+        fn.launches = fn.bf16_launches = 0
         if attr := new_design_counter(fn):
             setattr(fn, attr, 0)
 
@@ -969,8 +989,11 @@ def step_calls(model, B: int) -> dict:
     import collections
 
     from dlwpbench_tpu_torch.models.pangu import PanguWeather
+    from dlwpbench_tpu_torch.models.unet import UNet
 
     calls = collections.Counter()
+    if isinstance(model, UNet):  # convs, pools and GELU: no attention kernel
+        return calls
     if isinstance(model, PanguWeather):
         win = model.window_size
         N = win[0] * win[1] * win[2]
@@ -1020,6 +1043,13 @@ def _batch_sizes(n: int, bs: int) -> list[int]:
 
 
 # ---------------------------------------------------------------- evaluate paths
+def check_launches(label: str, model, launches: dict, want: dict):
+    """The counts equal the routing rule's, and a model with attention
+    launched its kernels (the U-Net has none: every count 0)."""
+    if launches != want or (bool(step_calls(model, EVAL_BATCH)) and not any(launches.values())):
+        raise SystemExit(f"{label}: launches {launches}, want {want}")
+
+
 def run_eval_path(label: str, argv: list, out_dir: str, card: str):
     import torch
 
@@ -1047,21 +1077,21 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
     print(f"{label}: RMSE var0 per lead {[round(x, 4) for x in res['rmse']['var0']]}")
     print(f"{label} launches {launches} (the routing rule over {len(res['batch_seconds'])} "
           f"batches x {steps} steps wants {want}; no backward under no_grad)")
-    if launches != want or not any(launches.values()):
-        raise SystemExit(f"{label}: launches {launches}, want {want}")
+    check_launches(label, model, launches, want)
     fused = check_fused(label, counters, launches)
-    check_forecast_files(out_dir, res, cfg, len(res["batch_seconds"]))
+    batch = int(argv[argv.index("--batch-size") + 1])
+    check_forecast_files(out_dir, res, cfg, len(res["batch_seconds"]), batch)
     return res, launches, cfg, fused
 
 
-def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int):
+def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: int):
     import numpy as np
 
     from dlwpbench_tpu_torch.utils import netcdf3
 
     data, _ = netcdf3.read_dataset(os.path.join(out_dir, "outputs.nc"))
     n_var = int(cfg.data.prognostic_channels)
-    want_shape = (n_batches * EVAL_BATCH, 16, int(cfg.data.height), int(cfg.data.width))
+    want_shape = (n_batches * batch, 16, int(cfg.data.height), int(cfg.data.width))
     for i in range(n_var):
         arr = data[f"var{i}"]
         if arr.shape != want_shape or not np.isfinite(arr).all():
@@ -1100,17 +1130,28 @@ def check_rollout_vs_cpu(cfg):
         raise SystemExit("the card's rollout disagrees with the CPU reference")
 
 
+GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")  # cuBLAS / cuDNN kernel names
+
+
 def _print_profile(prof, what: str, wall_us: float, card: str, top: int):
+    """Device time by kernel name under the profiler; returns (busy share,
+    the GEMM-like kernels' share of device time), or None when the
+    profiler saw no device time."""
     rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in rows)
     if total == 0:
         print(f"profile: the profiler saw no device time; breakdown not measured [{card}]")
-        return
+        return None
+    gemm = sum(e.self_device_time_total for e in rows
+               if any(k in e.key.lower() for k in GEMM_NAMES))
     print(f"profile: {what}: {wall_us / 1e3:.1f} ms wall (under the profiler), device busy "
-          f"{total / 1e3:.1f} ms = {100 * total / wall_us:.1f}% [{card}]")
+          f"{total / 1e3:.1f} ms = {100 * total / wall_us:.1f}%; GEMM-like kernels (names with "
+          f"{'/'.join(GEMM_NAMES)}, cuDNN's implicit-GEMM convs included) {gemm / 1e3:.2f} ms = "
+          f"{100 * gemm / total:.1f}% of device time [{card}]")
     for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms "
               f"{100 * e.self_device_time_total / total:5.1f}% x{e.count:<5d} {e.key[:90]}")
+    return total / wall_us, gemm / total
 
 
 def profile_rollout(cfg, card: str):
@@ -1169,11 +1210,16 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
     model = registry.build_model({**cfg.model, "remat": True})  # geometry, for the rule
     counters = counters_of()
     # remat: every training forward runs twice (once more in the backward)
-    want = expected_launches(
-        model, counters,
-        [(b, steps, 2) for b in train_bs * epochs] + [(b, val_steps, 1) for b in val_bs * epochs],
-        [(b, steps) for b in train_bs * epochs])
-    del model
+    train_rollouts = [(b, steps, 2) for b in train_bs * epochs]
+    backward_rollouts = [(b, steps) for b in train_bs * epochs]
+    want = expected_launches(model, counters,
+                             train_rollouts + [(b, val_steps, 1) for b in val_bs * epochs],
+                             backward_rollouts)
+    # with bf16 compute every training-step launch takes the bf16 instance;
+    # validation runs in fp32, as the JAX trainer's
+    bf16_compute = cfg.training.get("compute_dtype") == "bfloat16"
+    want_bf16 = (expected_launches(model, counters, train_rollouts, backward_rollouts)
+                 if bf16_compute else {name: 0 for name in counters})
 
     reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -1190,9 +1236,14 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
     print(f"{label} launches {launches} (the routing rule over those batches, {steps} steps "
           f"x 2 (remat) forward + {steps} backward per training batch, {val_steps} steps per "
           f"validation batch, wants {want})")
-    if launches != want or not any(launches.values()):
-        raise SystemExit(f"{label}: launches {launches}, want {want}")
+    check_launches(label, model, launches, want)
+    del model
     fused = check_fused(label, counters, launches)
+    bf16 = {name: fn.bf16_launches for name, fn in counters.items()}
+    print(f"{label} bf16-instance launches {bf16} (wants {want_bf16}: "
+          + ("every training-step launch, no validation launch)" if bf16_compute else "none)"))
+    if bf16 != want_bf16:
+        raise SystemExit(f"{label}: bf16 launches {bf16}, want {want_bf16}")
     losses = res["train_loss"] + res["val_loss"]
     if len(res["train_loss"]) != epochs or not np.isfinite(losses).all():
         raise SystemExit(f"{label}: training losses {res['train_loss']} / {res['val_loss']}")
@@ -1214,7 +1265,8 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
           f"{max(full):.4f}), {samples_s:.2f} samples/s, {samples_s * points:.1f} "
           f"grid-points/s (samples x {steps} steps x {cfg.data.height} x {cfg.data.width}), "
           f"peak device memory {peak:.2f} GiB [{card}]")
-    return dict(launches=launches, fused=fused, seconds_per_step=per_step, samples_per_s=samples_s,
+    return dict(launches=launches, fused=fused, bf16=bf16, seconds_per_step=per_step,
+                samples_per_s=samples_s,
                 gridpoints_per_s=samples_s * points, peak_gib=peak, wall_s=wall,
                 train_loss=res["train_loss"], val_loss=res["val_loss"]), cfg, train_ds
 
@@ -1269,8 +1321,9 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
     return worst[0]
 
 
-def profile_train_step(cfg, train_ds, card: str):
-    """Kernel time by name over one training step at batch 32."""
+def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
+    """Kernel time by name over one training step at batch 32 (in bf16
+    compute when `compute_dtype` says so)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1280,7 +1333,8 @@ def profile_train_step(cfg, train_ds, card: str):
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
     model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
-                      weight_decay=float(cfg.training.optimizer_weight_decay))
+                      weight_decay=float(cfg.training.optimizer_weight_decay),
+                      compute_dtype=compute_dtype)
     state = trainer.init()
     tensors = trainer._to_device(batch)
     trainer.train_step(state, tensors, 1e-3)
@@ -1290,8 +1344,322 @@ def profile_train_step(cfg, train_ds, card: str):
         trainer.train_step(state, tensors, 1e-3)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _print_profile(prof, f"{cfg.model.name}, one training step at batch {len(batch[2])} "
-                   "(2-step rollout, remat, backward, AdamW)", wall_us, card, 12)
+    return _print_profile(prof, f"{cfg.model.name}, one training step at batch {len(batch[2])} "
+                          f"(2-step rollout, remat, backward, AdamW; compute "
+                          f"{compute_dtype or 'float32'})", wall_us, card, 12)
+
+
+# ---------------------------------------------------------------- bf16 compute
+# Card vs CPU with bf16 compute, norm-wise over every parameter's fp32
+# gradient: ||g_card - g_cpu|| / ||g_cpu||.  The two sides round to bf16
+# at other points (cuBLAS and cuDNN against ATen's CPU kernels, the CUDA
+# kernels' bf16 instances against their plain versions); bf16's own
+# rounding moves these gradients by 0.3% to 2.8% of their norm from fp32's
+# at reduced widths on the CPU, and by 0.6% at the full widths (printed
+# beside each check).  The loss is held at 1e-2 relative.
+BF16_GRAD_TOL = 2e-2
+
+
+def _grad_distance(got: dict, ref: dict) -> float:
+    num = sum(float(((got[n] - g) ** 2).sum()) for n, g in ref.items())
+    return (num / sum(float((g ** 2).sum()) for g in ref.values())) ** 0.5
+
+
+def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None):
+    """The port's bf16 training step (`Trainer._compute_params` and
+    `_loss`: bf16 copies of the parameters and inputs, the loss in fp32)
+    on the full-width model, 2 samples x 2 steps: the card's loss and fp32
+    master gradients against the CPU's, every card launch on the kernels'
+    bf16 instances and new designs.  The CPU's fp32 gradients give the
+    scale of bf16 rounding itself."""
+    import torch
+
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.trainer import Trainer
+
+    const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
+    cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
+    card_cfg = {**cfg.model, "remat": True}
+    if card_route is not None:
+        card_cfg["use_flash_attention"] = card_route
+    card_model = registry.build_model(card_cfg, seed=int(cfg.seed)).cuda()
+    card_model.load_state_dict(cpu.state_dict())
+
+    def grads(model, dev, dtype):
+        trainer = Trainer(model, compute_dtype=dtype)
+        model.zero_grad(set_to_none=True)
+        with trainer._compute_params(model):
+            loss = trainer._loss(*(a.to(dev) for a in (const, pres, prog, target)))
+            loss.backward()
+        return loss.item(), {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+    l32, g32 = grads(cpu, "cpu", None)
+    l16, g16 = grads(cpu, "cpu", "bfloat16")
+    counters = counters_of()
+    before = {n: (fn.launches, fn.bf16_launches) for n, fn in counters.items()}
+    before_new = new_design_launches(counters)
+    l_card, g_card = grads(card_model, "cuda", "bfloat16")
+    used = {n: fn.launches - before[n][0] for n, fn in counters.items() if fn.launches != before[n][0]}
+    bf16 = {n: counters[n].bf16_launches - before[n][1] for n in used}
+    new = {n: c - before_new[n] for n, c in new_design_launches(counters).items() if n in used}
+    dist, bf16_vs_fp32 = _grad_distance(g_card, g16), _grad_distance(g16, g32)
+    loss_rel = abs(l_card - l16) / abs(l16)
+    print(f"gradients, bf16 compute: full-width {cfg.model.name} (card route "
+          f"{card_route if card_route is not None else cfg.model.use_flash_attention}, kernel "
+          f"launches {used}, on the bf16 instance {bf16}, on the new design {new}), 2 samples x 2 "
+          f"steps: loss card {l_card:.8f} cpu {l16:.8f} (rel {loss_rel:.2e}, tol 1e-2; cpu fp32 "
+          f"{l32:.8f}); ||g_card - g_cpu|| / ||g_cpu|| over {len(g16)} tensors {dist:.3e} (tol "
+          f"{BF16_GRAD_TOL:.0e}); the CPU's bf16 against its fp32 gradients {bf16_vs_fp32:.3e}")
+    if not (dist <= BF16_GRAD_TOL and loss_rel <= 1e-2 and used):
+        raise SystemExit("the card's bf16 gradients disagree with the CPU's")
+    if bf16 != used or any(c != used[n] for n, c in new.items()):
+        raise SystemExit(f"bf16 gradients: launches {used}, bf16 {bf16}, new design {new}")
+    return dist
+
+
+# ---------------------------------------------------------------- the U-Net at bench.py's shape
+# `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
+# of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
+# channels).  n_time=36000 holds 384 test inits: three batches of 128.
+UNET_EVAL_BATCH = 128
+UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
+                  "data.n_time=36000", "--batch-size", str(UNET_EVAL_BATCH),
+                  "--sequence-length", "17", "--device", "cuda"]
+UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
+UNET_DRIVE_N_TIME = 12100  # 128 test inits: one batch
+
+
+def drive_unet_rollout(cfg, card: str):
+    """The evaluate path's U-Net rolled over one test batch of 128 in fp32
+    and in bf16, the parameters and inputs cast as `bench.py:105-109` casts
+    them: grid-points/s with the host copies (as `rollout_dataset` times a
+    batch: copy in, rollout, copy out; the 2 rollouts after the first) and
+    with the inputs resident on the card (CUDA events over 3 rollouts,
+    `bench.py`'s quantity), a profile of one resident rollout; the bf16
+    forecast against the fp32 one; no attention launch."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.models import registry
+
+    cfg.testing["sequence_length"] = 17
+    cfg.data["n_time"] = UNET_DRIVE_N_TIME
+    _, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                                      int(cfg.model.context_size))
+    batch = next(test_ds.batches(UNET_EVAL_BATCH))
+    if batch[2].shape[0] != UNET_EVAL_BATCH:
+        raise SystemExit(f"unet rollout: a test batch of {batch[2].shape[0]}, want {UNET_EVAL_BATCH}")
+    model32 = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0))).cuda().eval()
+    models = {"float32": model32, "bfloat16": copy.deepcopy(model32).to(torch.bfloat16)}
+    counters = counters_of()
+    reset_counters(counters)
+    rates, first = {}, {}
+    points = 16 * int(cfg.data.height) * int(cfg.data.width)
+    with torch.no_grad():
+        for name, model in models.items():
+            dtype = getattr(torch, name)
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                args = [torch.from_numpy(a).cuda().to(dtype) for a in batch[:3]]
+                first[name] = model(*args).float().cpu()
+                secs.append(time.perf_counter() - t0)
+            host_rate = UNET_EVAL_BATCH * points * 2 / sum(secs[1:])
+            ms = cuda_ms(lambda: model(*args), 3)
+            dev_rate = UNET_EVAL_BATCH * points / (ms / 1e3)
+            rates[name] = dict(with_copies=host_rate, resident=dev_rate, rollout_ms=ms)
+            print(f"unet rollout {name}: hidden {list(model32.hidden_channels)}, batch "
+                  f"{UNET_EVAL_BATCH} x 16 steps: {host_rate:.1f} grid-points/s with the host "
+                  f"copies (the 2 rollouts after the first; seconds {[round(t, 4) for t in secs]}); "
+                  f"{dev_rate:.1f} grid-points/s with the inputs on the card ({ms:.3f} ms a "
+                  f"rollout) [{card}]")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(*args)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            _print_profile(prof, f"unet {name}, one rollout of batch {UNET_EVAL_BATCH} x 16 "
+                           "steps, inputs on the card", wall_us, card, 8)
+            del args
+    launches = {n: fn.launches for n, fn in counters.items()}
+    err = (first["bfloat16"] - first["float32"]).abs().max().item()
+    scale = first["float32"].abs().max().item()
+    finite = bool(torch.isfinite(first["bfloat16"]).all())
+    print(f"unet rollout: bf16 against fp32 on the first batch after 16 steps: max|diff| "
+          f"{err:.3e} of max|fp32| {scale:.3f}; bf16 finite {finite}; attention launches "
+          f"{launches} (none wanted); bf16 / fp32 speed {rates['bfloat16']['resident'] / rates['float32']['resident']:.2f}x "
+          f"resident, {rates['bfloat16']['with_copies'] / rates['float32']['with_copies']:.2f}x with copies")
+    if any(launches.values()) or not finite:
+        raise SystemExit(f"unet rollout: launches {launches}, bf16 finite {finite}")
+    return rates
+
+
+# ---------------------------------------------------------------- the prefetch
+def _copied_model_constants():
+    """Patches that put back the Swin's constant tables as they were built
+    before `models.base.device_constant`: copied from pageable host memory
+    on every forward (a copy that waits for the card), the relative-position
+    offsets too.  Returns the undo."""
+    import torch
+
+    from dlwpbench_tpu_torch.models import swin
+
+    saved = swin.device_constant, swin.expand_relative_bias
+
+    def copied(table_fn, *args, device):
+        return torch.as_tensor(table_fn(*args), device=device)
+
+    def expand(table, wh, ww):
+        nh, N = table.shape[-1], wh * ww
+        T = table.reshape(2 * wh - 1, 2 * ww - 1, nh)
+        dx = (torch.arange(ww)[:, None] - torch.arange(ww)[None, :] + ww - 1).to(table.device)
+        T2 = T[:, dx.reshape(-1)].reshape(2 * wh - 1, ww, ww, nh)
+        dy = (torch.arange(wh)[:, None] - torch.arange(wh)[None, :] + wh - 1).to(table.device)
+        return T2[dy.reshape(-1)].reshape(wh, wh, ww, ww, nh).permute(4, 0, 2, 1, 3).reshape(nh, N, N)
+
+    swin.device_constant, swin.expand_relative_bias = copied, expand
+
+    def undo():
+        swin.device_constant, swin.expand_relative_bias = saved
+
+    return undo
+
+
+def compare_prefetch(cfg, train_ds, card: str):
+    """swin_win8's training epoch before and after the prefetch, in turns
+    on one model.  "before" is the trainer's loop until this change: each
+    batch copied from pageable memory, `Trainer.train_step`, a sync per
+    step, timed on the host clock; "before, tables copied per forward" is
+    the same with the model's constant tables copied from pageable memory
+    on every forward, as they were.  "after" is `Trainer.train_epoch` (pinned
+    staging on a side stream, CUDA-event timing), its steps run under
+    `torch.cuda.set_sync_debug_mode("error")`, which raises on a
+    synchronising call, up to the epoch's one read at its end.  Seconds per
+    step (full batches after the first); the device's busy share, its
+    kernel and copy time per step (one more epoch of each under the
+    profiler) over those seconds; what the host does in an "after" epoch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.trainer import Trainer, cosine_lr
+
+    bs = int(cfg.training.batch_size)
+    ctx = int(cfg.model.context_size)
+    steps = int(cfg.training.sequence_length) - ctx
+    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    # many epochs' worth of cosine schedule: the LR stays near its base
+    trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
+                      weight_decay=float(cfg.training.optimizer_weight_decay), epochs=100)
+    state = trainer.init()
+
+    def before():
+        lr = cosine_lr(state.epoch, trainer.base_lr, trainer.epochs)
+        out = []
+        for batch in train_ds.batches(bs, shuffle=True):
+            t0 = time.perf_counter()
+            trainer.train_step(state, trainer._to_device(batch), lr)
+            torch.cuda.synchronize()
+            out.append((batch[2].shape[0], time.perf_counter() - t0))
+        state.epoch += 1
+        return out
+
+    def before_copies():
+        undo = _copied_model_constants()
+        try:
+            return before()
+        finally:
+            undo()
+
+    def after(check_sync: bool = False):
+        n0 = len(trainer.timings)
+        if check_sync:
+            close = trainer._close_epoch
+
+            def close_after_steps(*a):  # the epoch's one read from the card
+                torch.cuda.set_sync_debug_mode("default")
+                return close(*a)
+
+            trainer._close_epoch = close_after_steps
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.train_epoch(state, train_ds, bs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            trainer.__dict__.pop("_close_epoch", None)
+        return trainer.timings[n0:]
+
+    def per_step(timed):
+        full = [t for n, t in timed if n == bs][1:]
+        return sum(full) / len(full), min(full), max(full)
+
+    def device_ms_per_step(run):
+        """Kernel and copy time per step of one more epoch under the
+        profiler (tracing slows the host, not the kernels)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            n = len(run())
+            torch.cuda.synchronize()
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA"))
+        return dev / 1e3 / n if dev else None
+
+    variants = {"before, tables copied per forward": before_copies, "before": before,
+                "after": lambda: after(True)}
+    counters = counters_of()
+    for run in variants.values():  # warm-up: cuBLAS, the allocator, the pinned pool
+        run()
+    reset_counters(counters)
+    timed = {name: [] for name in variants}
+    for name in [*variants, *reversed(variants)]:  # in turns: A B C C B A
+        timed[name].append(per_step(variants[name]()))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    train_bs = _batch_sizes(len(train_ds), bs)
+    epochs = 2 * len(variants)
+    want = expected_launches(model, counters, [(b, steps, 2) for b in train_bs * epochs],
+                             [(b, steps) for b in train_bs * epochs])
+    results = {}
+    for name, run in variants.items():
+        mean = sum(m for m, _, _ in timed[name]) / len(timed[name])
+        dev_ms = device_ms_per_step(run)
+        busy = None if dev_ms is None else dev_ms / 1e3 / mean
+        results[name] = dict(seconds_per_step=mean, device_ms=dev_ms, busy=busy)
+        print(f"swin_win8 prefetch: {name}: " + "; ".join(
+            f"{m:.4f} s per step (min {lo:.4f}, max {hi:.4f})" for m, lo, hi in timed[name])
+            + f" at batch {bs}; device (kernels and copies) "
+            + ("not measured" if dev_ms is None else
+               f"{dev_ms:.2f} ms a step under the profiler, busy {100 * busy:.1f}%")
+            + f" [{card}]")
+    print("swin_win8 prefetch: the after epochs' steps ran with set_sync_debug_mode('error') "
+          "and raised nothing")
+    print(f"swin_win8 prefetch launches over the {epochs} timed epochs {launches} (wants {want})")
+    if launches != want:
+        raise SystemExit(f"swin_win8 prefetch: launches {launches}, want {want}")
+
+    # what the host does in an "after" epoch: building the batches alone,
+    # then the profiler's host side
+    t0 = time.perf_counter()
+    n = sum(1 for _ in train_ds.batches(bs, shuffle=True))
+    build_s = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        after()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    launch_us = sum(e.self_cpu_time_total for e in rows if "LaunchKernel" in e.key)
+    print(f"swin_win8 prefetch: host side of one after epoch: {wall / n:.4f} s a step under "
+          f"the profiler, building a batch (dataset.batches alone) {build_s:.4f} s, the "
+          f"launch calls (cudaLaunchKernel and the like) {launch_us / 1e6 / n:.4f} s a step "
+          f"[{card}]")
+    for e in rows[:10]:
+        print(f"swin_win8 prefetch:   host {e.self_cpu_time_total / 1e3 / n:8.3f} ms a step "
+              f"x{e.count // n:<5d} {e.key[:80]}")
+    return dict(results=results, launches=launches)
 
 
 # ---------------------------------------------------------------- the packed path
@@ -1390,6 +1758,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1434,7 +1803,48 @@ def main() -> int:
     # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
     check_train_grads(s8cfg, s8_ds, card, card_route="packed")
     profile_train_step(s8cfg, s8_ds, card)
+    prefetch = compare_prefetch(s8cfg, s8_ds, card)
+    paths["swin_win8_prefetch"] = prefetch["launches"]
     paths["packed"], fused_by_path["packed"] = run_packed_path(card)
+
+    # the U-Net at bench.py's shape: the evaluate CLI (fp32), the same
+    # rollout in fp32 and bf16, card vs CPU on 2 samples x 2 steps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unet_eval_") as out_dir:
+        _, paths["unet_evaluate"], ucfg, fused_by_path["unet_evaluate"] = run_eval_path(
+            "unet evaluate", UNET_EVAL_ARGV, out_dir, card)
+    drive_unet_rollout(ucfg, card)
+    ucfg.data["n_time"] = 1536  # 2 samples need no 384 test inits
+    check_rollout_vs_cpu(ucfg)
+
+    # training in fp32 and with bf16 compute: the U-Net (shipped config),
+    # and one epoch each of the Swin and Pangu in bf16 beside their fp32
+    # paths above
+    train_runs = {"train": train, "pangu_train": ptrain, "swin_win8_train": s8}
+    bf16_runs = (
+        ("unet_train", UNET_TRAIN_ARGV),
+        ("unet_train_bf16", [*UNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"]),
+        ("swin_train_bf16", ["model=swintransformer", *TRAIN_TAIL, "training.epochs=1",
+                             "training.compute_dtype=bfloat16"]),
+        ("pangu_train_bf16", ["model=panguweather", *TRAIN_TAIL, "training.epochs=1",
+                              "training.compute_dtype=bfloat16"]),
+    )
+    for key, argv in bf16_runs:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+            run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card)
+        train_runs[key] = run
+        paths[key], fused_by_path[key] = run["launches"], run["fused"]
+        if key == "swin_train_bf16":
+            check_train_grads_bf16(rcfg, rds, card)
+        elif key == "pangu_train_bf16":
+            check_train_grads_bf16(rcfg, rds, card, card_route="packed5d")
+            profile_train_step(rcfg, rds, card, compute_dtype="bfloat16")
+    for model, fp32_key in (("unet", "unet_train"), ("swin", "train"), ("pangu", "pangu_train")):
+        a, b = train_runs[fp32_key], train_runs[f"{model}_train_bf16"]
+        print(f"training, fp32 against bf16 compute: {model} {a['seconds_per_step']:.4f} against "
+              f"{b['seconds_per_step']:.4f} s per step ({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), "
+              f"{a['samples_per_s']:.2f} against {b['samples_per_s']:.2f} samples/s, peak "
+              f"{a['peak_gib']:.2f} against {b['peak_gib']:.2f} GiB [{card}]")
+    bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`
@@ -1457,6 +1867,7 @@ def main() -> int:
             name=name, route="cuda", source=f"{csrc}/{src}", replaces=replaces,
             also_replaces=also, launches=paths["train"][name],
             launches_by_path={p: c[name] for p, c in paths.items()},
+            bf16_launches_by_path={p: c[name] for p, c in bf16_by_path.items()},
             **({"mma_launches": fused_by_path["train"][name], "design": head["design"],
                 "old_ms": head["old_ms"]} if "design" in head else {}),
             max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
@@ -1477,6 +1888,7 @@ def main() -> int:
                 name=kname, route="cuda", source=f"{csrc}/window_attention_qkv.cu",
                 replaces=rep, launches=paths[slice_path][kname],
                 launches_by_path={p: c[kname] for p, c in paths.items()},
+                bf16_launches_by_path={p: c[kname] for p, c in bf16_by_path.items()},
                 fused_launches=fused_by_path[slice_path][kname],
                 design=head["bwd_route"] if pre else head["fwd_route"],
                 **({} if pre else {"old_ms": head["row_ms"]}),
@@ -1495,6 +1907,7 @@ def main() -> int:
             name=kname, route="cuda", source=f"{csrc}/packed_window_attention.cu",
             replaces=rep, launches=paths["packed"][kname],
             launches_by_path={p: c[kname] for p, c in paths.items()},
+            bf16_launches_by_path={p: c[kname] for p, c in bf16_by_path.items()},
             fused_launches=fused_by_path["packed"][kname],
             design=head["bwd_route"] if pre else head["fwd_route"],
             old_ms=head["four_pass_bwd_ms"] if pre else head["row_ms"],
@@ -1504,6 +1917,7 @@ def main() -> int:
             library_ms=head[f"library_{pre}ms"],
             shape=f"{head['case']} q{head['q']} mask {list(head['mask'])} {head['dtype']}",
         ))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start to the kernels line")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,28 @@ the backward pass instead of kept.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import functools
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 REMAT_POLICIES = ("full",)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(table_fn: Callable, *args, device) -> torch.Tensor:
+    """`table_fn(*args)`, a numpy table of a model's geometry (index or
+    shift-group tables), as a tensor on `device`.  Built and copied once
+    per (table, arguments, device) and returned as the same tensor after
+    that, so a forward pass copies nothing from the host; the one copy
+    goes from pinned memory without blocking, so not even the first
+    forward waits for the card.  Callers must not write to it."""
+    t = torch.from_numpy(table_fn(*args))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def _to_channels_last(x: torch.Tensor) -> torch.Tensor:

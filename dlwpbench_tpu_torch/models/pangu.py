@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dlwpbench_tpu_torch.models.base import RolloutModel
+from dlwpbench_tpu_torch.models.base import RolloutModel, device_constant
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import (
@@ -128,7 +128,7 @@ def expand_earth_bias(table: torch.Tensor, window_size) -> torch.Tensor:
     key-major layout of the window-attention kernels."""
     wpl, wlat, wlon = window_size
     N = wpl * wlat * wlon
-    idx = torch.as_tensor(earth_position_index(tuple(window_size)), device=table.device)
+    idx = device_constant(earth_position_index, tuple(window_size), device=table.device)
     tow, nh = table.shape[1], table.shape[2]
     return table[idx.reshape(-1)].reshape(N, N, tow, nh).permute(2, 3, 1, 0).contiguous()
 
@@ -232,7 +232,7 @@ class EarthSpecificBlock(nn.Module):
             x = torch.roll(x, (-spl, -slat, -fwd_lon), dims=(1, 2, 3))
             # the [nLon, nW, N, N] mask is built on the device, in the
             # activation's dtype
-            groups = torch.as_tensor(shift_window_groups_3d(pad_res, win, shift_size),
+            groups = device_constant(shift_window_groups_3d, pad_res, win, shift_size,
                                      device=x.device)
             mask = torch.where(groups[:, :, None, :] != groups[:, :, :, None],
                                -100.0, 0.0).to(x.dtype)

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dlwpbench_tpu_torch.models.base import RolloutModel
+from dlwpbench_tpu_torch.models.base import RolloutModel, device_constant
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import window_attention_qkv
@@ -81,9 +81,10 @@ def expand_relative_bias(table: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
     nh = table.shape[-1]
     N = wh * ww
     T = table.reshape(2 * wh - 1, 2 * ww - 1, nh)
-    dx = (torch.arange(ww)[:, None] - torch.arange(ww)[None, :] + ww - 1).to(table.device)
+    ar = functools.partial(torch.arange, device=table.device)
+    dx = ar(ww)[:, None] - ar(ww)[None, :] + ww - 1
     T2 = T[:, dx.reshape(-1)].reshape(2 * wh - 1, ww, ww, nh)
-    dy = (torch.arange(wh)[:, None] - torch.arange(wh)[None, :] + wh - 1).to(table.device)
+    dy = ar(wh)[:, None] - ar(wh)[None, :] + wh - 1
     B4 = T2[dy.reshape(-1)].reshape(wh, wh, ww, ww, nh)
     return B4.permute(4, 0, 2, 1, 3).reshape(nh, N, N)
 
@@ -340,10 +341,8 @@ class SwinTransformer(RolloutModel):
                 rel = expand_relative_bias(table, wh, ww)
                 sh, sw = (0, 0) if d % 2 == 0 else st["shift"]
                 if sh or sw:
-                    groups = torch.as_tensor(
-                        shift_window_groups(st["Hp"], st["Wp"], wh, ww, sh, sw),
-                        device=rel.device,
-                    )
+                    groups = device_constant(shift_window_groups, st["Hp"], st["Wp"], wh, ww,
+                                             sh, sw, device=rel.device)
                     mask = torch.where(
                         groups[:, None, :] != groups[:, :, None], -100.0, 0.0
                     ).to(rel.dtype)

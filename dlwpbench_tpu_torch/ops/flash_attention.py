@@ -24,6 +24,9 @@ only for tensors on the CPU.  `flash_window_attention` and
 `flash_window_attention_lse` are `torch.autograd.Function`s whose backward
 goes through `flash_window_attention_bwd`; the raw
 `flash_window_attention_fwd` is not differentiable on CUDA tensors.
+Each wrapper counts its launches in `.launches`, those of the tensor-core
+design in `.mma_launches` and those of the bf16 instance in
+`.bf16_launches`.
 """
 
 from __future__ import annotations
@@ -193,11 +196,13 @@ def flash_window_attention_fwd(q, k, v, bias):
         )
     out, lse, route = _launch_fwd(q, k, v, bias)
     flash_window_attention_fwd.launches += 1
+    flash_window_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     flash_window_attention_fwd.mma_launches += route == "mma"
     return out, lse
 
 
 flash_window_attention_fwd.launches = 0
+flash_window_attention_fwd.bf16_launches = 0
 flash_window_attention_fwd.mma_launches = 0
 
 
@@ -263,11 +268,13 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     dq, dk, dv, dbias, route = _launch_bwd(q, k, v, bias, out, lse.contiguous(), do,
                                            drow.contiguous())
     flash_window_attention_bwd.launches += 1
+    flash_window_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
     flash_window_attention_bwd.mma_launches += route == "mma"
     return dq, dk, dv, dbias
 
 
 flash_window_attention_bwd.launches = 0
+flash_window_attention_bwd.bf16_launches = 0
 flash_window_attention_bwd.mma_launches = 0
 
 

@@ -27,7 +27,9 @@ kernels (the backward's in four passes) for the rest.  The
 plain versions run only for tensors on the CPU.  The differentiable
 entry `packed_window_attention` is a `torch.autograd.Function` whose
 backward goes through `packed_window_attention_bwd`; the mask is a
-constant and gets no gradient.
+constant and gets no gradient.  Each wrapper counts its launches in
+`.launches`, those of the fused design in `.fused_launches` and those of
+the bf16 instance in `.bf16_launches`.
 """
 
 from __future__ import annotations
@@ -157,11 +159,13 @@ def packed_window_attention_fwd(q, k, v, bias, mask):
             "packed_window_attention, whose backward launches the CUDA backward kernels")
     out, lse, route = _launch_fwd(q, k, v, bias, mask)
     packed_window_attention_fwd.launches += 1
+    packed_window_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     packed_window_attention_fwd.fused_launches += route == "fused"
     return out, lse
 
 
 packed_window_attention_fwd.launches = 0
+packed_window_attention_fwd.bf16_launches = 0
 packed_window_attention_fwd.fused_launches = 0
 
 
@@ -224,11 +228,13 @@ def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
     _check_cuda("packed_window_attention_bwd", (q, k, v, bias, mask, out, do), D, N)
     dq, dk, dv, dbias, route = _launch_bwd(q, k, v, bias, mask, out, lse.contiguous(), do)
     packed_window_attention_bwd.launches += 1
+    packed_window_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
     packed_window_attention_bwd.fused_launches += route == "fused"
     return dq, dk, dv, dbias
 
 
 packed_window_attention_bwd.launches = 0
+packed_window_attention_bwd.bf16_launches = 0
 packed_window_attention_bwd.fused_launches = 0
 
 

@@ -32,7 +32,9 @@ the rest (the backward's in four passes).  The plain versions run only
 for tensors on the CPU.  The differentiable
 entries `window_attention_qkv` and `window_attention_qkv5d` are
 `torch.autograd.Function`s whose backward goes through the `_bwd`
-wrappers; the mask is a constant and gets no gradient.
+wrappers; the mask is a constant and gets no gradient.  Each wrapper
+counts its launches in `.launches`, those of the fused design in
+`.fused_launches` and those of the bf16 instance in `.bf16_launches`.
 """
 
 from __future__ import annotations
@@ -332,11 +334,13 @@ def window_attention_qkv_fwd(qkv, bias, mask, nh):
     out, lse, route = _launch_fwd("window_attention_qkv_fwd", _TOKEN_MAJOR, qkv, bias, mask,
                                   nh, None, (B, L, nW, N, C), (B, L, nW, nh, N))
     window_attention_qkv_fwd.launches += 1
+    window_attention_qkv_fwd.bf16_launches += qkv.dtype == torch.bfloat16
     window_attention_qkv_fwd.fused_launches += route == "fused"
     return out, lse
 
 
 window_attention_qkv_fwd.launches = 0
+window_attention_qkv_fwd.bf16_launches = 0
 window_attention_qkv_fwd.fused_launches = 0
 
 
@@ -356,11 +360,13 @@ def window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout):
     dqkv, dbias, route = _launch_bwd("window_attention_qkv_bwd", _TOKEN_MAJOR, qkv, bias,
                                      mask, out, lse, dout, None)
     window_attention_qkv_bwd.launches += 1
+    window_attention_qkv_bwd.bf16_launches += qkv.dtype == torch.bfloat16
     window_attention_qkv_bwd.fused_launches += route == "fused"
     return dqkv, dbias
 
 
 window_attention_qkv_bwd.launches = 0
+window_attention_qkv_bwd.bf16_launches = 0
 window_attention_qkv_bwd.fused_launches = 0
 
 
@@ -381,11 +387,13 @@ def window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win):
                                   nh, win, tuple(qkv5.shape[:-1]) + (C3 // 3,),
                                   (B, nLon, nW, nh, N))
     window_attention_qkv5d_fwd.launches += 1
+    window_attention_qkv5d_fwd.bf16_launches += qkv5.dtype == torch.bfloat16
     window_attention_qkv5d_fwd.fused_launches += route == "fused"
     return out, lse
 
 
 window_attention_qkv5d_fwd.launches = 0
+window_attention_qkv5d_fwd.bf16_launches = 0
 window_attention_qkv5d_fwd.fused_launches = 0
 
 
@@ -403,11 +411,13 @@ def window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse, dout5, win):
     dqkv, dbias, route = _launch_bwd("window_attention_qkv5d_bwd", _FIELD_5D, qkv5, bias,
                                      mask, out5, lse, dout5, win)
     window_attention_qkv5d_bwd.launches += 1
+    window_attention_qkv5d_bwd.bf16_launches += qkv5.dtype == torch.bfloat16
     window_attention_qkv5d_bwd.fused_launches += route == "fused"
     return dqkv, dbias
 
 
 window_attention_qkv5d_bwd.launches = 0
+window_attention_qkv5d_bwd.bf16_launches = 0
 window_attention_qkv5d_bwd.fused_launches = 0
 
 

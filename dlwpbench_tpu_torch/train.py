@@ -6,8 +6,11 @@
 Composes `configs/` with Hydra-style overrides, builds the model from the
 registry (seeded random init from the config's `seed`; per-step
 rematerialisation on unless `model.remat=false`), builds the datasets and
-the latitude weights, and trains in fp32 with TF32 off (AdamW, cosine LR,
-gradient clipping to the LR).  Writes `config.yaml`, `metrics.jsonl` and,
+the latitude weights, and trains with TF32 off (AdamW, cosine LR, gradient
+clipping to the LR): in fp32, or with `training.compute_dtype=bfloat16`
+in bf16 compute over fp32 master parameters (the forward and backward in
+bf16; the loss, gradients, optimizer state, validation and checkpoints in
+fp32).  Writes `config.yaml`, `metrics.jsonl` and,
 with `training.save_model`, best/last checkpoints under `run_dir`;
 `training.continue_training` resumes from the last checkpoint.  Prints the
 JAX CLI's line per epoch.

@@ -17,16 +17,29 @@ The port's counterpart of `dlwpbench_tpu/training/trainer.py:36-456,
   weighted `n_full / B`, plus a remainder chunk weighted `rem / B`
   (`:214-249`), so accumulation equals the big-batch step;
 - best/last checkpoints every `checkpoint_every` epochs, written by a
-  background thread from a snapshot taken on the calling thread.
+  background thread from a snapshot taken on the calling thread;
+- `compute_dtype="bfloat16"`: mixed precision as the JAX trainer does it
+  (`:103-109`, `_cast_compute` `:153-165`): the parameters and the
+  batch's inputs are cast to bf16 inside the loss, every layer follows its
+  input's dtype (LayerNorm, softmax and GELU included), the loss is taken
+  in fp32, and the gradients, AdamW's moments and the checkpoints stay
+  with the fp32 master parameters.  Validation runs in fp32;
+- the batches reach the card through `prefetch_to_device`, the
+  counterpart of `_prefetch_to_device` (`:441-455`, depth 2): staged in
+  pinned memory and copied on a side stream while the previous step runs.
+  An epoch reads nothing back from the card until its end: the steps are
+  timed with CUDA events read once the epoch's loss is read.
 
 PyTorch runs eagerly: a train step is the model's forward, `backward()`
 and `optimizer.step()`, which updates the parameters in place.  The
-diffusion objective, bf16 compute and data parallelism are not ported
-(they raise and name their ROADMAP item).
+diffusion objective and data parallelism are not ported (they raise and
+name their ROADMAP item).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 import os
@@ -92,11 +105,12 @@ class Trainer:
                 f"training.type {training_type!r} (v-prediction diffusion with EMA) "
                 "is not ported to PyTorch yet (ROADMAP queue A, item 10)"
             )
+        self.compute_dtype = None
         if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r} (bf16 compute over fp32 master "
-                "weights) is not ported to PyTorch yet (ROADMAP queue A, item 5)"
-            )
+            dtype = getattr(torch, str(compute_dtype), None)
+            if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+                raise ValueError(f"compute_dtype {compute_dtype!r} is not a floating dtype")
+            self.compute_dtype = dtype
         if gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
         self.model = model
@@ -110,8 +124,10 @@ class Trainer:
             None if lat_weights is None
             else torch.as_tensor(np.asarray(lat_weights, np.float32), device=self.device)
         )
-        # (samples, seconds) per optimizer step: host to device copy, the
-        # step, and a device sync (the rollout's `timings` counterpart)
+        # (samples, seconds) per optimizer step: on the card the time
+        # between CUDA events recorded on the compute stream after each
+        # step (the wait for the batch's copy included), on the CPU the
+        # host clock
         self.timings: list[tuple[int, float]] = []
 
     # ------------------------------------------------------------------
@@ -130,15 +146,48 @@ class Trainer:
         return sum(p.numel() for p in state.model.parameters())
 
     def _to_device(self, batch):
+        """A host batch as device tensors, copied from pageable memory (a
+        synchronous copy on the card); validation's path."""
         return tuple(
             None if x is None else torch.as_tensor(x).to(self.device, non_blocking=True)
             for x in batch
         )
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _compute_params(self, model: nn.Module):
+        """With a compute dtype, the model runs on a copy of its float
+        parameters in that dtype for the duration of the block: one cast
+        per micro-batch, before the rollout and outside any checkpoint.
+        The cast is in the autograd graph, so the gradients land on the
+        fp32 master parameters in fp32.  The copies stay in place through
+        the backward pass, which recomputes checkpointed rollout steps from
+        them (`torch.func.functional_call` would restore the fp32
+        parameters before that recomputation)."""
+        if self.compute_dtype is None:
+            yield
+            return
+        swapped = []
+        for name, p in model.named_parameters():
+            if p.is_floating_point():
+                mod_name, _, leaf = name.rpartition(".")
+                module = model.get_submodule(mod_name)
+                swapped.append((module, leaf, p))
+                module._parameters[leaf] = p.to(self.compute_dtype)
+        try:
+            yield
+        finally:
+            for module, leaf, p in swapped:
+                module._parameters[leaf] = p
+
     def _loss(self, const, pres, prog, target) -> torch.Tensor:
+        if self.compute_dtype is not None:  # the batch's float inputs, not the target
+            const, pres, prog = (
+                x if x is None or not x.is_floating_point() else x.to(self.compute_dtype)
+                for x in (const, pres, prog)
+            )
         out = self.model(const, pres, prog)
-        return mse_loss(out.float(), target)
+        return mse_loss(out.float(), target)  # the loss in fp32 whatever the compute dtype
 
     def train_step(self, state: TrainState, batch, lr: float) -> torch.Tensor:
         """One optimizer step over `accum` micro-batches (+ remainder);
@@ -159,9 +208,10 @@ class Trainer:
         total = torch.zeros((), device=self.device)
         for lo, hi in chunks:
             part = [None if x is None else x[lo:hi] for x in batch]
-            loss = self._loss(*part)
             w = (hi - lo) / B  # 1.0 for a single chunk
-            (w * loss).backward()
+            with self._compute_params(state.model):
+                loss = self._loss(*part)
+                (w * loss).backward()
             total = total + w * loss.detach()
 
         for p in params:  # optax decays every parameter, gradient or not
@@ -172,24 +222,40 @@ class Trainer:
         state.optimizer.step()
         return total
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def train_epoch(self, state: TrainState, dataset, batch_size: int,
                     shuffle: bool = True) -> float:
         lr = cosine_lr(state.epoch, self.base_lr, self.epochs)
         state.model.train()
-        losses = []
-        for batch in dataset.batches(batch_size, shuffle=shuffle):
-            t0 = time.perf_counter()
-            loss = self.train_step(state, self._to_device(batch), lr)
-            self._sync()
-            self.timings.append((batch[2].shape[0], time.perf_counter() - t0))
+        losses, samples = [], []
+        card = self.device.type == "cuda"
+
+        def mark():  # after each step: an event on the compute stream, or the host clock
+            if not card:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+
+        marks = [mark()]
+        for batch in prefetch_to_device(dataset.batches(batch_size, shuffle=shuffle),
+                                        self.device):
+            losses.append(self.train_step(state, batch, lr))
+            samples.append(batch[2].shape[0])
+            marks.append(mark())
             state.iteration += 1
-            losses.append(loss)
         state.epoch += 1
-        return float(torch.stack(losses).mean()) if losses else float("nan")
+        return self._close_epoch(losses, samples, marks)
+
+    def _close_epoch(self, losses, samples, marks) -> float:
+        """The epoch's one read from the card: its mean loss, then each
+        step's seconds from the marks into `timings`."""
+        mean = float(torch.stack(losses).mean()) if losses else float("nan")
+        if self.device.type == "cuda":
+            seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+        else:
+            seconds = [b - a for a, b in zip(marks, marks[1:])]
+        self.timings.extend(zip(samples, seconds))
+        return mean
 
     @torch.no_grad()
     def validate(self, state: TrainState, dataset, batch_size: int):
@@ -279,6 +345,56 @@ class Trainer:
             if logger:
                 logger.close()
         return state
+
+
+# ----------------------------------------------------------------------
+# The input pipeline (JAX `trainer.py:441-455`)
+# ----------------------------------------------------------------------
+
+
+def prefetch_to_device(batches, device, depth: int = 2):
+    """Yield `batches` (tuples of numpy arrays or None) as tensors on
+    `device`, keeping `depth` batches in flight.
+
+    On the card each batch is staged in pinned host memory and copied on a
+    side stream without blocking, so the copy of the next batch overlaps
+    the current step; the compute stream waits for a batch's copy (an
+    event) before its first use, and `record_stream` keeps the allocator
+    from handing its memory to another stream while the step reads it.
+    Each batch gets fresh pinned buffers from PyTorch's caching host
+    allocator, which reuses a buffer only after the copy recorded on it
+    has run.  Pinning or copying raises on failure; nothing falls back to
+    a pageable copy.  On the CPU the batches pass through as tensors, in
+    the same order."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in batches:
+            yield tuple(None if x is None else torch.as_tensor(x) for x in batch)
+        return
+    copy_stream = torch.cuda.Stream(device)
+    compute = torch.cuda.current_stream(device)
+    in_flight = collections.deque()  # (pinned host tensors, device tensors, copied event)
+    for batch in batches:
+        host = [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+                for x in batch]
+        with torch.cuda.stream(copy_stream):
+            dev = tuple(None if h is None else h.to(device, non_blocking=True) for h in host)
+            copied = torch.cuda.Event()
+            copied.record(copy_stream)
+        in_flight.append((host, dev, copied))
+        if len(in_flight) >= depth:
+            yield _hand_over(in_flight.popleft(), compute)
+    while in_flight:
+        yield _hand_over(in_flight.popleft(), compute)
+
+
+def _hand_over(staged, compute):
+    _, dev, copied = staged
+    compute.wait_event(copied)
+    for t in dev:
+        if t is not None:
+            t.record_stream(compute)
+    return dev
 
 
 # ----------------------------------------------------------------------

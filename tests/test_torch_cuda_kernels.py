@@ -688,3 +688,80 @@ def test_packed_forward_takes_its_route_on_card(cuda, dtype, B_, nh, N, D, nW, l
                                    atol=(atol if dtype == torch.float32 else 4 * atol) * scale)
         torch.testing.assert_close(lse, row_lse, rtol=0,
                                    atol=2e-5 * max(1.0, want_lse.abs().max().item()))
+
+
+# ---------------------------------------------------------------- bf16 instances and the prefetch
+def _entry_case(cuda, dtype, family):
+    """(differentiable call, its inputs with requires_grad, forward counter,
+    backward counter) of one kernel family at a small model-like shape."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)  # noqa: E731
+    if family == "flash":
+        args = [rnd(2, 2, 64, 24) for _ in range(3)] + [rnd(2, 64, 64)]
+        return fa.flash_window_attention, args, (), fa.flash_window_attention_fwd, \
+            fa.flash_window_attention_bwd
+    if family == "token-major":
+        args = [rnd(2, 1, 4, 64, 144), rnd(1, 2, 64, 64)]
+        return wa.window_attention_qkv, args, (None, 2), wa.window_attention_qkv_fwd, \
+            wa.window_attention_qkv_bwd
+    if family == "5d":
+        args = [rnd(2, 2, 12, 24, 192), rnd(2, 2, 144, 144)]
+        return wa.window_attention_qkv5d, args, (None, 2, (2, 6, 12)), \
+            wa.window_attention_qkv5d_fwd, wa.window_attention_qkv5d_bwd
+    args = [rnd(4, 2, 64, 24) for _ in range(3)] + [rnd(2, 2, 64, 64)]
+    return pk.packed_window_attention, args, (), pk.packed_window_attention_fwd, \
+        pk.packed_window_attention_bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["flash", "token-major", "5d", "packed"])
+def test_bf16_instances_are_counted_on_card(cuda, dtype, family):
+    """Forward and backward through each differentiable entry launch once
+    each way, and `.bf16_launches` counts them in bf16 only."""
+    fn, args, extra, fwd, bwd = _entry_case(cuda, dtype, family)
+    leaves = [a.requires_grad_() for a in args]
+    before = [(c.launches, c.bf16_launches) for c in (fwd, bwd)]
+    out = fn(*leaves, *extra)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    assert [(c.launches - b[0], c.bf16_launches - b[1]) for c, b in zip((fwd, bwd), before)] \
+        == [(1, bf16), (1, bf16)]
+    assert all(leaf.grad.dtype == dtype and torch.isfinite(leaf.grad.float()).all()
+               for leaf in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["flash", "token-major", "5d", "packed"])
+def test_a_dtype_mix_raises_on_card(cuda, family):
+    """bf16 activations with an fp32 bias reach the wrapper and raise: the
+    models must build their constants in the compute dtype."""
+    fn, args, extra, _, _ = _entry_case(cuda, torch.bfloat16, family)
+    args[-1] = args[-1].float()
+    with pytest.raises(TypeError):
+        fn(*args, *extra)
+
+
+@pytest.mark.cuda
+def test_prefetch_on_card_copies_in_order_without_a_sync(cuda):
+    """The batches arrive on the card, in order and equal to the host's,
+    the short last one included, and staging them syncs nothing."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.training.trainer import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [(None, rng.standard_normal((n, 3, 4)).astype(np.float32),
+                rng.standard_normal((n, 2, 4)).astype(np.float32)) for n in (4, 4, 4, 2)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tuple(None if t is None else t.clone() for t in b)
+               for b in prefetch_to_device(iter(batches), cuda)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        assert g[0] is None and all(t.device.type == "cuda" for t in g[1:])
+        for t, a in zip(g[1:], b[1:]):
+            assert np.array_equal(t.cpu().numpy(), a)

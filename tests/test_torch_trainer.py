@@ -187,7 +187,6 @@ def test_submitted_checkpoint_holds_values_before_an_in_place_update(tmp_path):
 
 @pytest.mark.parametrize("kw, match", [
     (dict(training_type="diffusion"), "item 10"),
-    (dict(compute_dtype="bfloat16"), "item 5"),
 ])
 def test_out_of_scope_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -262,3 +261,43 @@ def test_cli_trains_pangu_on_cpu_without_jax(tmp_path):
     assert "Model pangu has" in proc.stdout and "epoch   1  train" in proc.stdout
     for kind in ("best", "last"):
         assert (tmp_path / "checkpoints" / f"pangu_{kind}.ckpt").exists()
+
+
+def test_prefetch_yields_the_same_batches_in_order():
+    """On the CPU the prefetch hands the batches through as tensors, in
+    order, the short last batch included."""
+    ds = TDataset(**_arrays(T=30))
+    want = list(ds.batches(4))
+    assert want[-1][2].shape[0] < 4  # a short last batch
+    got = list(ttr.prefetch_to_device(ds.batches(4), "cpu"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert (a is None and b is None) or np.array_equal(a.numpy(), b)
+
+
+def test_step_seconds_keep_one_entry_per_step():
+    ds = TDataset(**_arrays(T=30))
+    tt = ttr.Trainer(tswin.SwinTransformer(**CFG, seed=3), epochs=2)
+    state = tt.init()
+    sizes = [b[2].shape[0] for b in ds.batches(4)]
+    for _ in range(2):
+        tt.train_epoch(state, ds, 4)
+    assert [n for n, _ in tt.timings] == sizes * 2
+    assert all(s > 0 for _, s in tt.timings)
+
+
+def test_cli_trains_the_unet_in_bf16(tmp_path):
+    """`model=unet training.compute_dtype=bfloat16` on the CPU: finite
+    losses, and checkpoints that hold the fp32 master state."""
+    from dlwpbench_tpu_torch import train
+
+    res = train.main(["model=unet", "data=synthetic", "data.height=8", "data.width=16",
+                      "data.n_time=120", "model.hidden_channels=[4,8]",
+                      "training.compute_dtype=bfloat16", "training.epochs=1",
+                      "training.batch_size=8", "validation.batch_size=4",
+                      "validation.sequence_length=3", f"run_dir={tmp_path}", "--device", "cpu"])
+    assert np.isfinite(res["train_loss"] + res["val_loss"]).all()
+    assert res["state"].model.GeoConv_0.Conv_0.weight.dtype == torch.float32
+    payload = torch.load(tmp_path / "checkpoints" / "unet_last.ckpt", weights_only=True)
+    assert {t.dtype for t in payload["model"].values()} == {torch.float32}
