@@ -80,6 +80,20 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      training-step attention launch on the kernels' bf16 instances;
      card-vs-CPU bf16 gradients of the Swin and Pangu; a profiler
      breakdown of Pangu's bf16 step with the GEMMs' share;
+   - the zarr path, in a temporary working directory: a WeatherBench-layout
+     zarr tree written with the port's `zarr_lite` (32x64, 1979-1981,
+     6-hourly from 05:00 UTC, `configs/data/weatherbench.yaml`'s 8 + 1 + 4
+     channels, time chunked and zlib-compressed); `build_datasets` timed
+     (set-up seconds, MB/s, the native decoder's chunks) and the native
+     batcher against per-item numpy stacking on the same batches; `python
+     -m dlwpbench_tpu_torch.train model=swintransformer data=weatherbench
+     data.timedelta=1 data.timedelta_hours=6 training.epochs=1` (every
+     flash launch on the mma designs), its s per step, busy share and
+     batch-building ms beside the synthetic Swin train path's; `python -m
+     dlwpbench_tpu_torch.build_baselines -c RUN_DIR`; `python -m
+     dlwpbench_tpu_torch.evaluate -c RUN_DIR --batch-size 32` (ACC finite,
+     the files written, flash forwards as the routing rule counts them);
+     the restored checkpoint's rollout on the card against the CPU;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -1105,26 +1119,32 @@ def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: in
           "Frobenius curves finite")
 
 
-def check_rollout_vs_cpu(cfg):
-    """The same full-width model on 2 samples x 2 steps: card (kernels) vs
-    CPU (plain)."""
+def check_rollout_vs_cpu(cfg, weights=None, test_ds=None):
+    """The same full-width model (seeded, or with `weights`, a state dict)
+    on 2 samples x 2 steps of the test split (`test_ds`, or built from
+    `cfg`): card (kernels) vs CPU (plain)."""
     import torch
 
     from dlwpbench_tpu_torch.data.sources import build_datasets
     from dlwpbench_tpu_torch.models import registry
 
-    cfg.testing["sequence_length"] = 3
-    _, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
-                                      int(cfg.model.context_size))
+    if test_ds is None:
+        cfg.testing["sequence_length"] = 3
+        _, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                                          int(cfg.model.context_size))
+    test_ds.sequence_length = 3
     const, pres, prog, _ = next(test_ds.batches(2))
     model = registry.build_model(cfg.model, seed=int(cfg.seed)).eval()
+    if weights is not None:
+        model.load_state_dict(weights)
     args = [torch.from_numpy(a) for a in (const, pres, prog)]
     with torch.no_grad():
         ref = model(*args)
         got = model.to("cuda")(*[a.cuda() for a in args]).cpu()
     err = (got - ref).abs().max().item()
     tol = 1e-3  # fp32, two closed-loop steps of 8 blocks; other summation orders
-    print(f"reference: full-width {cfg.model.name}, 2 samples x 2 steps, card vs CPU max|diff| "
+    print(f"reference: full-width {cfg.model.name} ({'restored' if weights is not None else 'seeded'} "
+          f"weights), 2 samples x 2 steps, card vs CPU max|diff| "
           f"{err:.3e} (tol {tol:.0e}, |ref| max {ref.abs().max().item():.3f})")
     if not err <= tol:
         raise SystemExit("the card's rollout disagrees with the CPU reference")
@@ -1191,7 +1211,10 @@ SWIN8_TRAIN_ARGV = ["model=swintransformer", "model.window_size=[8,8]",
                     "model.use_flash_attention=null", *TRAIN_TAIL, "training.epochs=1"]
 
 
-def run_train_path(label: str, argv: list, run_dir: str, card: str):
+def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=None):
+    """The train CLI on `argv`; `datasets` (train, val), when given, are
+    the splits the CLI builds, already built (the expected launches are
+    counted from them)."""
     import numpy as np
     import torch
 
@@ -1202,8 +1225,9 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str):
 
     cfg = load_config(cli.CONFIG_DIR, overrides=argv)
     ctx = int(cfg.model.context_size)
-    train_ds, val_ds, _, _ = build_datasets(cfg.data, cfg.training, cfg.validation,
-                                            cfg.testing, ctx)
+    if datasets is None:
+        datasets = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing, ctx)[:2]
+    train_ds, val_ds = datasets
     epochs, bs, vbs = int(cfg.training.epochs), int(cfg.training.batch_size), int(cfg.validation.batch_size)
     steps, val_steps = int(cfg.training.sequence_length) - ctx, int(cfg.validation.sequence_length) - ctx
     train_bs, val_bs = _batch_sizes(len(train_ds), bs), _batch_sizes(len(val_ds), vbs)
@@ -1662,6 +1686,336 @@ def compare_prefetch(cfg, train_ds, card: str):
     return dict(results=results, launches=launches)
 
 
+# ---------------------------------------------------------------- the zarr path
+# A WeatherBench-layout zarr tree at the real 5.625-degree grid (32 x 64)
+# with `configs/data/weatherbench.yaml`'s roles: 8 prognostic channels (t
+# at 850 hPa, t2m, u10, v10, z at 300, 500, 700 and 1000 hPa), tisr
+# prescribed, 4 constants.  One store per variable and year, 1979-1981, CF
+# time 6-hourly from 05:00 UTC (so the test split's biweekly 11:00 UTC
+# inits engage), time chunked in 8-day blocks and zlib-compressed (the
+# native decoder reads every multi-chunk array).  Cut from WeatherBench:
+# hourly data at `timedelta: 6` over 36 training years becomes 6-hourly
+# data at `timedelta: 1` over 3 years.
+ZARR_YEARS = (1979, 1980, 1981)
+ZARR_CHUNK_FRAMES = 32
+ZARR_SPLITS = ["data.train_start_date=1979-01-02", "data.train_stop_date=1980-06-30",
+               "data.val_start_date=1980-07-01", "data.val_stop_date=1980-12-31",
+               "data.test_start_date=1981-01-01", "data.test_stop_date=1981-12-31",
+               "data.timedelta=1", "data.timedelta_hours=6"]
+# (variable, its directory's name too; levels or None; per level: offset,
+# pole-equator contrast, the random walk's std, the seasonal amplitude)
+ZARR_VARIABLES = (
+    ("t", [850], [(275.0, -30.0, 3.0, 8.0)]),
+    ("t2m", None, [(278.0, -40.0, 4.0, 12.0)]),
+    ("u10", None, [(0.0, 0.0, 4.0, 0.0)]),
+    ("v10", None, [(0.0, 0.0, 3.0, 0.0)]),
+    ("z", [300, 500, 700, 1000], [(89000.0, -5000.0, 800.0, 600.0),
+                                  (55000.0, -3000.0, 500.0, 400.0),
+                                  (29000.0, -1500.0, 300.0, 200.0),
+                                  (1000.0, -500.0, 200.0, 100.0)]),
+)
+ZARR_AR = 0.97  # the walk's persistence per 6 h (decorrelates in about 8 days)
+
+
+def write_zarr_store(root: str, seed: int = 2024) -> int:
+    """Write the tree under `root` with the port's `zarr_lite` (smooth
+    mean-reverting random walks from `seed` over a seasonal cycle, in
+    physical units; tisr a daily cycle in [0, 1], the HALF_MANUAL table's
+    scale); returns its raw bytes."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.data import zarr_lite
+    from dlwpbench_tpu_torch.grids.latlon import LatLonGrid
+
+    grid = LatLonGrid(32, 64)
+    lat, lon = grid.lats.astype(np.float32), grid.lons.astype(np.float32)
+    rng = np.random.default_rng(seed)
+    epoch = np.datetime64("1979-01-01T00:00")
+    times, hours = [], []
+    for year in ZARR_YEARS:
+        t = np.arange(np.datetime64(f"{year}-01-01T05:00"), np.datetime64(f"{year + 1}-01-01"),
+                      np.timedelta64(6, "h"))
+        times.append(t)
+        hours.append(((t - epoch) // np.timedelta64(1, "h")).astype(np.int64))
+    t_all = np.concatenate(times)
+    n_time = len(t_all)
+    sin_lat = np.sin(np.deg2rad(lat))[:, None].astype(np.float32)
+    day = (t_all - t_all.astype("datetime64[Y]")).astype("timedelta64[h]").astype(np.float32) / 24
+    season = np.cos(2 * np.pi * (day - 196.0) / 365.25).astype(np.float32)  # +1 in mid July
+
+    def smooth(x):  # 3-point box filter over lat and lon
+        for ax in (-2, -1):
+            x = (x + np.roll(x, 1, ax) + np.roll(x, -1, ax)) / 3.0
+        return x
+
+    def walk(offset, contrast, std, amp):
+        """[T, 32, 64]: offset + contrast sin^2(lat) + amp sin(lat) season
+        + an AR(1) walk of stationary std `std` (the box filter takes about
+        2/3 of the noise's std; the factor 3 gives it back)."""
+        noise = smooth(rng.standard_normal((n_time, 32, 64), dtype=np.float32))
+        noise *= np.float32(3 * std * np.sqrt(1 - ZARR_AR ** 2))
+        x = np.zeros((32, 64), np.float32)
+        for i in range(n_time):
+            x = np.float32(ZARR_AR) * x + noise[i]
+            noise[i] = x
+        return (offset + contrast * sin_lat ** 2 + amp * sin_lat * season[:, None, None]
+                + noise).astype(np.float32)
+
+    fields = {(var, var): np.stack([walk(*spec) for spec in specs], axis=1)
+              for var, _, specs in ZARR_VARIABLES}  # [T, level, 32, 64]
+    hour = (t_all - t_all.astype("datetime64[D]")).astype("timedelta64[h]").astype(np.float32)
+    phase = 2 * np.pi * (hour[:, None] / 24.0 + lon[None, :] / 360.0)  # [T, lon]
+    fields[("toa_incident_solar_radiation", "tisr")] = np.maximum(
+        np.cos(np.deg2rad(lat))[None, None, :, None] * np.cos(phase)[:, None, None, :], 0
+    ).astype(np.float32)
+
+    time_attrs = {"units": "hours since 1979-01-01 00:00:00", "calendar": "proleptic_gregorian"}
+    compressor = {"id": "zlib", "level": 1}
+    levels_of = {var: levels for var, levels, _ in ZARR_VARIABLES}
+    jobs = []
+    for (dirname, var), data in fields.items():
+        lo = 0
+        for year, t in zip(ZARR_YEARS, hours):
+            store = os.path.join(root, dirname, f"{var}_{year}_5.625deg.zarr")
+            coords = {"time": (("time",), t, time_attrs), "lat": (("lat",), lat),
+                      "lon": (("lon",), lon)}
+            if levels_of.get(var):
+                coords["level"] = (("level",), np.asarray(levels_of[var], np.int64))
+                dims, arr = ("time", "level", "lat", "lon"), data[lo:lo + len(t)]
+            else:
+                dims, arr = ("time", "lat", "lon"), data[lo:lo + len(t), 0]
+            zarr_lite.write_dataset(store, {}, coords)
+            jobs.append((os.path.join(store, var), arr, dims))
+            lo += len(t)
+    oro = np.maximum(smooth(smooth(rng.standard_normal((32, 64), dtype=np.float32))) * 2000.0, 0)
+    consts = {"orography": oro.astype(np.float32), "lsm": (oro > 0).astype(np.float32),
+              "lat2d": np.broadcast_to(lat[:, None], (32, 64)).astype(np.float32),
+              "lon2d": np.broadcast_to(lon[None, :], (32, 64)).astype(np.float32)}
+    zarr_lite.write_dataset(os.path.join(root, "constants", "constants_5.625deg.zarr"),
+                            {k: (("lat", "lon"), v) for k, v in consts.items()},
+                            {"lat": (("lat",), lat), "lon": (("lon",), lon)})
+
+    def write(job):
+        path, arr, dims = job
+        zarr_lite.write_array(path, arr, dims, chunks=(ZARR_CHUNK_FRAMES, *arr.shape[1:]),
+                              compressor=compressor)
+        return arr.nbytes
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:  # zlib drops the GIL
+        raw = sum(pool.map(write, jobs))
+    return raw + sum(v.nbytes for v in consts.values())
+
+
+def _count_decoder():
+    """Wrap the native decoder to count its chunks and seconds; returns
+    (counts, undo)."""
+    from dlwpbench_tpu_torch.data import native
+
+    real, counts = native.decode_chunks, {"chunks": 0, "calls": 0, "seconds": 0.0}
+
+    def counted(paths, *a, **k):
+        t0 = time.perf_counter()
+        out = real(paths, *a, **k)
+        counts["seconds"] += time.perf_counter() - t0
+        counts["chunks"] += len(paths)
+        counts["calls"] += 1
+        return out
+
+    native.decode_chunks = counted
+
+    def undo():
+        native.decode_chunks = real
+
+    return counts, undo
+
+
+def time_data_layer(argv: list, raw_bytes: int, card: str):
+    """`build_datasets` on the store (set-up seconds, MB/s, the decoder's
+    chunks), then the native batcher against the per-item numpy stacking
+    on the same training windows at batch 32."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data import native
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=argv)
+    counts, undo = _count_decoder()
+    try:
+        t0 = time.perf_counter()
+        splits = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                                int(cfg.model.context_size))
+        setup_s = time.perf_counter() - t0
+    finally:
+        undo()
+    train_ds, val_ds, test_ds, _ = splits
+    mb = raw_bytes / 1e6
+    print(f"zarr data: build_datasets {setup_s:.2f} s for {mb:.1f} MB raw ({mb / setup_s:.1f} "
+          f"MB/s, normalisation and splits included); the native decoder read "
+          f"{counts['chunks']} chunks in {counts['calls']} calls, {counts['seconds']:.2f} s "
+          f"({mb / counts['seconds']:.1f} MB/s); splits train {train_ds.prognostic.shape} "
+          f"val {val_ds.prognostic.shape} test {test_ds.prognostic.shape}, {len(test_ds)} "
+          f"test inits [{card}]")
+    if counts["chunks"] == 0 or test_ds.init_indices is None:
+        raise SystemExit("zarr data: the native decoder read nothing or no test inits")
+
+    bs = int(cfg.training.batch_size)
+    order = np.random.default_rng(0).permutation(len(train_ds))
+    groups = [order[i:i + bs] for i in range(0, len(order) - bs + 1, bs)]
+    times = {"native": 0.0, "numpy": 0.0}
+    for idxs in groups:
+        starts = np.asarray([train_ds.window_start(j) for j in idxs], np.int64)
+        t0 = time.perf_counter()
+        fast = train_ds._batch_native(starts)
+        times["native"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slow = train_ds._batch_items(idxs)
+        times["numpy"] += time.perf_counter() - t0
+        if any(not np.array_equal(a, b) for a, b in zip(fast, slow)):
+            raise SystemExit("zarr data: the native batch differs from the per-item one")
+    ms = {k: 1e3 * v / len(groups) for k, v in times.items()}
+    print(f"zarr data: a training batch of {bs} windows x {train_ds.sequence_length + 1} "
+          f"frames: native batcher {ms['native']:.3f} ms, per-item numpy stacking "
+          f"{ms['numpy']:.3f} ms ({ms['numpy'] / ms['native']:.2f}x), over {len(groups)} "
+          f"shuffled batches, equal bit for bit [{card}]")
+    # the gather alone, on the batcher's 4 threads and on 1
+    for threads in (native.BATCH_THREADS, 1):
+        t0 = time.perf_counter()
+        for idxs in groups:
+            starts = np.asarray([train_ds.window_start(j) for j in idxs], np.int64)
+            native.assemble_windows(train_ds.prognostic, starts, train_ds.sequence_length + 1,
+                                    n_threads=threads)
+        ms[f"gather_{threads}"] = 1e3 * (time.perf_counter() - t0) / len(groups)
+    print(f"zarr data: the prognostic gather alone (assemble_windows, 8 MB a batch): "
+          f"{ms[f'gather_{native.BATCH_THREADS}']:.3f} ms on {native.BATCH_THREADS} threads, "
+          f"{ms['gather_1']:.3f} ms on 1 [{card}]")
+    return dict(setup_s=setup_s, mb=mb, decoder=counts, batch_ms=ms), cfg, splits
+
+
+def batch_build_ms(ds, bs: int) -> float:
+    """Host ms to build one shuffled training batch (an epoch's worth)."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in ds.batches(bs, shuffle=True))
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def epoch_busy(cfg, train_ds):
+    """One training epoch of the model under the profiler: (device time,
+    kernels and copies, per step in ms; its share of the epoch's step
+    seconds), or (None, None) when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.trainer import Trainer
+
+    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
+                      weight_decay=float(cfg.training.optimizer_weight_decay), epochs=100)
+    state = trainer.init()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(state, train_ds, int(cfg.training.batch_size))
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+    if not dev_us:
+        return None, None
+    return dev_us / 1e3 / len(trainer.timings), dev_us / 1e6 / sum(t for _, t in trainer.timings)
+
+
+def run_zarr_path(card: str, synthetic):
+    """The phase "zarr path", in a temporary working directory (the
+    baselines and the evaluator's climatology live under `./outputs/`):
+    write the store, time the data layer, train the shipped Swin 1 epoch
+    on it through the train CLI, build the baselines, evaluate the run's
+    best checkpoint with ACC through `evaluate -c`, and hold the card's
+    rollout of the checkpoint against the CPU's.  `synthetic` is the
+    synthetic Swin train path's (results, cfg, train_ds) of this run."""
+    import numpy as np
+    import torch
+
+    from dlwpbench_tpu_torch import build_baselines, evaluate as eval_cli
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.trainer import checkpoint_path
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zarr_") as work:
+        os.chdir(work)
+        try:
+            root = os.path.join(work, "wb_zarr")
+            t0 = time.perf_counter()
+            raw = write_zarr_store(root)
+            print(f"zarr store: {raw / 1e6:.1f} MB raw, years {list(ZARR_YEARS)}, 32 x 64, "
+                  f"written in {time.perf_counter() - t0:.2f} s [{card}]")
+            data_argv = ["data=weatherbench", f"data.data_path={root}", *ZARR_SPLITS]
+            argv = ["model=swintransformer", *data_argv, "training.epochs=1"]
+            data, cfg, (train_ds, val_ds, test_ds, _) = time_data_layer(argv, raw, card)
+
+            run_dir = os.path.join(work, "runs", "swin")
+            train, _, _ = run_train_path("zarr train", argv, run_dir, card,
+                                         datasets=(train_ds, val_ds))
+            syn, scfg, sds = synthetic
+            bs = int(cfg.training.batch_size)
+            for label, res, rcfg, ds in (("synthetic", syn, scfg, sds),
+                                         ("zarr", train, cfg, train_ds)):
+                dev_ms, busy = epoch_busy(rcfg, ds)
+                res["device_ms"], res["busy"] = dev_ms, busy
+                res["batch_build_ms"] = batch_build_ms(ds, bs)
+                print(f"zarr path, Swin train on {label} data: {res['seconds_per_step']:.4f} s "
+                      f"per step at batch {bs}; device "
+                      + ("not measured" if dev_ms is None else
+                         f"{dev_ms:.2f} ms a step, busy {100 * busy:.1f}% of the steps' "
+                         f"seconds (one more epoch under the profiler, its short last "
+                         f"batch included)")
+                      + f"; the host builds a batch in {res['batch_build_ms']:.3f} ms [{card}]")
+
+            t0 = time.perf_counter()
+            base = build_baselines.main(["-c", run_dir])
+            print(f"zarr baselines: build_baselines -c in {time.perf_counter() - t0:.2f} s; "
+                  f"RMSE z500 at the last lead: persistence "
+                  f"{base['persistence']['rmse']['z500'][-1]:.2f}, climatology "
+                  f"{base['climatology']['rmse']['z500'][-1]:.2f} [{card}]")
+
+            counters = counters_of()
+            reset_counters(counters)
+            t0 = time.perf_counter()
+            res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--device", "cuda"])["swin"]
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            model = registry.build_model(cfg.model)  # its geometry only, for the routing rule
+            steps = 16
+            want = expected_launches(model, counters,
+                                     [(n, steps, 1) for n, _ in res["batch_seconds"]])
+            print(f"zarr evaluate -c: {len(res['batch_seconds'])} batches of "
+                  f"{[n for n, _ in res['batch_seconds']]} x {steps} steps, {wall:.1f} s wall; "
+                  f"steady-state {res['gridpoints_per_s']:.1f} grid-points/s [{card}]")
+            print(f"zarr evaluate launches {launches} (the routing rule wants {want})")
+            check_launches("zarr evaluate", model, launches, want)
+            fused = check_fused("zarr evaluate", counters, launches)
+            acc = np.array([res["acc"][v] for v in res["variables"]])
+            out_dir = os.path.join(run_dir, "evaluation")
+            missing = [f for f in ("inits.nc", "outputs.nc", "targets.nc", "rmses.nc",
+                                   "accs.nc", "metrics.json") if not os.path.exists(
+                                       os.path.join(out_dir, f))]
+            if not np.isfinite(acc).all() or missing:
+                raise SystemExit(f"zarr evaluate: ACC finite {np.isfinite(acc).all()}, "
+                                 f"missing files {missing}")
+            print(f"zarr evaluate: ACC z500 per lead {np.round(res['acc']['z500'], 4).tolist()}, "
+                  f"RMSE z500 {np.round(res['rmse']['z500'], 2).tolist()}; every ACC finite; "
+                  f"forecast, rmses.nc and accs.nc files written")
+            weights = torch.load(checkpoint_path(run_dir, cfg.model.name, "best"),
+                                 map_location="cpu", weights_only=True)["model"]
+            check_rollout_vs_cpu(cfg, weights=weights, test_ds=test_ds)
+        finally:
+            os.chdir(cwd)
+    print(f"zarr path: {time.perf_counter() - t_phase:.1f} s for the phase [{card}]")
+    return dict(data=data, train=train, eval_launches=launches, eval_fused=fused,
+                gridpoints_per_s=res["gridpoints_per_s"])
+
+
 # ---------------------------------------------------------------- the packed path
 PACKED_STEPS = 3
 
@@ -1844,6 +2198,13 @@ def main() -> int:
               f"{b['seconds_per_step']:.4f} s per step ({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), "
               f"{a['samples_per_s']:.2f} against {b['samples_per_s']:.2f} samples/s, peak "
               f"{a['peak_gib']:.2f} against {b['peak_gib']:.2f} GiB [{card}]")
+
+    # the real-data path: the WeatherBench zarr tree, the native batcher and
+    # decoder, the Swin trained and evaluated with ACC against the baselines
+    zarr = run_zarr_path(card, (train, tcfg, train_ds))
+    train_runs["zarr_train"] = zarr["train"]
+    paths["zarr_train"], fused_by_path["zarr_train"] = zarr["train"]["launches"], zarr["train"]["fused"]
+    paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = zarr["eval_launches"], zarr["eval_fused"]
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'

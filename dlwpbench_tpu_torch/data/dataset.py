@@ -9,12 +9,17 @@ semantics (reference `data/datasets/datasets.py`):
 - non-overlapping windows of `sequence_length` starting at
   `item * sequence_length`, or explicit init indices;
 - `target = prognostic[1:]`, returned from `context_size` on;
+- input noise on the prognostic inputs;
+- per-frame valid `times` where the source has a calendar,
+  `target_frame_indices` and `compute_statistics`;
 - the biweekly Monday/Thursday 11:00 UTC init-date rule.
 
-Batches are stacked per item in numpy (`batches`, optionally shuffled
-with the JAX package's permutation); the evaluator and the trainer move
-each batch to the device.  The JAX package's native C++ batcher is not
-ported yet.
+`batches` gathers a batch's windows with the native C++ batcher
+(`data/native.py`, `src/native/window_batcher.cpp`) and adds its fused
+noise, as the JAX package does, so batches (noise included) equal the JAX
+package's bit for bit; windows past the data end take the per-item numpy
+path (zero fill).  The evaluator and the trainer move each batch to the
+device.
 """
 
 from __future__ import annotations
@@ -60,6 +65,10 @@ class WindowedWeatherDataset:
     noise: float = 0.0
     init_indices: Sequence[int] | None = None
     seed: int = 0
+    # per-frame datetime64 valid times (len == prognostic frames), from
+    # sources with a real calendar: the monthly climatology stratifies by
+    # them; not part of the batch tuple
+    times: np.ndarray | None = None
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -82,6 +91,14 @@ class WindowedWeatherDataset:
         if self.init_indices is None:
             return item * self.sequence_length
         return int(self.init_indices[item])
+
+    def target_frame_indices(self, item: int) -> np.ndarray:
+        """Frame indices of the target steps `item` yields, clamped to the
+        data end for zero-filled long rollouts (consumers index `times`
+        with these)."""
+        start = self.window_start(item)
+        idx = np.arange(start + 1 + self.context_size, start + self.sequence_length + 1)
+        return np.minimum(idx, self.prognostic.shape[0] - 1)
 
     def __getitem__(self, item: int):
         start = self.window_start(item)
@@ -116,23 +133,71 @@ class WindowedWeatherDataset:
             self.context_size :
         ].astype(np.float32)
 
+    def compute_statistics(self) -> dict:
+        """Per-channel mean/std/min/max over the split (reference
+        `datasets.py:419-453`)."""
+        out = {}
+        for role, arr in (("prognostic", self.prognostic), ("prescribed", self.prescribed),
+                          ("constants", self.constants)):
+            if arr is None:
+                continue
+            c_axis = 1 if arr.ndim >= 4 else 0
+            axes = tuple(i for i in range(arr.ndim) if i != c_axis)
+            out[role] = {
+                "mean": np.nanmean(arr, axis=axes).tolist(),
+                "std": np.nanstd(arr, axis=axes).tolist(),
+                "min": np.nanmin(arr, axis=axes).tolist(),
+                "max": np.nanmax(arr, axis=axes).tolist(),
+            }
+        return out
+
     def batches(self, batch_size: int, shuffle: bool = False) -> Iterator[tuple]:
         """Yield (constants, prescribed, prognostic, target) numpy arrays
         with a leading batch dim (the last batch may be short).
 
         `shuffle` permutes the windows with the dataset's own generator
-        (`np.random.default_rng(seed)`), so epoch after epoch the order
-        matches the JAX package's index for index."""
+        (`np.random.default_rng(seed)`); each native batch with noise then
+        draws its noise seed from the same generator, so epoch after epoch
+        the order and the noise match the JAX package's."""
         order = np.arange(len(self))
         if shuffle:
             self._rng.shuffle(order)
         for i in range(0, len(order), batch_size):
-            items = [self[j] for j in order[i : i + batch_size]]
-            const = None if items[0][0] is None else np.stack([it[0] for it in items])
-            pres = None if items[0][1] is None else np.stack([it[1] for it in items])
-            prog = np.stack([it[2] for it in items])
-            tar = np.stack([it[3] for it in items])
-            yield const, pres, prog, tar
+            idxs = order[i : i + batch_size]
+            starts = np.asarray([self.window_start(j) for j in idxs], np.int64)
+            if (starts + self.sequence_length + 1 > self.prognostic.shape[0]).any():
+                yield self._batch_items(idxs)  # zero-fill past the data end
+            else:
+                yield self._batch_native(starts)
+
+    def _batch_items(self, idxs: np.ndarray) -> tuple:
+        """A batch stacked item by item in numpy."""
+        items = [self[j] for j in idxs]
+        const = None if items[0][0] is None else np.stack([it[0] for it in items])
+        pres = None if items[0][1] is None else np.stack([it[1] for it in items])
+        return const, pres, np.stack([it[2] for it in items]), np.stack([it[3] for it in items])
+
+    def _batch_native(self, starts: np.ndarray) -> tuple:
+        """A batch of the windows at `starts` (all inside the data),
+        gathered by the native batcher, with its fused noise seeded from the
+        dataset's generator."""
+        from dlwpbench_tpu_torch.data import native
+
+        seq = self.sequence_length
+        prog_full = native.assemble_windows(self.prognostic, starts, seq + 1)
+        target = prog_full[:, 1:]
+        prog = np.ascontiguousarray(prog_full[:, :-1])
+        if self.noise:
+            native.add_gaussian_noise(prog, float(self.noise), int(self._rng.integers(2**62)))
+        pres = (
+            None if self.prescribed is None
+            else native.assemble_windows(self.prescribed, starts, seq)
+        )
+        const = (
+            None if self.constants is None
+            else np.broadcast_to(self.constants[None], (len(starts), *self.constants.shape)).copy()
+        )
+        return const, pres, prog, np.ascontiguousarray(target[:, self.context_size :])
 
 
 def biweekly_init_indices(

@@ -1,18 +1,32 @@
-"""Evaluation CLI of the port (counterpart of `scripts/evaluate.py`):
+"""Evaluation CLI of the port (counterpart of `scripts/evaluate.py`), in
+two modes:
+
+    python -m dlwpbench_tpu_torch.evaluate -c RUN_DIR [RUN_DIR ...] \
+        [--batch-size 8] [--sequence-length 17] [--device cuda]
 
     python -m dlwpbench_tpu_torch.evaluate model=swintransformer data=synthetic \
         [key=value ...] [--weights W.npz] [--batch-size 8] [--sequence-length 17] \
         [--out-dir D] [--device cuda]
 
-Composes `configs/` with Hydra-style overrides, builds the model (weights
-from `--weights`, an `.npz` of the flax parameter tree with `/`-joined
-keys, or a seeded random init from the config's `seed`), rolls it out in
-fp32 with no gradients over the test split, de-normalises, and writes
-`inits/outputs/targets.nc`, `rmses.nc` and `metrics.json` under
-`--out-dir` (default `<run_dir>/evaluation`).  ACC is computed when
-`outputs/climatology/evaluation/outputs.npz` exists and fits the forecast.
-Prints the first variable's RMSE per lead and the rollout's steady-state
-grid-points/s (batches after the first, host copies included).
+With `-c`, each run directory that `python -m dlwpbench_tpu_torch.train`
+wrote is evaluated: its saved `config.yaml` builds the model and the data,
+and the model's weights come from `checkpoints/<name>_best.ckpt`; the
+files go to `RUN_DIR/evaluation`.  With overrides, `configs/` is composed
+Hydra-style and the model's weights come from `--weights` (an `.npz` of
+the flax parameter tree with `/`-joined keys) or a seeded random init from
+the config's `seed`; the files go to `--out-dir` (default
+`<run_dir>/evaluation`).
+
+Either way the model rolls out in fp32 with no gradients over the test
+split on `--device`, the forecasts are de-normalised, and
+`inits/outputs/targets.nc`, `rmses.nc` and `metrics.json` are written; ACC
+(`accs.nc`, `rmses_climatology.nc`) is computed when
+`outputs/climatology/evaluation/outputs.npz` (written by
+`python -m dlwpbench_tpu_torch.build_baselines`) exists under the working
+directory and fits the forecast.  Prints the first variable's RMSE per lead
+and the rollout's steady-state grid-points/s (batches after the first,
+host copies included).  The JAX CLI's RMSE comparison plot and `--video`
+are not ported yet (ROADMAP queue A, item 6).
 """
 
 from __future__ import annotations
@@ -28,7 +42,8 @@ from dlwpbench_tpu_torch.data.sources import build_datasets
 from dlwpbench_tpu_torch.evaluation import evaluate as E
 from dlwpbench_tpu_torch.grids.latlon import LatLonGrid
 from dlwpbench_tpu_torch.models import registry
-from dlwpbench_tpu_torch.training.config import load_config
+from dlwpbench_tpu_torch.training.config import load_config, load_saved_config
+from dlwpbench_tpu_torch.training.trainer import Trainer, load_checkpoint
 
 CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs"
@@ -54,26 +69,21 @@ def _climatology(outputs: np.ndarray):
     return None
 
 
-def evaluate(overrides: list[str], weights: str | None = None, batch_size: int = 8,
-             sequence_length: int = 17, out_dir: str | None = None,
-             device: str = "cuda") -> dict:
-    """Run the evaluation; returns the metrics dict plus `gridpoints_per_s`
-    (None with a single batch) and `device`."""
-    dev = resolve_device(device)
-    # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
+def _no_tf32():
+    """fp32 means fp32: no TF32 in matmuls or cuDNN convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = load_config(CONFIG_DIR, overrides=overrides)
-    cfg.testing["sequence_length"] = sequence_length
-    ctx = int(cfg.model.context_size)
-    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)))
-    if weights:
-        W.load_flax_params(model, W.load_npz(weights))
-    model = model.to(dev).eval()
 
+def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: str) -> dict:
+    """Roll `model` (on its device) over the test split of `cfg`,
+    de-normalise, write the forecast files and the metrics under out_dir;
+    returns the metrics dict plus `gridpoints_per_s` (None with a single
+    batch), `device` and `batch_seconds`."""
+    dev = next(model.parameters()).device
+    cfg.testing["sequence_length"] = sequence_length
     _, _, test_ds, stats = build_datasets(
-        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx
+        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), int(cfg.model.context_size)
     )
     test_ds.sequence_length = sequence_length
     if len(test_ds) == 0:
@@ -83,7 +93,7 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
         )
 
     timings: list = []
-    inits, outputs, targets = E.rollout_dataset(model, test_ds, batch_size, timings)
+    inits, outputs, targets = E.rollout_dataset(model.eval(), test_ds, batch_size, timings)
     print(f"Rollout: {outputs.shape} on {dev}")
 
     var_names = E.prognostic_channel_names(cfg.data, outputs.shape[2])
@@ -93,7 +103,6 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
         inits = E.denormalize(inits, stats, var_names, channel_axis=1)
 
     grid = LatLonGrid(*outputs.shape[-2:])
-    out_dir = out_dir or os.path.join(cfg.run_dir, "evaluation")
     E.write_forecast_files(out_dir, inits, outputs, targets, var_names, grid.lats, grid.lons)
     results = E.compute_metrics(
         outputs, targets, grid.lats, var_names, out_dir,
@@ -117,20 +126,68 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
             "batch_seconds": timings}
 
 
+def evaluate(overrides: list[str], weights: str | None = None, batch_size: int = 8,
+             sequence_length: int = 17, out_dir: str | None = None,
+             device: str = "cuda") -> dict:
+    """Evaluate a model composed from `configs/` and overrides; returns
+    what `_evaluate_model` returns."""
+    dev = resolve_device(device)
+    _no_tf32()
+    cfg = load_config(CONFIG_DIR, overrides=overrides)
+    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)))
+    if weights:
+        W.load_flax_params(model, W.load_npz(weights))
+    return _evaluate_model(cfg, model.to(dev), batch_size, sequence_length,
+                           out_dir or os.path.join(cfg.run_dir, "evaluation"))
+
+
+def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
+                 device: str = "cuda") -> dict:
+    """Evaluate the best checkpoint of a training run into
+    `run_dir/evaluation`; returns what `_evaluate_model` returns."""
+    dev = resolve_device(device)
+    _no_tf32()
+    cfg = load_saved_config(run_dir)
+    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0))).to(dev)
+    # the optimizer is built only so that load_checkpoint can restore into it
+    trainer = Trainer(model, training_type=str(cfg.training.get("type", "regular")))
+    state = load_checkpoint(run_dir, cfg.model.name, trainer.init(), kind="best")
+    print(f"Restored {cfg.model.name} from {run_dir} (epoch {state.epoch})")
+    return _evaluate_model(cfg, model, batch_size, sequence_length,
+                           os.path.join(run_dir, "evaluation"))
+
+
 def main(argv=None) -> dict:
+    """With `-c`, returns {run name: results} (the run directory's base
+    name); else the results of the composed config."""
     ap = argparse.ArgumentParser(prog="python -m dlwpbench_tpu_torch.evaluate",
-                                 description=__doc__.split("\n\n")[0])
+                                 description=__doc__.split("\n\n")[0],
+                                 epilog="The JAX CLI's RMSE-over-time comparison plot and "
+                                        "--video are not ported yet (ROADMAP queue A, item 6).")
     ap.add_argument("overrides", nargs="*",
-                    help="config overrides: group=name or a.b.c=value")
+                    help="config overrides: group=name or a.b.c=value (without -c)")
+    ap.add_argument("-c", "--configuration-dir-list", nargs="+", default=None,
+                    metavar="RUN_DIR",
+                    help="run directories written by python -m dlwpbench_tpu_torch.train: "
+                         "evaluate each one's best checkpoint")
     ap.add_argument("--weights", default=None,
-                    help=".npz of the flax params tree ('/'-joined keys)")
+                    help=".npz of the flax params tree ('/'-joined keys; without -c)")
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--sequence-length", type=int, default=17)
-    ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--out-dir", default=None, help="without -c (default <run_dir>/evaluation)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    return evaluate(args.overrides, args.weights, args.batch_size,
-                    args.sequence_length, args.out_dir, args.device)
+    if args.configuration_dir_list is None:
+        return evaluate(args.overrides, args.weights, args.batch_size,
+                        args.sequence_length, args.out_dir, args.device)
+    if args.overrides or args.weights or args.out_dir:
+        ap.error("-c takes its config and weights from each run directory: "
+                 "no overrides, --weights or --out-dir")
+    return {
+        os.path.basename(os.path.normpath(run_dir)): evaluate_run(
+            run_dir, args.batch_size, args.sequence_length, args.device)
+        for run_dir in args.configuration_dir_list
+    }
 
 
 if __name__ == "__main__":

@@ -165,3 +165,10 @@ def to_plain(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return [to_plain(v) for v in obj]
     return obj
+
+
+def load_saved_config(run_dir: str) -> Config:
+    """Re-load the config snapshot a training run wrote into its run
+    directory (`config.yaml`; the reference's `.hydra/config.yaml`)."""
+    with open(os.path.join(run_dir, "config.yaml")) as f:
+        return _resolve_interpolations(_wrap(yaml.safe_load(f)))

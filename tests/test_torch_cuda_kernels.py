@@ -765,3 +765,39 @@ def test_prefetch_on_card_copies_in_order_without_a_sync(cuda):
         assert g[0] is None and all(t.device.type == "cuda" for t in g[1:])
         for t, a in zip(g[1:], b[1:]):
             assert np.array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_native_batches_through_the_prefetch_on_card(cuda):
+    """Shuffled, noisy batches of the native batcher (and one window past
+    the data end, on the per-item path) reach the card through the
+    prefetch equal to the host's batches from a twin dataset, bit for bit,
+    without a sync while they are staged."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset, synthetic_weatherbench
+    from dlwpbench_tpu_torch.training.trainer import prefetch_to_device
+
+    const, pres, prog = synthetic_weatherbench(n_time=300, nlat=32, nlon=64, seed=5)
+
+    def twin():
+        return WindowedWeatherDataset(prognostic=prog, constants=const, prescribed=pres,
+                                      sequence_length=3, noise=0.1, seed=9)
+
+    ds_host, ds_card = twin(), twin()
+    host = [b for _ in range(2) for b in ds_host.batches(8, shuffle=True)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tuple(None if t is None else t.clone() for t in b)
+               for _ in range(2)
+               for b in prefetch_to_device(ds_card.batches(8, shuffle=True), cuda)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ends = WindowedWeatherDataset(prognostic=prog, constants=const, prescribed=pres,
+                                  sequence_length=3, init_indices=[0, 296, 10])
+    host += list(ends.batches(3))
+    got += [tuple(t.clone() for t in b) for b in prefetch_to_device(ends.batches(3), cuda)]
+    assert len(got) == len(host) > 2
+    for g, h in zip(got, host):
+        for t, a in zip(g, h):
+            assert t.device.type == "cuda" and np.array_equal(t.cpu().numpy(), a)
