@@ -48,7 +48,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      one training step;
    - Pangu evaluate and train, the same commands with
      `model=panguweather` (the 5D window-attention kernels), with the
-     same checks; the card's gradients on the forced 5D route;
+     same checks; the card's gradients on the forced 5D route, on its
+     flash route and on its token-major route;
    - swin_win8 train: `model.window_size=[8,8]
      model.use_flash_attention=null` for 1 epoch (the token-major
      window-attention kernels), its card-vs-CPU gradients on the forced
@@ -94,6 +95,24 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      dlwpbench_tpu_torch.evaluate -c RUN_DIR --batch-size 32` (ACC finite,
      the files written, flash forwards as the routing rule counts them);
      the restored checkpoint's rollout on the card against the CPU;
+   - the HEALPix paths (`configs/data/synthetic_hpx8.yaml`, nside 8), each
+     phase's seconds printed: the U-Net's user path in a temporary working
+     directory (`train model=unet_hpx data=synthetic_hpx8` 1 epoch,
+     `build_baselines -c`, `evaluate -c`: no attention launch, the files on
+     the 8 x 8 lat-lon grid, RMSE and ACC finite); the Swin at its shipped
+     width on the faces (`model.type=SwinTransformerHPX model.mesh=healpix`:
+     evaluate, 3 batches of 32 x 16 steps, and 1 training epoch, every
+     flash launch on the mma design, card vs CPU rollout and gradients);
+     the same Swin with 8x8 windows at nside 32 (1 epoch, every launch on
+     the fused token-major kernels, card vs CPU gradients on that route);
+     each training path's s per step, grid-points/s and busy share, after
+     an epoch whose steps ran under `set_sync_debug_mode("error")`; the
+     U-Net's rollout at nside 32 (hidden 64, 128, 256, batch 32, 16 steps,
+     inputs on the card) with the HEALPix pad's share of device time beside
+     the convolutions' and concatenations', and card vs CPU; the kernel
+     checks of phase 3 include the HEALPix Swin's flash shapes (N 768 with
+     the shift bias, N 192) and its token-major shape at nside 32 (192
+     windows of 64 tokens), listed under `hpx_cases` in the `kernels` line;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -259,7 +278,14 @@ FLASH_CASES = [
     # 32: 32 x nLon 6 x nW 6 windows, the earth bias plus the shift mask, one
     # group per (lon, window)
     ("pangu stage1 flash G=36", EVAL_BATCH * 36, 6, 144, 32, 36, "pangu-shift"),
+    # the HEALPix Swin at nside 8: one global window over the 24 x 32
+    # rectangle of faces (N 768, shifted bias), and stage 1 (N 192)
+    ("hpx stage0 shifted", EVAL_BATCH, 4, 768, 24, 1, "hpx-shift"),
+    ("hpx stage1 unshifted", EVAL_BATCH, 4, 192, 48, 0, "random"),
 ]
+# the global window of each shifted-bias kind: the Swin's 32 x 64 grid and
+# the HEALPix Swin's 24 x 32 rectangle of nside-8 faces
+SHIFT_GRIDS = {"swin-shift": (32, 64), "hpx-shift": (24, 32)}
 # fp32: online versus two-pass softmax, sums in another order.  bf16: the
 # kernel rounds its fp32 result once to bf16 (half an ulp is < 4e-3 where
 # |out| < 2; the bf16 bound grows with max|out| / 2 past that, as at
@@ -275,8 +301,8 @@ def _flash_inputs(B, H, N, D, G, kind, dtype, gen):
 
     q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen) for _ in range(3))
     shape = (H, N, N) if G == 0 else (G, H, N, N)
-    if kind == "swin-shift":  # the model's own bias: table + the -100 shift mask
-        h, w = 32, 64
+    if kind in SHIFT_GRIDS:  # the model's own bias: table + the -100 shift mask
+        h, w = SHIFT_GRIDS[kind]
         table = 0.02 * torch.randn((2 * h - 1) * (2 * w - 1), H, device="cuda", generator=gen)
         groups = torch.as_tensor(shift_window_groups(h, w, h, w, h // 2, w // 2), device="cuda")
         mask = torch.where(groups[:, None, :] != groups[:, :, None], -100.0, 0.0)
@@ -383,6 +409,8 @@ FLASH_BWD_CASES = [
     ("stage1 unshifted", 32, 4, 512, 48, 0, "random"),
     ("tail N=1000 G=4", 8, 3, 1000, 32, 4, "random"),
     ("G=B N=200", 4, 2, 200, 64, 4, "random"),
+    ("hpx stage0 shifted", 32, 4, 768, 24, 1, "hpx-shift"),
+    ("hpx stage1 unshifted", 32, 4, 192, 48, 0, "random"),
 ]
 # Tolerances, as a share of max|ref| per output.  fp32: the kernel and the
 # plain version sum over up to 2048 keys and 32 members in other orders.
@@ -482,6 +510,8 @@ WINDOW_CASES = [
     ("pangu stage2 shifted", "5d", (32, 2, 18, 36, 1152), 12, (2, 6, 12), "earth", "pangu-shift"),
     ("swin8 stage0", "token-major", (32, 1, 32, 64, 288), 4, None, "swin-shared", None),
     ("swin8 stage1 shifted", "token-major", (32, 1, 8, 64, 576), 4, None, "swin-shift", None),
+    # the HEALPix Swin's 8x8 windows at nside 32 (the 96 x 128 rectangle of faces)
+    ("hpx swin8 stage0", "token-major", (32, 1, 192, 64, 288), 4, None, "swin-shared", None),
     ("L3 masked", "token-major", (4, 3, 2, 144, 96), 2, None, "random", "block"),
     ("odd N 72 hd 24", "token-major", (16, 2, 4, 72, 144), 2, None, "random", "block"),
     # just past the fused backward's region (N 144): the four-pass route
@@ -1211,6 +1241,12 @@ SWIN8_TRAIN_ARGV = ["model=swintransformer", "model.window_size=[8,8]",
                     "model.use_flash_attention=null", *TRAIN_TAIL, "training.epochs=1"]
 
 
+def grid_points(data_cfg) -> int:
+    """Points of the grid a model runs on: 12 n^2 HEALPix pixels, else H x W."""
+    nside = data_cfg.get("healpix_nside")
+    return 12 * int(nside) ** 2 if nside else int(data_cfg.height) * int(data_cfg.width)
+
+
 def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=None):
     """The train CLI on `argv`; `datasets` (train, val), when given, are
     the splits the CLI builds, already built (the expected launches are
@@ -1283,11 +1319,11 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
     full = [s for n, s in res["step_seconds"] if n == bs][1:]
     per_step = sum(full) / len(full)
     samples_s = bs / per_step
-    points = steps * int(cfg.data.height) * int(cfg.data.width)
+    points = steps * grid_points(cfg.data)
     print(f"{label}: steady-state {per_step:.4f} s per optimizer step at batch {bs} "
           f"({len(full)} full-batch steps after the first; min {min(full):.4f}, max "
           f"{max(full):.4f}), {samples_s:.2f} samples/s, {samples_s * points:.1f} "
-          f"grid-points/s (samples x {steps} steps x {cfg.data.height} x {cfg.data.width}), "
+          f"grid-points/s (samples x {steps} steps x {grid_points(cfg.data)} points), "
           f"peak device memory {peak:.2f} GiB [{card}]")
     return dict(launches=launches, fused=fused, bf16=bf16, seconds_per_step=per_step,
                 samples_per_s=samples_s,
@@ -1525,7 +1561,7 @@ def drive_unet_rollout(cfg, card: str):
 # ---------------------------------------------------------------- the prefetch
 def _copied_model_constants():
     """Patches that put back the Swin's constant tables as they were built
-    before `models.base.device_constant`: copied from pageable host memory
+    before `utils.device.device_constant`: copied from pageable host memory
     on every forward (a copy that waits for the card), the relative-position
     offsets too.  Returns the undo."""
     import torch
@@ -1551,6 +1587,28 @@ def _copied_model_constants():
         swin.device_constant, swin.expand_relative_bias = saved
 
     return undo
+
+
+def sync_free_epoch(trainer, state, train_ds, bs: int):
+    """`Trainer.train_epoch` with its steps under
+    `torch.cuda.set_sync_debug_mode("error")`, which raises on a
+    synchronising call (a pageable copy, an item read), up to the epoch's
+    one read from the card at its end."""
+    import torch
+
+    close = trainer._close_epoch
+
+    def close_after_steps(*a):  # the epoch's one read from the card
+        torch.cuda.set_sync_debug_mode("default")
+        return close(*a)
+
+    trainer._close_epoch = close_after_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_epoch(state, train_ds, bs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        trainer.__dict__.pop("_close_epoch", None)
 
 
 def compare_prefetch(cfg, train_ds, card: str):
@@ -1602,19 +1660,9 @@ def compare_prefetch(cfg, train_ds, card: str):
     def after(check_sync: bool = False):
         n0 = len(trainer.timings)
         if check_sync:
-            close = trainer._close_epoch
-
-            def close_after_steps(*a):  # the epoch's one read from the card
-                torch.cuda.set_sync_debug_mode("default")
-                return close(*a)
-
-            trainer._close_epoch = close_after_steps
-            torch.cuda.set_sync_debug_mode("error")
-        try:
+            sync_free_epoch(trainer, state, train_ds, bs)
+        else:
             trainer.train_epoch(state, train_ds, bs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            trainer.__dict__.pop("_close_epoch", None)
         return trainer.timings[n0:]
 
     def per_step(timed):
@@ -1900,10 +1948,12 @@ def batch_build_ms(ds, bs: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def epoch_busy(cfg, train_ds):
+def epoch_busy(cfg, train_ds, check_sync: bool = False):
     """One training epoch of the model under the profiler: (device time,
     kernels and copies, per step in ms; its share of the epoch's step
-    seconds), or (None, None) when the profiler sees no device time."""
+    seconds), or (None, None) when the profiler sees no device time.  With
+    `check_sync`, an epoch before it runs its steps under
+    `set_sync_debug_mode("error")` (`sync_free_epoch`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1914,6 +1964,9 @@ def epoch_busy(cfg, train_ds):
     trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
                       weight_decay=float(cfg.training.optimizer_weight_decay), epochs=100)
     state = trainer.init()
+    if check_sync:
+        sync_free_epoch(trainer, state, train_ds, int(cfg.training.batch_size))
+        trainer.timings.clear()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_epoch(state, train_ds, int(cfg.training.batch_size))
@@ -2014,6 +2067,261 @@ def run_zarr_path(card: str, synthetic):
     print(f"zarr path: {time.perf_counter() - t_phase:.1f} s for the phase [{card}]")
     return dict(data=data, train=train, eval_launches=launches, eval_fused=fused,
                 gridpoints_per_s=res["gridpoints_per_s"])
+
+
+# ---------------------------------------------------------------- the HEALPix paths
+# `configs/data/synthetic_hpx8.yaml` (the nside-8 faces of
+# `configs/data/full_hpx8.yaml`, 4 + 1 + 3 channels); data.n_time is raised
+# from 128 as on the lat-lon paths: 11 full training batches of 32 and 14
+# validation windows at 1536 (the shipped 128 frames hold no 15-frame
+# validation window), 96 biweekly test inits at 9060.  nside 32 is the
+# ladder's rung (`scripts/benchmark_ladder.py:18-24`) on the same synthetic
+# generator: 12,288 pixels a sample, the Swin's 96 x 128 rectangle.
+HPX_SWIN = ["model=swintransformer", "model.type=SwinTransformerHPX", "model.mesh=healpix"]
+HPX8_TRAIN_TAIL = ["data=synthetic_hpx8", "data.n_time=1536", "training.epochs=1"]
+NSIDE32 = ["data.healpix_nside=32", "data.height=32", "data.width=32"]
+# the U-Net's user path on the evaluate paths' record: 66 training batches
+# of 32 (a small model: more steps for its s per step) and 96 test inits,
+# three evaluate batches of 32
+HPX_UNET_TRAIN_ARGV = ["model=unet_hpx", "data=synthetic_hpx8", "data.n_time=9060",
+                       "training.epochs=1"]
+HPX_SWIN_EVAL_ARGV = [*HPX_SWIN, "data=synthetic_hpx8", "data.n_time=9060", "--batch-size", "32",
+                      "--sequence-length", "17", "--device", "cuda"]
+HPX_SWIN_TRAIN_ARGV = [*HPX_SWIN, *HPX8_TRAIN_TAIL]
+HPX_SWIN8_TRAIN_ARGV = [*HPX_SWIN, "model.window_size=[8,8]", "model.use_flash_attention=null",
+                        *HPX8_TRAIN_TAIL, *NSIDE32]
+# the ladder's unet_hpx family (`benchmark_ladder.py:24,108-110`) at nside 32;
+# 900 frames give the training split 36 windows of 17 frames
+HPX_UNET32 = ["model=unet_hpx", "model.hidden_channels=[64,128,256]", "data=synthetic_hpx8",
+              "data.n_time=900", *NSIDE32]
+
+
+def report_epoch(label: str, run: dict, cfg, train_ds, card: str):
+    """A training path's busy share: one more epoch under the profiler,
+    after an epoch whose steps run under set_sync_debug_mode("error")."""
+    dev_ms, busy = epoch_busy(cfg, train_ds, check_sync=True)
+    run["device_ms"], run["busy"] = dev_ms, busy
+    print(f"{label}: an epoch's steps ran under set_sync_debug_mode('error') and raised "
+          f"nothing; {run['seconds_per_step']:.4f} s per step, {run['gridpoints_per_s']:.1f} "
+          f"grid-points/s; device " + ("not measured" if dev_ms is None else
+                                       f"{dev_ms:.2f} ms a step, busy {100 * busy:.1f}% of the "
+                                       f"steps' seconds (one more epoch under the profiler)")
+          + f" [{card}]")
+
+
+def run_hpx_unet_path(card: str):
+    """The phase "HEALPix U-Net", the user's path, in a temporary working
+    directory (the baselines and the evaluator's climatology live under
+    `./outputs/`): `python -m dlwpbench_tpu_torch.train model=unet_hpx
+    data=synthetic_hpx8` (1 epoch, fp32) with its s per step, grid-points/s
+    and busy share; `build_baselines -c RUN_DIR`; `evaluate -c RUN_DIR`:
+    no attention launch, the forecast files on the data's 8 x 8 lat-lon
+    grid, every RMSE and ACC finite; then `python -m
+    dlwpbench_tpu_torch.remap_healpix` both ways on the forecast file's
+    first field, on the card by default, against `--device cpu`."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch import build_baselines, evaluate as eval_cli, remap_healpix
+    from dlwpbench_tpu_torch.utils import netcdf3
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hpx_unet_") as work:
+        os.chdir(work)
+        try:
+            run_dir = os.path.join(work, "runs", "unet_hpx")
+            train, cfg, train_ds = run_train_path("hpx unet train", HPX_UNET_TRAIN_ARGV, run_dir,
+                                                  card)
+            report_epoch("hpx unet train", train, cfg, train_ds, card)
+            base = build_baselines.main(["-c", run_dir])
+            counters = counters_of()
+            reset_counters(counters)
+            t0 = time.perf_counter()
+            res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--device", "cuda"])["unet_hpx"]
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            data, _ = netcdf3.read_dataset(os.path.join(run_dir, "evaluation", "outputs.nc"))
+            names = res["variables"]
+            n = sum(k for k, _ in res["batch_seconds"])
+            shapes = {v: data[v].shape for v in names}
+            rmse = np.array([res["rmse"][v] for v in names])
+            acc = np.array([res["acc"][v] for v in names])
+            print(f"hpx unet evaluate -c: {len(res['batch_seconds'])} batches of "
+                  f"{[k for k, _ in res['batch_seconds']]} x 16 steps, {wall:.1f} s wall, "
+                  f"steady-state {res['gridpoints_per_s']} grid-points/s (HEALPix pixels); "
+                  f"outputs.nc {shapes}; RMSE var0 {np.round(res['rmse']['var0'], 4).tolist()}, "
+                  f"ACC var0 {np.round(res['acc']['var0'], 4).tolist()}; persistence RMSE var0 "
+                  f"at the last lead {base['persistence']['rmse']['var0'][-1]:.4f}; attention "
+                  f"launches {launches} (none wanted) [{card}]")
+            if (any(launches.values()) or any(sh != (n, 16, 8, 8) for sh in shapes.values())
+                    or not (np.isfinite(rmse).all() and np.isfinite(acc).all())):
+                raise SystemExit(f"hpx unet evaluate -c: launches {launches}, outputs {shapes} "
+                                 f"(want ({n}, 16, 8, 8)), RMSE finite {np.isfinite(rmse).all()}, "
+                                 f"ACC finite {np.isfinite(acc).all()}")
+            check_remap_cli(remap_healpix.main, data[names[0]], work, card)
+        finally:
+            os.chdir(cwd)
+    return train, launches
+
+
+def check_remap_cli(main, field, work: str, card: str):
+    """The remap CLI's ll2hpx (nside 8) and hpx2ll (back to the field's
+    grid) with no `--device`, which is the card, against `--device cpu` on
+    the same file: relative max error at most 1e-6 (fp32, 4 taps)."""
+    import numpy as np
+
+    src = os.path.join(work, "remap_ll.npy")
+    np.save(src, np.ascontiguousarray(field, dtype=np.float32))
+    nlat, nlon = field.shape[-2:]
+    t0 = time.perf_counter()
+    got = {}
+    for dev in ([], ["--device", "cpu"]):
+        tag = dev[-1] if dev else "cuda"
+        hpx = os.path.join(work, f"remap_hpx_{tag}.npy")
+        got[tag] = (main(["ll2hpx", src, hpx, "--nside", "8", *dev]),
+                    main(["hpx2ll", hpx, os.path.join(work, f"remap_ll_{tag}.npy"),
+                          "--nlat", str(nlat), "--nlon", str(nlon), *dev]))
+    errs = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+            for a, b in zip(got["cuda"], got["cpu"])]
+    print(f"remap_healpix CLI on the card: {field.shape} -> {got['cuda'][0].shape} -> "
+          f"{got['cuda'][1].shape}, relative max error vs --device cpu {errs} (tol 1e-6), "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if not all(e <= 1e-6 for e in errs) or got["cuda"][1].shape != field.shape:
+        raise SystemExit(f"remap_healpix CLI: card vs CPU relative error {errs} (tol 1e-6)")
+
+
+def kernel_us_by_range(prof, names):
+    """({name: us of the kernels that ran inside a range of that name on
+    the card}, us of all kernels), from the device timeline alone: a range
+    (`record_function`) leaves its span there, and the rollout's kernels
+    run one after another on one stream, so each kernel falls in the
+    innermost span that holds its start.  Names without a span on the card
+    are left out.  (The profiler's per-op `device_time_total` counted some
+    kernels twice here: the ranges' shares summed past 100%.)"""
+    spans, kernels = [], []
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            (spans if e.name in names else kernels).append(e)
+    out, total = {s.name: 0.0 for s in spans}, 0.0
+    for k in kernels:
+        us = k.time_range.end - k.time_range.start
+        total += us
+        inside = [s for s in spans if s.time_range.start <= k.time_range.start < s.time_range.end]
+        if inside:
+            out[min(inside, key=lambda s: s.time_range.end - s.time_range.start).name] += us
+    return out, total
+
+
+def drive_hpx_unet_rollout(card: str):
+    """The ladder's unet_hpx family at nside 32 (hidden 64, 128, 256), one
+    batch of 32 x 16-step rollouts with the inputs on the card: ms a
+    rollout (CUDA events over 3), grid-points/s, a profile with the
+    HEALPix pad's share of device time (its gather, products and tap sum)
+    beside the conv modules' and the concatenations', from a second
+    profile with each of them under a `record_function` range; no
+    attention launch; card against CPU on 2 samples x 2 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.ops import conv as conv_mod
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=HPX_UNET32)
+    cfg.training["sequence_length"] = 17
+    train_ds = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing, 1)[0]
+    batch = next(train_ds.batches(EVAL_BATCH))
+    if batch[2].shape[0] != EVAL_BATCH:
+        raise SystemExit(f"hpx unet rollout: a batch of {batch[2].shape[0]}, want {EVAL_BATCH}")
+    model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda().eval()
+    args = [torch.from_numpy(a).cuda() for a in batch[:3]]
+    counters = counters_of()
+    reset_counters(counters)
+    points = 16 * grid_points(cfg.data)
+    pad = conv_mod.healpix_pad_channels_last
+    conv_forwards = {cls: cls.forward for cls in (torch.nn.Conv2d, torch.nn.ConvTranspose2d)}
+    cat = torch.cat
+
+    def in_range(name, fn):
+        def ranged(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return ranged
+
+    def profiled():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(*args)
+            torch.cuda.synchronize()
+        return prof, (time.perf_counter() - t0) * 1e6
+
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(*args), 3)
+        prof, wall_us = profiled()
+        # the same rollout with the pad, every conv module and every
+        # concatenation in a range
+        conv_mod.healpix_pad_channels_last = in_range("healpix_pad", pad)
+        torch.cat = in_range("concatenation", cat)
+        for cls, fwd in conv_forwards.items():
+            cls.forward = in_range("convolution", fwd)
+        try:
+            ranged, _ = profiled()
+        finally:
+            conv_mod.healpix_pad_channels_last = pad
+            torch.cat = cat
+            for cls, fwd in conv_forwards.items():
+                cls.forward = fwd
+    launches = {n: fn.launches for n, fn in counters.items()}
+    rate = EVAL_BATCH * points / (ms / 1e3)
+    print(f"hpx unet rollout nside 32: hidden {list(model.hidden_channels)}, batch {EVAL_BATCH} "
+          f"x 16 steps, inputs on the card: {ms:.3f} ms a rollout, {rate:.1f} grid-points/s "
+          f"(HEALPix pixels) [{card}]")
+    _print_profile(prof, f"unet_hpx nside 32, one rollout of batch {EVAL_BATCH} x 16 steps",
+                   wall_us, card, 10)
+    by_op, total = kernel_us_by_range(ranged, ("healpix_pad", "convolution", "concatenation"))
+    shares = {k: (v / 1e3, 100 * v / total) for k, v in by_op.items()} if total else {}
+    print("hpx unet rollout nside 32: device time by range (its kernels; healpix_pad is the "
+          "neighbour pad's gather, products and tap sum, convolution the Conv2d and "
+          "ConvTranspose2d modules, layout conversions included, concatenation every "
+          "torch.cat): " + ("; ".join(
+              f"{name} {ms_:.2f} ms = {share:.1f}%" for name, (ms_, share) in shares.items())
+              + f" of {total / 1e3:.2f} ms" if total else "not measured (no device time)")
+          + f"; attention launches {launches} (none wanted) [{card}]")
+    if any(launches.values()):
+        raise SystemExit(f"hpx unet rollout: attention launches {launches}")
+    check_rollout_vs_cpu(cfg)
+    return dict(rollout_ms=ms, gridpoints_per_s=rate, shares=shares)
+
+
+def run_hpx_swin_paths(card: str):
+    """The phases "HEALPix Swin" at the shipped width (flash route: global
+    windows over the 24 x 32 rectangle of nside-8 faces) and "HEALPix Swin,
+    8x8 windows at nside 32" (the token-major route over the 96 x 128
+    rectangle): the evaluate CLI (3 batches of 32, 16 steps) with the card
+    against the CPU; 1 training epoch each through the train CLI, every
+    launch on the new designs, their busy shares; card-vs-CPU gradients on
+    the flash and on the token-major route; a profile of one flash-route
+    training step."""
+    paths, fused = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hpx_swin_eval_") as out_dir:
+        _, paths["hpx_swin_evaluate"], cfg, fused["hpx_swin_evaluate"] = run_eval_path(
+            "hpx swin evaluate", HPX_SWIN_EVAL_ARGV, out_dir, card)
+    check_rollout_vs_cpu(cfg)
+
+    runs = {}
+    for key, argv, route in (("hpx_swin_train", HPX_SWIN_TRAIN_ARGV, True),
+                             ("hpx_swin_win8_train", HPX_SWIN8_TRAIN_ARGV, "packed")):
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+            run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card)
+        runs[key] = run
+        paths[key], fused[key] = run["launches"], run["fused"]
+        report_epoch(key.replace("_", " "), run, rcfg, rds, card)
+        check_train_grads(rcfg, rds, card, card_route=route)
+        if route is True:
+            profile_train_step(rcfg, rds, card)
+    return paths, fused, runs
 
 
 # ---------------------------------------------------------------- the packed path
@@ -2149,6 +2457,9 @@ def main() -> int:
     # Pangu's flash route (`use_flash_attention: true`): every block's
     # windows through the flash forward and backward (N 144, D 32)
     check_train_grads(ptcfg, ptrain_ds, card, card_route=True)
+    # Pangu's token-major route (`use_flash_attention: "packed"`): every
+    # block's windows through the token-major forward and backward
+    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed")
     profile_train_step(ptcfg, ptrain_ds, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
@@ -2205,6 +2516,27 @@ def main() -> int:
     train_runs["zarr_train"] = zarr["train"]
     paths["zarr_train"], fused_by_path["zarr_train"] = zarr["train"]["launches"], zarr["train"]["fused"]
     paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = zarr["eval_launches"], zarr["eval_fused"]
+
+    # the HEALPix paths: the U-Net's train, baselines and evaluate -c; the
+    # Swin at the shipped width (flash) and with 8x8 windows at nside 32
+    # (token-major); the U-Net's rollout at nside 32 with the pad's share
+    phase_s = {}
+    t0 = time.perf_counter()
+    hpx_unet, paths["hpx_unet_evaluate"] = run_hpx_unet_path(card)
+    train_runs["hpx_unet_train"] = hpx_unet
+    paths["hpx_unet_train"] = hpx_unet["launches"]
+    phase_s["HEALPix U-Net"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hpx_paths, hpx_fused, hpx_runs = run_hpx_swin_paths(card)
+    paths.update(hpx_paths)
+    fused_by_path.update(hpx_fused)
+    train_runs.update(hpx_runs)
+    phase_s["HEALPix Swin (both)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drive_hpx_unet_rollout(card)
+    phase_s["HEALPix U-Net rollout, nside 32"] = time.perf_counter() - t0
+    print("HEALPix phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f" [{card}]")
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
@@ -2235,6 +2567,9 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=f"{head['case']} q[{head['B']},{head['H']},{head['N']},{head['D']}] {head['dtype']}",
+            hpx_cases=[{k: c[k] for k in ("case", "B", "H", "N", "D", "bias", "dtype", "max_abs_err",
+                                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                       for c in cases if c["case"].startswith("hpx")],
         ))
     for name, layout, replaces, slice_path, largest in (
         ("window_attention_qkv", "token-major", f"{pa}:1349", "swin_win8_train", "swin8 stage0"),
@@ -2258,6 +2593,12 @@ def main() -> int:
                 bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],
                 library_ms=head[f"library_{pre}ms"],
                 shape=f"{head['case']} qkv{head['shape']} nh {head['nh']} {head['dtype']}",
+                hpx_cases=[{"case": c["case"], "shape": c["shape"], "dtype": c["dtype"],
+                            "max_abs_err": c[err], **{k: c[pre + k] for k in (
+                                "ms", "bound_ms", "bound_by")},
+                            "plain_ms": c[f"plain_{pre}ms"], "library_ms": c[f"library_{pre}ms"]}
+                           for c in window if c["case"].startswith("hpx")
+                           and c["layout"] == layout],
             ))
     fp32 = [c for c in packed if c["dtype"] == "float32"]
     head = next(c for c in fp32 if c["case"] == "pangu stage1 shifted")

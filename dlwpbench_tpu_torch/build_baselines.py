@@ -7,7 +7,9 @@ Loads the run's saved config, builds its datasets, and forecasts the test
 split's inits with persistence (each init held over the range) and with
 the climatology: the train split's monthly mean at each forecast's valid
 time where the splits carry `times` (the zarr source), else the train
-split's overall mean.  Both are de-normalised and scored like a model's
+split's overall mean.  Both are de-normalised, remapped from the HEALPix
+faces to the `data.height` x `data.width` lat-lon grid on a HEALPix run
+(as `evaluate` remaps a model's forecast), and scored like a model's
 forecast; writes `outputs/{persistence,climatology}/evaluation/`
 (`metrics.json`, `rmses.nc`) under the working directory, and the
 climatology forecast as `outputs/climatology/evaluation/outputs.npz`,
@@ -57,11 +59,6 @@ def build_baselines(run_dir: str, sequence_length: int = 17) -> dict:
         targets.append(tar)
     inits = np.concatenate(inits)
     targets = np.concatenate(targets)
-    if targets.ndim == 6:
-        raise NotImplementedError(
-            "HEALPix baselines need the HEALPix -> lat-lon remap, which is not "
-            "ported to PyTorch yet (ROADMAP queue A, item 8)"
-        )
     n_steps = targets.shape[1]
 
     var_names = E.prognostic_channel_names(cfg.data, targets.shape[2])
@@ -93,6 +90,8 @@ def build_baselines(run_dir: str, sequence_length: int = 17) -> dict:
         clim = np.broadcast_to(
             clim_state[None, None], (inits.shape[0], n_steps, *clim_state.shape)
         ).copy()
+
+    targets, pers, clim = E.to_latlon(cfg.data, targets, pers, clim)
 
     lats = LatLonGrid(*targets.shape[-2:]).lats
     results = {}

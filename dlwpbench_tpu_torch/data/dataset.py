@@ -5,7 +5,8 @@ semantics (reference `data/datasets/datasets.py`):
 
 - per-variable z-score statistics (`VariableStats`, `compute_stats`);
 - variable roles: constants [1, Cc, H, W], prescribed [T, Cp, H, W],
-  prognostic [T, Cq, H, W] (+1 frame for the target);
+  prognostic [T, Cq, H, W] (+1 frame for the target), with a face dim
+  before H, W on HEALPix ([T, C, 12, n, n]);
 - non-overlapping windows of `sequence_length` starting at
   `item * sequence_length`, or explicit init indices;
 - `target = prognostic[1:]`, returned from `context_size` on;
@@ -225,17 +226,20 @@ def synthetic_weatherbench(
     n_prognostic: int = 8,
     n_prescribed: int = 1,
     n_constants: int = 4,
+    healpix_nside: int | None = None,
     seed: int = 0,
 ):
     """Deterministic synthetic ERA5-like arrays for tests and benchmarks.
 
     Smooth space-time random fields shaped like the WeatherBench
-    5.625-degree data: returns (constants [Cc,H,W] | None,
-    prescribed [T,Cp,H,W] | None, prognostic [T,Cq,H,W]).  The same seed
-    gives the same arrays as the JAX package's generator.
+    5.625-degree data, or on the 12 HEALPix faces of `healpix_nside`:
+    returns (constants [Cc,(F),H,W] | None, prescribed [T,Cp,...] | None,
+    prognostic [T,Cq,...]), the spatial dims (12, nside, nside) on
+    HEALPix, else (nlat, nlon).  The same seed gives the same arrays as
+    the JAX package's generator.
     """
     rng = np.random.default_rng(seed)
-    spatial = (nlat, nlon)
+    spatial = (12, healpix_nside, healpix_nside) if healpix_nside else (nlat, nlon)
 
     def smooth_field(shape):
         x = rng.standard_normal(shape).astype(np.float32)

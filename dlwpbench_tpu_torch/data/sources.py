@@ -1,11 +1,14 @@
 """Data sources: build train/val/test `WindowedWeatherDataset`s from a config.
 
 The port's copy of `dlwpbench_tpu/data/sources.py`:
-- `synthetic`: deterministic ERA5-like random fields;
+- `synthetic`: deterministic ERA5-like random fields, on a lat-lon grid
+  or on the HEALPix faces (`healpix_nside`);
 - `WeatherBenchZarr`: the reference's zarr tree layout
   (`data/datasets/datasets.py:277-298`): per-variable directories of yearly
   zarr stores, split by date range, z-score normalised per variable and
-  level, read by the port's `zarr_lite`.
+  level, read by the port's `zarr_lite`.  A HEALPix tree's arrays carry a
+  face dim (`[time, (level,) face, height, width]`), which passes through
+  to fields [T, C, 12, n, n].
 `NavierStokes` raises and names its ROADMAP item.
 """
 
@@ -69,10 +72,6 @@ def _mk(split, seq, ctx, noise, seed):
 
 
 def _synthetic(d, tr, va, te, ctx):
-    if d.get("healpix_nside"):
-        raise NotImplementedError(
-            "HEALPix synthetic data is not ported to PyTorch yet (ROADMAP queue A, UNetHPX)"
-        )
     const, pres, prog = synthetic_weatherbench(
         n_time=int(d.get("n_time", 128)),
         nlat=int(d["height"]),
@@ -80,6 +79,7 @@ def _synthetic(d, tr, va, te, ctx):
         n_prognostic=int(d["prognostic_channels"]),
         n_prescribed=int(d["prescribed_channels"]),
         n_constants=int(d["constant_channels"]),
+        healpix_nside=d.get("healpix_nside"),
         seed=int(d.get("seed", 0)),
     )
     stats = {"prognostic": compute_stats(prog)}
@@ -128,7 +128,7 @@ def _find_data_array(group, want: str):
 def _load_variable_series(path: str, var_dir: str):
     """Concatenate a variable's yearly zarr stores along time.
 
-    Returns (times[T], values[T, (level,) H, W], dims, levels): the
+    Returns (times[T], values[T, (level,) (face,) H, W], dims, levels): the
     reference's `xr.open_mfdataset(glob(...))` and time sort
     (`datasets.py:291-298`).
     """

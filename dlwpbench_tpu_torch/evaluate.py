@@ -18,14 +18,17 @@ the config's `seed`; the files go to `--out-dir` (default
 `<run_dir>/evaluation`).
 
 Either way the model rolls out in fp32 with no gradients over the test
-split on `--device`, the forecasts are de-normalised, and
-`inits/outputs/targets.nc`, `rmses.nc` and `metrics.json` are written; ACC
+split on `--device`, the forecasts are de-normalised, a HEALPix run's
+faces are remapped to the `data.height` x `data.width` lat-lon grid
+(`evaluation.evaluate.to_latlon`), and `inits/outputs/targets.nc`, `rmses.nc`
+and `metrics.json` are written on the lat-lon grid; ACC
 (`accs.nc`, `rmses_climatology.nc`) is computed when
 `outputs/climatology/evaluation/outputs.npz` (written by
 `python -m dlwpbench_tpu_torch.build_baselines`) exists under the working
 directory and fits the forecast.  Prints the first variable's RMSE per lead
 and the rollout's steady-state grid-points/s (batches after the first,
-host copies included).  The JAX CLI's RMSE comparison plot and `--video`
+host copies included; the points of the grid the model runs on, HEALPix
+pixels on HEALPix).  The JAX CLI's RMSE comparison plot and `--video`
 are not ported yet (ROADMAP queue A, item 6).
 """
 
@@ -95,12 +98,15 @@ def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: 
     timings: list = []
     inits, outputs, targets = E.rollout_dataset(model.eval(), test_ds, batch_size, timings)
     print(f"Rollout: {outputs.shape} on {dev}")
+    points = outputs.shape[1] * int(np.prod(outputs.shape[3:]))  # a sample's, over its leads
 
     var_names = E.prognostic_channel_names(cfg.data, outputs.shape[2])
     if stats and bool(cfg.data.get("normalize", True)):
         outputs = E.denormalize(outputs, stats, var_names)
         targets = E.denormalize(targets, stats, var_names)
         inits = E.denormalize(inits, stats, var_names, channel_axis=1)
+
+    outputs, targets, inits = E.to_latlon(cfg.data, outputs, targets, inits)
 
     grid = LatLonGrid(*outputs.shape[-2:])
     E.write_forecast_files(out_dir, inits, outputs, targets, var_names, grid.lats, grid.lons)
@@ -115,7 +121,6 @@ def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: 
           np.round(results["rmse"][var_names[0]], 4).tolist())
 
     steady = timings[1:]  # the first batch carries the kernel build and warm-up
-    points = outputs.shape[1] * outputs.shape[-2] * outputs.shape[-1]
     rate = (
         sum(n for n, _ in steady) * points / sum(s for _, s in steady)
         if steady else None

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dlwpbench_tpu_torch.evaluation import metrics as M
+from dlwpbench_tpu_torch.grids.remap import HEALPixRemap
 from dlwpbench_tpu_torch.utils import netcdf3
 
 
@@ -48,6 +49,19 @@ def rollout_dataset(model, dataset, batch_size: int = 8,
         np.concatenate(outs, 0),
         np.concatenate(tars, 0),
     )
+
+
+def to_latlon(data_cfg: dict, *arrays: np.ndarray) -> tuple:
+    """The arrays on the data's `height` x `width` lat-lon grid, before the
+    forecast files and the metrics (`scripts/evaluate.py:79-86`,
+    `scripts/build_baselines.py:116-127`): when the first is a HEALPix
+    forecast [S, T, C, 12, n, n], each is remapped from its trailing
+    [12, n, n] faces; else all come back as they are."""
+    if arrays[0].ndim != 6:
+        return arrays
+    rm = HEALPixRemap(int(data_cfg.get("height", 32)), int(data_cfg.get("width", 64)),
+                      arrays[0].shape[-1])
+    return tuple(rm.hpx2ll(a) for a in arrays)
 
 
 def prognostic_channel_names(data_cfg: dict, n_channels: int) -> list[str]:

@@ -44,12 +44,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dlwpbench_tpu_torch.models.base import RolloutModel, device_constant
+from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import (
     partition_windows_5d, reverse_windows_5d, window_attention_qkv, window_attention_qkv5d,
 )
+from dlwpbench_tpu_torch.utils.device import device_constant
 
 
 # ---------------------------------------------------------------- static helpers (numpy)

@@ -1,5 +1,5 @@
-"""Swin Transformer on the equirectangular grid (counterpart of
-`dlwpbench_tpu/models/swin.py:41-493`).
+"""Swin Transformer on the equirectangular grid and on HEALPix (counterpart
+of `dlwpbench_tpu/models/swin.py:41-499`).
 
 - WindowAttention: fused qkv Dense, heads of dim C/nh, a bias per block
   PRECOMPUTED once per rollout (relative-position bias expanded from its
@@ -12,21 +12,28 @@
   `ops/flash_attention.py` (both differentiable: forward and fused
   backward); otherwise plain einsum attention.
 - SwinBlock: pre-norm attention with cyclic shift (-sh, -sw) before and
-  (sh, sw) after, then a tanh-GELU MLP, both residual.
+  (sh, sw) after, then a tanh-GELU MLP, both residual.  A stage whose
+  resolution is no window multiple is padded circularly on the right
+  (longitude) on the equirectangular mesh and with zeros on HEALPix, and
+  with zeros at the bottom.
 - PatchMerging between stages (2x2 gather -> LayerNorm -> Linear 4C->2C).
 - Windows: global by default (the whole stage resolution, halving at
   each PatchMerging), or fixed local `window_size` clamped to each stage's
   resolution.
 - PatchEmbed conv k=s=patch (circular-lon pad), ConvTranspose decoder over
   the per-stage normed features with skip concatenation, 1x1 conv head.
+- `SwinTransformerHPX` (`mesh="healpix"`): each step lays the 12 faces
+  [B, 12, n, n, C] out as a rectangle of 3 rows x 4 columns of faces
+  [B, 3n, 4n, C], runs the same network on it and cuts the faces back out;
+  the stage plan (windows, routes) is that of the rectangle.
 
 Submodules and parameters carry the flax auto-names of the JAX model
 (`SwinBlock_3.WindowAttention_0.Dense_0`, `ConvTranspose_0`, ...), so
 `weights.load_flax_params` maps a flax tree onto them name for name.
 Tokens are [B, H*W, C], H-major, channels-last inside the model.
 
-Not ported yet: the HEALPix variant and ring attention over a mesh
-(`spmd_mesh`, ROADMAP queue A item 16); both raise.
+Not ported yet: ring attention over a device mesh (`spmd_mesh`, ROADMAP
+queue A item 16) and meshes other than these two; both raise.
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dlwpbench_tpu_torch.models.base import RolloutModel, device_constant
+from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import window_attention_qkv
+from dlwpbench_tpu_torch.utils.device import device_constant
 
 
 def window_partition(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
@@ -151,8 +159,9 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: tuple[int, int],
                  shift: tuple[int, int], mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_flash: Any = None,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, mesh: str = "equirectangular"):
         super().__init__()
+        self.mesh = mesh
         self.window = tuple(window)
         self.shift = tuple(shift)
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
@@ -168,11 +177,14 @@ class SwinBlock(nn.Module):
         shortcut = x
         x = self.LayerNorm_0(x).reshape(B, H, W, C)
 
-        # pad to window multiples: circular lon, zero lat
+        # pad to window multiples: circular lon (zero off the lat-lon
+        # grid), zero lat
         pad_b = (wh - H % wh) % wh
         pad_r = (ww - W % ww) % ww
-        if pad_r:
+        if pad_r and self.mesh == "equirectangular":
             x = torch.cat([x, x[:, :, :pad_r]], dim=2)
+        elif pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r))
         if pad_b:
             x = F.pad(x, (0, 0, 0, 0, 0, pad_b))
         Hp, Wp = H + pad_b, W + pad_r
@@ -213,8 +225,8 @@ def _nchw(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class SwinTransformer(RolloutModel):
     """Reference `SwinTransformer` (config `type: SwinTransformer`) on the
-    equirectangular grid, with global windows (`window_size` None, the
-    reference's) or fixed local ones.  `use_flash_attention` routes every
+    equirectangular grid or on HEALPix (`mesh`), with global windows
+    (`window_size` None, the reference's) or fixed local ones.  `use_flash_attention` routes every
     stage, or each stage with a per-stage tuple.  `seed` seeds the random
     init (a `torch.Generator`); weights from the JAX model come in through
     `weights.load_flax_params`."""
@@ -245,15 +257,17 @@ class SwinTransformer(RolloutModel):
         spmd_mesh: Any = None,
     ):
         super().__init__(context_size, remat, remat_policy)
-        if mesh != "equirectangular":
+        if mesh not in ("equirectangular", "healpix"):
             raise NotImplementedError(
-                f"Swin mesh {mesh!r} is not ported to PyTorch yet (ROADMAP queue A, item 11)"
+                f"Swin mesh {mesh!r} is not ported to PyTorch: only 'equirectangular' and "
+                "'healpix'"
             )
         if spmd_mesh is not None:
             raise NotImplementedError(
                 "ring attention over a mesh (spmd_mesh) is not ported to PyTorch yet "
                 "(ROADMAP queue A, item 16)"
             )
+        self.mesh = mesh
         self.window_size = None if window_size is None else tuple(int(w) for w in window_size)
         self.img_height, self.img_width = int(img_height), int(img_width)
         self.patch_size = p = int(patch_size)
@@ -288,7 +302,7 @@ class SwinTransformer(RolloutModel):
                 shift = (0, 0) if d % 2 == 0 else st["shift"]
                 setattr(self, f"SwinBlock_{blk}", SwinBlock(
                     dim, self.num_heads[i], (st["wh"], st["ww"]), shift,
-                    mlp_ratio, qkv_bias, uf, exact_gelu,
+                    mlp_ratio, qkv_bias, uf, exact_gelu, mesh,
                 ))
                 blk += 1
                 table = torch.zeros((2 * st["wh"] - 1) * (2 * st["ww"] - 1), self.num_heads[i])
@@ -309,12 +323,20 @@ class SwinTransformer(RolloutModel):
         self.Conv_1 = nn.Conv2d(E, self.prognostic_channels, 1)
         init_like_flax_(self, torch.Generator().manual_seed(int(seed)))
 
+    def _grid_hw(self) -> tuple[int, int]:
+        """The grid the network runs on: the lat-lon grid, or on HEALPix the
+        rectangle of 3 x 4 faces."""
+        if self.mesh == "healpix":
+            return 3 * self.img_height, 4 * self.img_width
+        return self.img_height, self.img_width
+
     def _stage_plan(self):
         """Static per-stage geometry: global windows at each resolution, or
         the fixed local windows clamped to it."""
         p = self.patch_size
-        H = -(-self.img_height // p)
-        W = -(-self.img_width // p)
+        H0, W0 = self._grid_hw()
+        H = -(-H0 // p)
+        W = -(-W0 // p)
         res_h, res_w = H, W
         plan = []
         for i in range(len(self.depths)):
@@ -354,6 +376,10 @@ class SwinTransformer(RolloutModel):
     def step(self, x: torch.Tensor, state: Any, aux: Any = None):
         if aux is None:
             aux = self.precompute()
+        if self.mesh == "healpix":  # [B, 12, n, n, C] -> the 3 x 4 rectangle of faces
+            B, _, Hf, Wf, C = x.shape
+            x = x.reshape(B, 3, 4, Hf, Wf, C).permute(0, 1, 3, 2, 4, 5).reshape(
+                B, 3 * Hf, 4 * Wf, C)
         B, H0, W0, _ = x.shape
         p = self.patch_size
         E = self.embed_dim
@@ -391,5 +417,17 @@ class SwinTransformer(RolloutModel):
         for idx, f in enumerate(reversed(feats)):
             x_in = f if idx == 0 else torch.cat([f, y], dim=-1)
             y = F.gelu(_nchw(getattr(self, f"ConvTranspose_{idx}"), x_in), approximate=approx)
-        out = _nchw(self.Conv_1, y)
-        return out[:, :H0, :W0], state
+        out = _nchw(self.Conv_1, y)[:, :H0, :W0]
+        if self.mesh == "healpix":  # the rectangle -> [B, 12, n, n, C]
+            Cq = self.prognostic_channels
+            out = out.reshape(B, 3, Hf, 4, Wf, Cq).permute(0, 1, 3, 2, 4, 5).reshape(
+                B, 12, Hf, Wf, Cq)
+        return out, state
+
+
+class SwinTransformerHPX(SwinTransformer):
+    """HEALPix Swin (config `type: SwinTransformerHPX`, reference
+    `SwinTransformerHPX`): `img_height` and `img_width` are the faces'
+    nside."""
+
+    __init__ = functools.partialmethod(SwinTransformer.__init__, mesh="healpix")

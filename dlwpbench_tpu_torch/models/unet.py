@@ -1,5 +1,5 @@
-"""Classic U-Net on the equirectangular grid (counterpart of
-`dlwpbench_tpu/models/unet.py:35-92`).
+"""Classic U-Net and its HEALPix variant (counterpart of
+`dlwpbench_tpu/models/unet.py:35-98`).
 
 - Encoder: per level a 2x average pool (except the top), then
   `n_convolutions` 3x3 geo-padded convs, each followed by the activation;
@@ -14,12 +14,17 @@
 
 Submodules carry the flax auto-names of the JAX model: `GeoConv_k` in
 creation order across the encoder, the decoder and the head, and
-`GeoConvTranspose_k` in decoder order.  The HEALPix variant (`UNetHPX`) is
-not ported yet (ROADMAP queue A, item 8).
+`GeoConvTranspose_k` in decoder order.
+
+`UNetHPX` is the same network with `mesh="healpix"`: fields are
+[B, 12, n, n, C] inside, every conv pads each face from its neighbours
+(`ops/padding.py::healpix_pad_channels_last`) and runs on the faces folded
+into the batch; pools and transposed convs act face by face.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Sequence
 
 import torch
@@ -98,7 +103,7 @@ class UNet(RolloutModel):
         skips = []
         for lvl, names in enumerate(self.enc):
             if lvl > 0:
-                if x.shape[1] % 2 or x.shape[2] % 2:
+                if self.mesh != "healpix" and (x.shape[1] % 2 or x.shape[2] % 2):
                     # odd grid: replicate the last row / column so that
                     # the pool halves exactly; the decoder crops back
                     x = F.pad(x.permute(0, 3, 1, 2), (0, x.shape[2] % 2, 0, x.shape[1] % 2),
@@ -111,10 +116,17 @@ class UNet(RolloutModel):
         for i, names in enumerate(self.dec):
             if i > 0:
                 skip = skips[n_levels - 1 - i]
-                x = x[:, : skip.shape[1], : skip.shape[2]]
+                if self.mesh != "healpix":
+                    x = x[:, : skip.shape[1], : skip.shape[2]]
                 x = torch.cat([skip, x], dim=-1)
             for name in names:
                 x = self.act(getattr(self, name)(x))
             if i < n_levels - 1:
                 x = getattr(self, f"GeoConvTranspose_{i}")(x)
         return getattr(self, self.head)(x), state
+
+
+class UNetHPX(UNet):
+    """HEALPix U-Net (config `type: UNetHPX`, reference `UNetHPX`)."""
+
+    __init__ = functools.partialmethod(UNet.__init__, mesh="healpix")

@@ -4,18 +4,22 @@
 - `GeoConv`: a conv whose padding follows the mesh's boundary condition:
   "equirectangular" circular in longitude and zero in latitude (the
   `cylinder_pad` of `ops/padding.py`), "plain" zero on both axes, "torus"
-  circular on both (the Navier-Stokes domain); 1x1 convs skip padding.
-  "healpix" raises (ROADMAP queue A, item 8).
+  circular on both (the Navier-Stokes domain), "healpix" the neighbour
+  padding of the 12 faces (`healpix_pad_channels_last`), then the faces
+  folded into the batch for one conv; 1x1 convs skip padding.
 - `GeoConvTranspose`: the U-Net decoder's 2x upsampling transposed conv.
 - `avg_pool_2x`: the U-Net encoder's 2x2 / stride-2 average pool.
+- `fold_faces` / `unfold_faces`: [B, 12, H, W, C] <-> [B*12, H, W, C].
 - `ACTIVATIONS` and `get_activation`: the activation table and the parser
   of config specs, bare names and dotted torch specs alike.
 
-Every op takes and returns [B, H, W, C].  Around each conv or pool the
-tensor is permuted to NCHW as a view: its storage stays NHWC, which is
-`torch.channels_last` for the NCHW view, so cuDNN runs its NHWC kernels
-and no copy is made.  The circular longitude pad is one concatenation on
-the W axis; the zero latitude pad is the conv's own padding.
+Every op takes and returns [B, H, W, C], or [B, 12, H, W, C] on the
+"healpix" mesh (faces folded into the batch around each conv or pool).
+Around each conv or pool the tensor is permuted to NCHW as a view: its
+storage stays NHWC, which is `torch.channels_last` for the NCHW view, so
+cuDNN runs its NHWC kernels and no copy is made.  The circular longitude
+pad is one concatenation on the W axis; the zero latitude pad is the
+conv's own padding.
 
 Submodules carry the flax auto-names of the JAX modules (`GeoConv_k.Conv_0`,
 `GeoConvTranspose_k.ConvTranspose_0`), so `weights.load_flax_params` maps
@@ -31,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-MESHES = ("equirectangular", "plain", "torus")
+from dlwpbench_tpu_torch.ops.padding import healpix_pad_channels_last
+
+MESHES = ("equirectangular", "plain", "torus", "healpix")
 
 
 def _nchw(layer: Callable, x: torch.Tensor) -> torch.Tensor:
@@ -45,13 +51,20 @@ def _circular(x: torch.Tensor, p: int, dim: int) -> torch.Tensor:
 
 
 def _check_mesh(mesh: str) -> None:
-    if mesh == "healpix":
-        raise NotImplementedError(
-            "mesh 'healpix' (HEALPix neighbour padding, faces folded into the batch) is "
-            "not ported to PyTorch yet (ROADMAP queue A, item 8)"
-        )
     if mesh not in MESHES:
         raise ValueError(f"unknown mesh {mesh!r}")
+
+
+def fold_faces(x: torch.Tensor) -> torch.Tensor:
+    """[B, F, H, W, C] -> [B*F, H, W, C] (reference HEALPixFoldFaces)."""
+    B, F_, H, W, C = x.shape
+    return x.reshape(B * F_, H, W, C)
+
+
+def unfold_faces(x: torch.Tensor, faces: int = 12) -> torch.Tensor:
+    """[B*F, H, W, C] -> [B, F, H, W, C] (reference HEALPixUnfoldFaces)."""
+    BF, H, W, C = x.shape
+    return x.reshape(BF // faces, faces, H, W, C)
 
 
 class GeoConv(nn.Module):
@@ -69,12 +82,18 @@ class GeoConv(nn.Module):
         self.mesh = mesh
         k = int(kernel_size)
         self.pad = pad = (k // 2) * int(dilation)
-        native = {"equirectangular": (pad, 0), "plain": (pad, pad), "torus": (0, 0)}[mesh]
+        native = {"equirectangular": (pad, 0), "plain": (pad, pad), "torus": (0, 0),
+                  "healpix": (0, 0)}[mesh]
         self.Conv_0 = nn.Conv2d(in_features, features, k, stride=strides, padding=native,
                                 dilation=dilation, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.pad
+        if self.mesh == "healpix":
+            # pad the faces from their neighbours, fold them into the batch, one conv
+            if p:
+                x = healpix_pad_channels_last(x, p)
+            return unfold_faces(_nchw(self.Conv_0, fold_faces(x)))
         if p and self.mesh in ("equirectangular", "torus"):
             x = _circular(x, p, 2)  # longitude
         if p and self.mesh == "torus":
@@ -91,18 +110,24 @@ class GeoConvTranspose(nn.Module):
                  stride: int = 2, mesh: str = "equirectangular"):
         super().__init__()
         _check_mesh(mesh)
+        self.mesh = mesh
         if kernel_size < stride:
             raise ValueError(f"kernel_size {kernel_size} < stride {stride} is not supported")
         self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, features, kernel_size,
                                                   stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh == "healpix":
+            return unfold_faces(_nchw(self.ConvTranspose_0, fold_faces(x)))
         return _nchw(self.ConvTranspose_0, x)
 
 
 def avg_pool_2x(x: torch.Tensor, mesh: str = "equirectangular") -> torch.Tensor:
-    """2x2 / stride-2 average pool of [B, H, W, C] (odd edges dropped)."""
+    """2x2 / stride-2 average pool of [B, H, W, C] (odd edges dropped), or
+    of each face of [B, 12, H, W, C] on the "healpix" mesh."""
     _check_mesh(mesh)
+    if mesh == "healpix":
+        return unfold_faces(_nchw(lambda t: F.avg_pool2d(t, 2, 2), fold_faces(x)))
     return _nchw(lambda t: F.avg_pool2d(t, 2, 2), x)
 
 

@@ -166,18 +166,39 @@ def test_evaluate_run_dir_refuses_overrides(run_dir, extra, capsys):
 
 
 def test_build_baselines_refuses_healpix(run_dir, tmp_path, monkeypatch):
-    """A run whose targets are HEALPix faces needs the remap (item 8)."""
+    """A run whose fields are HEALPix faces: the fixture's splits with
+    their fields swapped for [T, 4, 12, 2, 2] faces.  The name is kept from
+    when the port refused such a run; it no longer does: the baselines are
+    remapped to the data's 8 x 16 lat-lon grid before the metrics, and the
+    metrics are those of `scripts/build_baselines.py` on the same splits
+    (rtol 1e-5, as above)."""
+    import dlwpbench_tpu.data.sources as jsources
     import dlwpbench_tpu_torch.build_baselines as mod
 
-    real = mod.build_datasets
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import build_baselines as jbuild  # scripts/build_baselines.py
 
-    def faces(*a, **k):  # the test split's fields as [T, C, 12, n, n]
-        train_ds, val_ds, test_ds, stats = real(*a, **k)
-        test_ds.prognostic = np.zeros((32, 4, 12, 2, 2), np.float32)
-        test_ds.prescribed = test_ds.constants = None
-        return train_ds, val_ds, test_ds, stats
+    def on_faces(real):
+        def build(*a, **k):
+            train_ds, val_ds, test_ds, stats = real(*a, **k)
+            rng = np.random.default_rng(0)
+            for ds in (train_ds, test_ds):
+                ds.prognostic = rng.standard_normal(
+                    (ds.prognostic.shape[0], 4, 12, 2, 2)).astype(np.float32)
+                ds.prescribed = ds.constants = None
+            return train_ds, val_ds, test_ds, stats
+        return build
 
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(mod, "build_datasets", faces)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_baselines.main(["-c", run_dir, "--sequence-length", str(SEQ)])
+    monkeypatch.setattr(mod, "build_datasets", on_faces(mod.build_datasets))
+    monkeypatch.setattr(jsources, "build_datasets", on_faces(jsources.build_datasets))
+    for side in ("torch", "jax"):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        (build_baselines.main if side == "torch" else jbuild.main)(
+            ["-c", run_dir, "--sequence-length", str(SEQ)])
+    clim = np.load(tmp_path / "torch" / build_baselines.CLIMATOLOGY_NPZ)["outputs"]
+    assert clim.shape == (5, SEQ - 1, 4, 8, 16)
+    for name in ("persistence", "climatology"):
+        t, j = _metrics(tmp_path / "torch", name), _metrics(tmp_path / "jax", name)
+        for v in t["variables"]:
+            np.testing.assert_allclose(t["rmse"][v], j["rmse"][v], rtol=1e-5)

@@ -235,6 +235,7 @@ ROUTE_CASES = [
     ("token-major", (1, 2, 2, 144, 288), 2, None, 2, (2, 2), "fused"),  # the largest taken
     ("token-major", (1, 1, 2, 145, 288), 2, None, 2, (1, 2), "four_pass"),  # N past it
     ("token-major", (1, 1, 2, 144, 168), 1, None, 2, None, "four_pass"),  # hd 56 past it
+    ("token-major", (2, 1, 192, 64, 288), 4, None, 1, None, "fused"),  # HEALPix nside 32, 8x8
 ]
 
 
@@ -258,6 +259,8 @@ FORWARD_CASES = [
     ("5d", (2, 2, 18, 36, 1152), 12, (2, 6, 12), 3, (3, 3)),   # Pangu stage 2
     ("token-major", (4, 1, 32, 64, 288), 4, None, 1, None),    # swin_win8 stage 0, hd 24
     ("token-major", (4, 1, 8, 64, 576), 4, None, 8, (1, 8)),   # swin_win8 stage 1, hd 48
+    ("token-major", (4, 1, 192, 64, 288), 4, None, 1, None),   # HEALPix nside 32 stage 0
+    ("token-major", (4, 1, 48, 64, 576), 4, None, 48, (1, 48)),  # its stage 1, shifted
     ("token-major", (2, 2, 3, 72, 144), 3, None, 3, (2, 3)),   # round-2 N 72, hd 16
     ("token-major", (2, 1, 2, 200, 192), 2, None, 2, (1, 2)),  # N 200: past the region
 ]
@@ -495,15 +498,21 @@ def test_packed_kernels_refuse_what_they_cannot_take(cuda):
 # ---------------------------------------------------------------- flash backward designs
 # (label, B, H, N, D, G or 0 for a 3D bias, bias kind): the Swin train
 # path's shapes at batch 32 (stage 0 with a 3D bias and with the shifted
-# [1, H, N, N] bias, stage 1), the tail and G = B cases, and D 64, the
-# largest head dim the mma design takes
+# [1, H, N, N] bias, stage 1), the HEALPix Swin's at nside 8 (the 24 x 32
+# rectangle of faces: N 768 and 192), the tail and G = B cases, and D 64,
+# the largest head dim the mma design takes
 FLASH_DESIGN_CASES = [
     ("stage0 3d", 32, 4, 2048, 24, 0, "random"),
     ("stage0 shifted", 32, 4, 2048, 24, 1, "swin-shift"),
     ("stage1", 32, 4, 512, 48, 0, "random"),
+    ("hpx stage0 shifted", 32, 4, 768, 24, 1, "hpx-shift"),
+    ("hpx stage1", 32, 4, 192, 48, 0, "random"),
     ("tail N1000 G4", 8, 3, 1000, 32, 4, "random"),
     ("G=B N200 D64", 4, 2, 200, 64, 4, "random"),
 ]
+
+
+SHIFT_GRIDS = {"swin-shift": (32, 64), "hpx-shift": (24, 32)}  # the window of each kind
 
 
 def _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed):
@@ -513,8 +522,9 @@ def _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed):
 
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, N, D, device=cuda, generator=g) for _ in range(4))
-    if kind == "swin-shift":  # 32 x 64 window: a table-like bias + the -100 shift mask
-        groups = torch.as_tensor(shift_window_groups(32, 64, 32, 64, 16, 32), device=cuda)
+    if kind in SHIFT_GRIDS:  # one global window: a table-like bias + the -100 shift mask
+        h, w = SHIFT_GRIDS[kind]
+        groups = torch.as_tensor(shift_window_groups(h, w, h, w, h // 2, w // 2), device=cuda)
         mask = torch.where(groups[:, None, :] != groups[:, :, None], -100.0, 0.0)
         bias = 0.02 * torch.randn(H, N, N, device=cuda, generator=g) + mask[:, None]
     else:
@@ -574,13 +584,16 @@ def test_flash_backward_past_the_mma_design_takes_the_rows(cuda):
 # ---------------------------------------------------------------- flash forward designs
 # (label, B, H, N, D, G or 0 for a 3D bias, bias kind): the Swin paths'
 # shapes at batch 32 (stage 0 with a 3D bias and with the shifted
-# [1, H, N, N] bias, stage 1), the tail case, Pangu's flash route at
+# [1, H, N, N] bias, stage 1; the HEALPix Swin's at nside 8), the tail
+# case, Pangu's flash route at
 # stage 1 (N 144, G = nLon x nW = 36) and N 60 at D 64, the largest head
 # dim the mma design takes
 FLASH_FWD_CASES = [
     ("stage0 3d", 32, 4, 2048, 24, 0, "random"),
     ("stage0 shifted", 32, 4, 2048, 24, 1, "swin-shift"),
     ("stage1", 32, 4, 512, 48, 0, "random"),
+    ("hpx stage0 shifted", 32, 4, 768, 24, 1, "hpx-shift"),
+    ("hpx stage1", 32, 4, 192, 48, 0, "random"),
     ("tail N1000 G4", 8, 3, 1000, 32, 4, "random"),
     ("pangu N144 G36", 72, 6, 144, 32, 36, "random"),
     ("N60 D64", 4, 2, 60, 64, 2, "random"),

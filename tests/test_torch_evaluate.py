@@ -122,3 +122,26 @@ def test_evaluate_cli_matches_jax(tmp_path):
                                    [want[key][n] for n in names], rtol=1e-4)
     for fname in ("inits.nc", "outputs.nc", "targets.nc", "rmses.nc"):
         assert (out_dir / fname).exists()
+
+
+def test_acc_and_climatology_rmse_match_jax(tmp_path):
+    """`compute_metrics` with a climatology: ACC and the climatology's RMSE
+    per variable and lead against the JAX package's on the same random
+    [2, 6, 5, 32, 64] fp32 fields (lat-weighted means over 4,096 points
+    and 2 samples, in other orders: atol 1e-5 on values of order 1)."""
+    from dlwpbench_tpu_torch.evaluation import evaluate as TE
+
+    rng = np.random.default_rng(21)
+    outputs, targets, clim = (rng.standard_normal((2, 6, 5, 32, 64)).astype(np.float32)
+                              for _ in range(3))
+    names = [f"var{i}" for i in range(5)]
+    lats = LatLonGrid(32, 64).lats
+    got = TE.compute_metrics(outputs, targets, lats, names, str(tmp_path / "torch"),
+                             climatology=clim)
+    want = JE.compute_metrics(outputs, targets, lats, names, str(tmp_path / "jax"),
+                              climatology=clim)
+    for key in ("acc", "rmse_climatology"):
+        assert set(got[key]) == set(names)
+        for name in names:
+            assert len(got[key][name]) == 6
+            np.testing.assert_allclose(got[key][name], want[key][name], rtol=0, atol=1e-5)

@@ -96,12 +96,18 @@ def test_avg_pool_2x_matches_jax(H, W):
 
 
 def test_geometry_ops_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tconv.GeoConv(2, 2, 3, mesh="healpix")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tconv.avg_pool_2x(torch.zeros(1, 12, 4, 4, 2), mesh="healpix")
-    with pytest.raises(ValueError, match="unknown mesh"):
-        tconv.GeoConv(2, 2, 3, mesh="sphere")
+    """No mesh beyond the four of the JAX module: the HEALPix faces are
+    ported (`tests/test_torch_unet_hpx.py` holds them against JAX), an
+    icosahedral or unknown mesh raises."""
+    assert tconv.GeoConv(2, 2, 3, mesh="healpix")(torch.zeros(1, 12, 4, 4, 2)).shape == (
+        1, 12, 4, 4, 2)
+    assert tconv.avg_pool_2x(torch.zeros(1, 12, 4, 4, 2), mesh="healpix").shape == (
+        1, 12, 2, 2, 2)
+    for mesh in ("icosahedral", "sphere"):
+        with pytest.raises(ValueError, match="unknown mesh"):
+            tconv.GeoConv(2, 2, 3, mesh=mesh)
+        with pytest.raises(ValueError, match="unknown mesh"):
+            tconv.avg_pool_2x(torch.zeros(1, 4, 4, 2), mesh=mesh)
     with pytest.raises(ValueError, match="stride"):
         tconv.GeoConvTranspose(2, 2, 1, 2)
 
@@ -204,7 +210,9 @@ def test_unet_rollout_and_grads_match_jax(cfg, H, W, remat):
 def test_unet_builds_from_the_shipped_config():
     """`configs/model/unet.yaml` builds the same net on either side: the
     same flax parameter paths and shapes, the bottom level's half convs
-    included; `UNetHPX` is not registered."""
+    included; `UNetHPX` builds from it (without its `mesh` key) on the
+    HEALPix mesh, and a family
+    not ported yet (`ConvLSTM`) is the registry's KeyError."""
     from dlwpbench_tpu.models import build_model as jbuild
     from dlwpbench_tpu_torch.training.config import load_config
 
@@ -219,8 +227,11 @@ def test_unet_builds_from_the_shipped_config():
         jmodel.init(jax.random.PRNGKey(0), const, pres, prog)["params"])).items()}
     tshapes = {k: v.shape for k, v in weights.flatten_tree(weights.to_flax_tree(tmodel)).items()}
     assert tshapes == jshapes
-    with pytest.raises(KeyError, match="UNetHPX"):
-        registry.build_model({**cfg.model, "type": "UNetHPX"})
+    hpx = registry.build_model({**{k: v for k, v in cfg.model.items() if k != "mesh"},
+                                "type": "UNetHPX"})
+    assert isinstance(hpx, tunet.UNetHPX) and hpx.mesh == "healpix"
+    with pytest.raises(KeyError, match="ConvLSTM"):
+        registry.build_model({**cfg.model, "type": "ConvLSTM"})
 
 
 def test_unet_bf16_rollout_stays_bf16():
