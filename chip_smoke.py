@@ -70,8 +70,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      0 of every other kernel);
    - U-Net evaluate at `bench.py`'s shape: `python -m
      dlwpbench_tpu_torch.evaluate model=unet
-     model.hidden_channels=[64,128,256] data=synthetic data.n_time=36000
-     --batch-size 128` (three batches of 16-step rollouts, fp32, 0
+     model.hidden_channels=[64,128,256] data=synthetic data.n_time=24000
+     --batch-size 128` (two batches of 16-step rollouts, fp32, 0
      attention launches), the same rollout in fp32 and in bf16 (parameters
      and inputs cast as `bench.py` casts them) with and without the host
      copies, and the card against the CPU on 2 samples x 2 steps;
@@ -113,6 +113,21 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      checks of phase 3 include the HEALPix Swin's flash shapes (N 768 with
      the shift bias, N 192) and its token-major shape at nside 32 (192
      windows of 64 tokens), listed under `hpx_cases` in the `kernels` line;
+   - the ModernUNet family (no attention kernel: every count 0): the
+     ModernUNet at `configs/model/modernunet.yaml`'s shipped width through
+     the evaluate CLI (3 batches of 32 x 15 steps) with a profiled rollout
+     and card vs CPU, and 1 training epoch in fp32 and in bf16 compute,
+     each with its busy share after an epoch under
+     `set_sync_debug_mode("error")`, a profiled step split into
+     convolutions, GroupNorm and concatenations, and card-vs-CPU
+     gradients; `MUNetHPX` (`modernunet_inverted_hpx.yaml`) and both
+     diffusion models (`diffusion_modernunet.yaml` with
+     `training=diffusion`, and `model.type=DiffMUNetHPX` on the faces)
+     through their user paths (train 1 epoch, build_baselines -c,
+     evaluate -c with ACC; the diffusion runs on their EMA weights); the
+     EMA against its fp64 replay from the step parameters; the denoiser,
+     its gradients and 3-step rollouts of both samplers card vs CPU on the
+     same noise; every phase step's seconds;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -123,6 +138,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import glob
+import io
 import json
 import os
 import subprocess
@@ -148,6 +164,10 @@ EVAL_TAIL = ["data=synthetic", "data.n_time=9060", "--batch-size", "32",
 MAIN_ARGV = ["model=swintransformer", *EVAL_TAIL]
 PANGU_EVAL_ARGV = ["model=panguweather", *EVAL_TAIL]
 EVAL_BATCH = 32
+# the checks beside an evaluate path (a profiled rollout of one batch of
+# 32, card vs CPU on 2 samples) build their own split of 3,200 frames: 34
+# test inits (9,060 frames took about 20 s of host time a build)
+HELPER_N_TIME = 3200
 
 
 def card_line() -> str:
@@ -1032,12 +1052,13 @@ def step_calls(model, B: int) -> dict:
     as "on a CUDA device"), from the model's own geometry."""
     import collections
 
+    from dlwpbench_tpu_torch.models.modern_unet import DiffModernUNet, ModernUNet
     from dlwpbench_tpu_torch.models.pangu import PanguWeather
     from dlwpbench_tpu_torch.models.unet import UNet
 
     calls = collections.Counter()
-    if isinstance(model, UNet):  # convs, pools and GELU: no attention kernel
-        return calls
+    if isinstance(model, (UNet, ModernUNet, DiffModernUNet)):
+        return calls  # convs, GroupNorm, pools and GELU: no attention kernel
     if isinstance(model, PanguWeather):
         win = model.window_size
         N = win[0] * win[1] * win[2]
@@ -1124,18 +1145,18 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
     check_launches(label, model, launches, want)
     fused = check_fused(label, counters, launches)
     batch = int(argv[argv.index("--batch-size") + 1])
-    check_forecast_files(out_dir, res, cfg, len(res["batch_seconds"]), batch)
+    check_forecast_files(out_dir, res, cfg, len(res["batch_seconds"]), batch, steps)
     return res, launches, cfg, fused
 
 
-def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: int):
+def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: int, steps: int):
     import numpy as np
 
     from dlwpbench_tpu_torch.utils import netcdf3
 
     data, _ = netcdf3.read_dataset(os.path.join(out_dir, "outputs.nc"))
     n_var = int(cfg.data.prognostic_channels)
-    want_shape = (n_batches * batch, 16, int(cfg.data.height), int(cfg.data.width))
+    want_shape = (n_batches * batch, steps, int(cfg.data.height), int(cfg.data.width))
     for i in range(n_var):
         arr = data[f"var{i}"]
         if arr.shape != want_shape or not np.isfinite(arr).all():
@@ -1149,7 +1170,7 @@ def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: in
           "Frobenius curves finite")
 
 
-def check_rollout_vs_cpu(cfg, weights=None, test_ds=None):
+def check_rollout_vs_cpu(cfg, weights=None, test_ds=None, weights_label="restored"):
     """The same full-width model (seeded, or with `weights`, a state dict)
     on 2 samples x 2 steps of the test split (`test_ds`, or built from
     `cfg`): card (kernels) vs CPU (plain)."""
@@ -1173,7 +1194,7 @@ def check_rollout_vs_cpu(cfg, weights=None, test_ds=None):
         got = model.to("cuda")(*[a.cuda() for a in args]).cpu()
     err = (got - ref).abs().max().item()
     tol = 1e-3  # fp32, two closed-loop steps of 8 blocks; other summation orders
-    print(f"reference: full-width {cfg.model.name} ({'restored' if weights is not None else 'seeded'} "
+    print(f"reference: full-width {cfg.model.name} ({weights_label if weights is not None else 'seeded'} "
           f"weights), 2 samples x 2 steps, card vs CPU max|diff| "
           f"{err:.3e} (tol {tol:.0e}, |ref| max {ref.abs().max().item():.3f})")
     if not err <= tol:
@@ -1225,7 +1246,8 @@ def profile_rollout(cfg, card: str):
             model(*batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    _print_profile(prof, f"{cfg.model.name}, one rollout of batch {EVAL_BATCH} x 16 steps",
+    steps = 17 - int(cfg.model.context_size)
+    _print_profile(prof, f"{cfg.model.name}, one rollout of batch {EVAL_BATCH} x {steps} steps",
                    wall_us, card, 10)
 
 
@@ -1331,17 +1353,38 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
                 train_loss=res["train_loss"], val_loss=res["val_loss"]), cfg, train_ds
 
 
-def check_train_grads(cfg, train_ds, card: str, card_route=None):
+def perturbed_state(cfg, scale: float = 0.01):
+    """The seeded model's parameters, each moved by scale x N(0, 1) (seed
+    0): a ModernUNet's zero-initialised convs then carry signal, so a
+    rollout is more than persistence and every gradient is exercised."""
+    import torch
+
+    from dlwpbench_tpu_torch.models import registry
+
+    model = registry.build_model(cfg.model, seed=int(cfg.seed))
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=g))
+    return model.state_dict()
+
+
+def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool = True,
+                      weights=None):
     """The full-width model's loss and every parameter gradient, 2 samples x
     2 steps, on the card (kernels; `card_route` forces an attention route)
     against the CPU (auto: plain einsum or the kernels' plain versions).
-    Every launch of a kernel with two designs must take the new one."""
+    Every launch of a kernel with two designs must take the new one; a
+    model without attention (`kernels=False`) must launch none.  `weights`
+    (a state dict) replaces the seeded init on both sides."""
     import torch
 
     from dlwpbench_tpu_torch.models import registry
 
     const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
     cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
+    if weights is not None:
+        cpu.load_state_dict(weights)
     card_cfg = {**cfg.model, "remat": True}
     if card_route is not None:
         card_cfg["use_flash_attention"] = card_route
@@ -1370,15 +1413,30 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None):
     tol = 1e-3
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     print(f"gradients: full-width {cfg.model.name} (card route "
-          f"{card_route if card_route is not None else cfg.model.use_flash_attention}, "
+          f"{card_route if card_route is not None else cfg.model.get('use_flash_attention')}, "
           f"kernel launches {used}), 2 samples x 2 steps, loss card {l_card:.8f} cpu "
           f"{l_cpu:.8f} (rel {loss_rel:.2e}); worst max|diff|/max|grad| over "
           f"{len(g_cpu)} tensors {worst[0]:.3e} ({worst[1]}) (tol {tol:.0e})")
-    if not (worst[0] <= tol and loss_rel <= 1e-5 and used):
+    if not (worst[0] <= tol and loss_rel <= 1e-5 and bool(used) == kernels):
         raise SystemExit("the card's gradients disagree with the CPU reference")
     if any(c != used[n] for n, c in new.items()):
         raise SystemExit(f"gradients: launches {used}, not all on the new designs")
     return worst[0]
+
+
+def run_trainer(cfg, model, **kw):
+    """A Trainer with the run's training settings (the diffusion objective
+    and its schedule included), as the train CLI builds it."""
+    from dlwpbench_tpu_torch.training.trainer import Trainer
+
+    t = cfg.training
+    kw.setdefault("compute_dtype", t.get("compute_dtype"))
+    return Trainer(model, learning_rate=float(t.learning_rate),
+                   weight_decay=float(t.optimizer_weight_decay),
+                   training_type=str(t.get("type", "regular")), seed=int(cfg.seed),
+                   num_refinement_steps=int(t.get("num_refinement_steps", 5)),
+                   min_noise_std=float(t.get("min_noise_std", 4e-4)),
+                   ema_decay=float(t.get("ema_decay", 0.995)), **kw)
 
 
 def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
@@ -1388,13 +1446,10 @@ def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
     from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.models import registry
-    from dlwpbench_tpu_torch.training.trainer import Trainer
 
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
     model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
-    trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
-                      weight_decay=float(cfg.training.optimizer_weight_decay),
-                      compute_dtype=compute_dtype)
+    trainer = run_trainer(cfg, model, compute_dtype=compute_dtype)
     state = trainer.init()
     tensors = trainer._to_device(batch)
     trainer.train_step(state, tensors, 1e-3)
@@ -1425,7 +1480,8 @@ def _grad_distance(got: dict, ref: dict) -> float:
     return (num / sum(float((g ** 2).sum()) for g in ref.values())) ** 0.5
 
 
-def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None):
+def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: bool = True,
+                           weights=None):
     """The port's bf16 training step (`Trainer._compute_params` and
     `_loss`: bf16 copies of the parameters and inputs, the loss in fp32)
     on the full-width model, 2 samples x 2 steps: the card's loss and fp32
@@ -1439,6 +1495,8 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None):
 
     const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
     cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
+    if weights is not None:
+        cpu.load_state_dict(weights)
     card_cfg = {**cfg.model, "remat": True}
     if card_route is not None:
         card_cfg["use_flash_attention"] = card_route
@@ -1465,12 +1523,12 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None):
     dist, bf16_vs_fp32 = _grad_distance(g_card, g16), _grad_distance(g16, g32)
     loss_rel = abs(l_card - l16) / abs(l16)
     print(f"gradients, bf16 compute: full-width {cfg.model.name} (card route "
-          f"{card_route if card_route is not None else cfg.model.use_flash_attention}, kernel "
+          f"{card_route if card_route is not None else cfg.model.get('use_flash_attention')}, kernel "
           f"launches {used}, on the bf16 instance {bf16}, on the new design {new}), 2 samples x 2 "
           f"steps: loss card {l_card:.8f} cpu {l16:.8f} (rel {loss_rel:.2e}, tol 1e-2; cpu fp32 "
           f"{l32:.8f}); ||g_card - g_cpu|| / ||g_cpu|| over {len(g16)} tensors {dist:.3e} (tol "
           f"{BF16_GRAD_TOL:.0e}); the CPU's bf16 against its fp32 gradients {bf16_vs_fp32:.3e}")
-    if not (dist <= BF16_GRAD_TOL and loss_rel <= 1e-2 and used):
+    if not (dist <= BF16_GRAD_TOL and loss_rel <= 1e-2 and bool(used) == kernels):
         raise SystemExit("the card's bf16 gradients disagree with the CPU's")
     if bf16 != used or any(c != used[n] for n, c in new.items()):
         raise SystemExit(f"bf16 gradients: launches {used}, bf16 {bf16}, new design {new}")
@@ -1480,10 +1538,11 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None):
 # ---------------------------------------------------------------- the U-Net at bench.py's shape
 # `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
 # of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
-# channels).  n_time=36000 holds 384 test inits: three batches of 128.
+# channels).  n_time=24000 holds 256 test inits: two batches of 128 (three
+# until the ModernUNet phases needed the time).
 UNET_EVAL_BATCH = 128
 UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
-                  "data.n_time=36000", "--batch-size", str(UNET_EVAL_BATCH),
+                  "data.n_time=24000", "--batch-size", str(UNET_EVAL_BATCH),
                   "--sequence-length", "17", "--device", "cuda"]
 UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
 UNET_DRIVE_N_TIME = 12100  # 128 test inits: one batch
@@ -1958,11 +2017,9 @@ def epoch_busy(cfg, train_ds, check_sync: bool = False):
     from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.models import registry
-    from dlwpbench_tpu_torch.training.trainer import Trainer
 
     model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
-    trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
-                      weight_decay=float(cfg.training.optimizer_weight_decay), epochs=100)
+    trainer = run_trainer(cfg, model, epochs=100)
     state = trainer.init()
     if check_sync:
         sync_free_epoch(trainer, state, train_ds, int(cfg.training.batch_size))
@@ -2080,10 +2137,10 @@ def run_zarr_path(card: str, synthetic):
 HPX_SWIN = ["model=swintransformer", "model.type=SwinTransformerHPX", "model.mesh=healpix"]
 HPX8_TRAIN_TAIL = ["data=synthetic_hpx8", "data.n_time=1536", "training.epochs=1"]
 NSIDE32 = ["data.healpix_nside=32", "data.height=32", "data.width=32"]
-# the U-Net's user path on the evaluate paths' record: 66 training batches
-# of 32 (a small model: more steps for its s per step) and 96 test inits,
-# three evaluate batches of 32
-HPX_UNET_TRAIN_ARGV = ["model=unet_hpx", "data=synthetic_hpx8", "data.n_time=9060",
+# the U-Net's user path: 44 training batches of 32 (a small model: more
+# steps for its s per step) and 64 test inits, two evaluate batches of 32
+# (66 and three until the ModernUNet phases needed the time)
+HPX_UNET_TRAIN_ARGV = ["model=unet_hpx", "data=synthetic_hpx8", "data.n_time=6000",
                        "training.epochs=1"]
 HPX_SWIN_EVAL_ARGV = [*HPX_SWIN, "data=synthetic_hpx8", "data.n_time=9060", "--batch-size", "32",
                       "--sequence-length", "17", "--device", "cuda"]
@@ -2109,58 +2166,89 @@ def report_epoch(label: str, run: dict, cfg, train_ds, card: str):
           + f" [{card}]")
 
 
-def run_hpx_unet_path(card: str):
-    """The phase "HEALPix U-Net", the user's path, in a temporary working
-    directory (the baselines and the evaluator's climatology live under
-    `./outputs/`): `python -m dlwpbench_tpu_torch.train model=unet_hpx
-    data=synthetic_hpx8` (1 epoch, fp32) with its s per step, grid-points/s
-    and busy share; `build_baselines -c RUN_DIR`; `evaluate -c RUN_DIR`:
-    no attention launch, the forecast files on the data's 8 x 8 lat-lon
-    grid, every RMSE and ACC finite; then `python -m
-    dlwpbench_tpu_torch.remap_healpix` both ways on the forecast file's
-    first field, on the card by default, against `--device cpu`."""
+class _Tee(io.StringIO):
+    """Standard output kept as well as printed."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: bool = False):
+    """A user's path, in a temporary working directory (the baselines and
+    the evaluator's climatology live under `./outputs/`): `python -m
+    dlwpbench_tpu_torch.train ARGV` (1 epoch) with its s per step,
+    grid-points/s and busy share (`report_epoch`: an epoch's steps under
+    set_sync_debug_mode("error")); `build_baselines -c RUN_DIR`; `evaluate
+    -c RUN_DIR`: no attention launch, the forecast files on the data's
+    lat-lon grid (a HEALPix run's remapped), every RMSE and ACC finite;
+    with `remap`, then `python -m dlwpbench_tpu_torch.remap_healpix` both
+    ways on the forecast file's first field, on the card by default,
+    against `--device cpu`.  Returns the train run, the evaluate launches,
+    results and "Restored ..." line, the config and the training split."""
+    import contextlib
+
     import numpy as np
 
     from dlwpbench_tpu_torch import build_baselines, evaluate as eval_cli, remap_healpix
     from dlwpbench_tpu_torch.utils import netcdf3
 
+    name = label.replace(" ", "_")
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_hpx_unet_") as work:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as work:
         os.chdir(work)
         try:
-            run_dir = os.path.join(work, "runs", "unet_hpx")
-            train, cfg, train_ds = run_train_path("hpx unet train", HPX_UNET_TRAIN_ARGV, run_dir,
-                                                  card)
-            report_epoch("hpx unet train", train, cfg, train_ds, card)
+            run_dir = os.path.join(work, "runs", name)
+            train, cfg, train_ds = run_train_path(f"{label} train", argv, run_dir, card)
+            report_epoch(f"{label} train", train, cfg, train_ds, card)
             base = build_baselines.main(["-c", run_dir])
             counters = counters_of()
             reset_counters(counters)
             t0 = time.perf_counter()
-            res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--device", "cuda"])["unet_hpx"]
+            with contextlib.redirect_stdout(_Tee(sys.stdout)) as out:
+                res = eval_cli.main(["-c", run_dir, "--batch-size", str(batch),
+                                     "--device", "cuda"])[name]
             wall = time.perf_counter() - t0
-            launches = {name: fn.launches for name, fn in counters.items()}
+            restored = next(ln for ln in out.getvalue().splitlines() if ln.startswith("Restored"))
+            launches = {n: fn.launches for n, fn in counters.items()}
             data, _ = netcdf3.read_dataset(os.path.join(run_dir, "evaluation", "outputs.nc"))
             names = res["variables"]
             n = sum(k for k, _ in res["batch_seconds"])
+            steps = 17 - int(cfg.model.context_size)  # evaluate's --sequence-length 17
+            want = (n, steps, int(cfg.data.height), int(cfg.data.width))
             shapes = {v: data[v].shape for v in names}
             rmse = np.array([res["rmse"][v] for v in names])
             acc = np.array([res["acc"][v] for v in names])
-            print(f"hpx unet evaluate -c: {len(res['batch_seconds'])} batches of "
-                  f"{[k for k, _ in res['batch_seconds']]} x 16 steps, {wall:.1f} s wall, "
-                  f"steady-state {res['gridpoints_per_s']} grid-points/s (HEALPix pixels); "
+            print(f"{label} evaluate -c: {len(res['batch_seconds'])} batches of "
+                  f"{[k for k, _ in res['batch_seconds']]} x {steps} steps, {wall:.1f} s wall, "
+                  f"steady-state {res['gridpoints_per_s']} grid-points/s "
+                  f"({'HEALPix pixels' if cfg.data.get('healpix_nside') else 'the lat-lon grid'}); "
                   f"outputs.nc {shapes}; RMSE var0 {np.round(res['rmse']['var0'], 4).tolist()}, "
                   f"ACC var0 {np.round(res['acc']['var0'], 4).tolist()}; persistence RMSE var0 "
                   f"at the last lead {base['persistence']['rmse']['var0'][-1]:.4f}; attention "
                   f"launches {launches} (none wanted) [{card}]")
-            if (any(launches.values()) or any(sh != (n, 16, 8, 8) for sh in shapes.values())
+            if (any(launches.values()) or any(sh != want for sh in shapes.values())
                     or not (np.isfinite(rmse).all() and np.isfinite(acc).all())):
-                raise SystemExit(f"hpx unet evaluate -c: launches {launches}, outputs {shapes} "
-                                 f"(want ({n}, 16, 8, 8)), RMSE finite {np.isfinite(rmse).all()}, "
+                raise SystemExit(f"{label} evaluate -c: launches {launches}, outputs {shapes} "
+                                 f"(want {want}), RMSE finite {np.isfinite(rmse).all()}, "
                                  f"ACC finite {np.isfinite(acc).all()}")
-            check_remap_cli(remap_healpix.main, data[names[0]], work, card)
+            if remap:
+                check_remap_cli(remap_healpix.main, data[names[0]], work, card)
         finally:
             os.chdir(cwd)
-    return train, launches
+    return dict(train=train, launches=launches, res=res, restored=restored, cfg=cfg,
+                train_ds=train_ds)
+
+
+def run_hpx_unet_path(card: str):
+    """The phase "HEALPix U-Net": `run_user_path` on `model=unet_hpx
+    data=synthetic_hpx8`, with the remap CLI's check."""
+    r = run_user_path("hpx unet", HPX_UNET_TRAIN_ARGV, card, remap=True)
+    return r["train"], r["launches"]
 
 
 def check_remap_cli(main, field, work: str, card: str):
@@ -2324,6 +2412,266 @@ def run_hpx_swin_paths(card: str):
     return paths, fused, runs
 
 
+# ---------------------------------------------------------------- the ModernUNet family
+# `configs/model/modernunet.yaml` at its shipped width (hidden 64, 128, 256,
+# 1024; 89,568,046 parameters on the 4 + 1 + 8 synthetic channels): the
+# evaluate paths' 96 test inits and the training paths' 11 batches.  The
+# reference's HEALPix ModernUNet (`modernunet_inverted_hpx.yaml`, hidden
+# 136, 68, 34) and the HEALPix diffusion model on the training paths' 1,536
+# frames (11 training batches, 16 test inits: one evaluate batch); the
+# lat-lon diffusion model (`diffusion_modernunet.yaml`, 80,678,024
+# parameters, `training=diffusion`) on 3,000 frames: 22 training batches,
+# 2 validation batches, 31 test inits, evaluate batches of 16 and 15 (75
+# denoiser calls each: 15 leads x 5 refinements).
+MUNET_EVAL_ARGV = ["model=modernunet", *EVAL_TAIL]
+MUNET_TRAIN_ARGV = ["model=modernunet", *TRAIN_TAIL, "training.epochs=1"]
+MUNET_HPX_ARGV = ["model=modernunet_inverted_hpx", "data=synthetic_hpx8", "data.n_time=1536",
+                  "training.epochs=1"]
+DIFF_ARGV = ["model=diffusion_modernunet", "training=diffusion", "data=synthetic",
+             "data.n_time=3000", "training.epochs=1"]
+DIFF_HPX_ARGV = ["model=diffusion_modernunet", "model.type=DiffMUNetHPX", "model.mesh=healpix",
+                 "training=diffusion", "data=synthetic_hpx8", "data.n_time=1536",
+                 "training.epochs=1"]
+# the op groups of a ModernUNet step's device time (CPU op names, forward
+# and backward: cuDNN's forward, dgrad and wgrad convolutions and the
+# transposes; GroupNorm and its backward; the skip concatenations)
+STEP_GROUPS = {"convolution": ("conv",), "group_norm": ("group_norm",),
+               "concatenation": ("aten::cat",)}
+
+
+class Clock:
+    """Prints the seconds since its last call beside a step's name."""
+
+    def __init__(self, phase: str, card: str):
+        self.phase, self.card, self.t = phase, card, time.perf_counter()
+
+    def __call__(self, step: str):
+        now = time.perf_counter()
+        print(f"{self.phase} phase: {step} {now - self.t:.1f} s [{self.card}]")
+        self.t = now
+
+
+def profile_step_split(cfg, train_ds, card: str):
+    """One training step at batch 32 under the profiler (in the config's
+    compute dtype), its device time by the op that launched each kernel:
+    the convolutions, GroupNorm, the concatenations and the rest (the
+    layout copies around GroupNorm, GELU, AdamW, ... by name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwpbench_tpu_torch.models import registry
+
+    batch = next(train_ds.batches(int(cfg.training.batch_size)))
+    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    trainer = run_trainer(cfg, model)
+    state = trainer.init()
+    tensors = trainer._to_device(batch)
+    trainer.train_step(state, tensors, 1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, tensors, 1e-3)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dtype = cfg.training.get("compute_dtype") or "float32"
+    what = (f"{cfg.model.name}, one training step at batch {len(batch[2])} ({dtype} compute, "
+            f"{cfg.training.get('type', 'regular')})")
+    _print_profile(prof, what, wall_us, card, 8)
+    events = prof.key_averages()
+    kernels = sum(e.self_device_time_total for e in events if str(e.device_type).endswith("CUDA"))
+    ops = [e for e in events if not str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    if not kernels:
+        return None
+    shares = {g: sum(e.self_device_time_total for e in ops if any(k in e.key for k in keys))
+              for g, keys in STEP_GROUPS.items()}
+    shares["rest"] = kernels - sum(shares.values())
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    print(f"profile: {what}: device time by the op that launched it: " + "; ".join(
+        f"{g} {us / 1e3:.2f} ms = {100 * us / kernels:.1f}%" for g, us in shares.items())
+        + f" of {kernels / 1e3:.2f} ms; top ops " + ", ".join(
+        f"{e.key} {e.self_device_time_total / 1e3:.2f} ms" for e in top) + f" [{card}]")
+    return {g: us / kernels for g, us in shares.items()}
+
+
+def run_modern_unet_paths(card: str):
+    """The phases "ModernUNet" (lat-lon, shipped width) and "MUNetHPX":
+    the evaluate CLI (3 batches of 32 x 16 steps, fp32) with a profiled
+    rollout and card vs CPU; 1 training epoch in fp32 and in bf16 compute
+    through the train CLI, each with its busy share after an epoch under
+    set_sync_debug_mode("error"), a profiled step split into
+    convolutions, GroupNorm and concatenations, and the card's gradients
+    against the CPU's (the bf16 ones as the bf16 check does); the HEALPix
+    model's user path (train, build_baselines -c, evaluate -c with ACC)
+    and its rollout card vs CPU.  No attention kernel launches anywhere."""
+    paths, runs, clock = {}, {}, Clock("ModernUNet", card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_munet_eval_") as out_dir:
+        _, paths["munet_evaluate"], cfg, _ = run_eval_path("modernunet evaluate", MUNET_EVAL_ARGV,
+                                                           out_dir, card)
+    clock("evaluate CLI")
+    cfg.data["n_time"] = HELPER_N_TIME
+    profile_rollout(cfg, card)
+    weights = perturbed_state(cfg)
+    check_rollout_vs_cpu(cfg, weights, weights_label="seeded, moved by 0.01 N(0, 1)")
+    clock("profile, card vs CPU rollout")
+    for key, argv in (("munet_train", MUNET_TRAIN_ARGV),
+                      ("munet_train_bf16", [*MUNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"])):
+        label = key.replace("_", " ")
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+            run, rcfg, rds = run_train_path(label, argv, run_dir, card)
+        clock(f"{label} CLI")
+        report_epoch(label, run, rcfg, rds, card)
+        run["step_split"] = profile_step_split(rcfg, rds, card)
+        clock(f"{label} busy share, step split")
+        if rcfg.training.get("compute_dtype") == "bfloat16":
+            check_train_grads_bf16(rcfg, rds, card, kernels=False, weights=weights)
+        else:
+            check_train_grads(rcfg, rds, card, kernels=False, weights=weights)
+        clock(f"{label} card vs CPU gradients")
+        runs[key], paths[key] = run, run["launches"]
+    a, b = runs["munet_train"], runs["munet_train_bf16"]
+    print(f"training, fp32 against bf16 compute: modernunet {a['seconds_per_step']:.4f} against "
+          f"{b['seconds_per_step']:.4f} s per step "
+          f"({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), peak {a['peak_gib']:.2f} "
+          f"against {b['peak_gib']:.2f} GiB [{card}]")
+    hpx = run_user_path("munet hpx", MUNET_HPX_ARGV, card)
+    check_rollout_vs_cpu(hpx["cfg"], perturbed_state(hpx["cfg"]),
+                         weights_label="seeded, moved by 0.01 N(0, 1)")
+    clock("MUNetHPX user path, card vs CPU")
+    runs["munet_hpx_train"] = hpx["train"]
+    paths["munet_hpx_train"], paths["munet_hpx_evaluate"] = hpx["train"]["launches"], hpx["launches"]
+    return paths, runs
+
+
+def check_ema_replay(cfg, train_ds, card: str):
+    """A diffusion training epoch through `Trainer.train_epoch`, its steps
+    under set_sync_debug_mode("error"), the parameters copied on the card
+    after each step: the EMA at the end equals e <- e * d + p * (1 - d)
+    replayed in fp64 from the initial parameters over those copies (the
+    trainer's fp32 lerp rounds each step: tol 1e-5 of each tensor's max)."""
+    import torch
+
+    from dlwpbench_tpu_torch.models import registry
+
+    model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda()
+    trainer = run_trainer(cfg, model, epochs=100)
+    state = trainer.init()
+    replay = {n: t.double() for n, t in state.ema.items()}
+    snaps, step = [], trainer.train_step
+
+    def step_and_keep(*a, **k):
+        loss = step(*a, **k)
+        snaps.append({n: p.detach().clone() for n, p in model.named_parameters()})
+        return loss
+
+    trainer.train_step = step_and_keep
+    sync_free_epoch(trainer, state, train_ds, int(cfg.training.batch_size))
+    d = trainer.ema_decay
+    for snap in snaps:
+        for n, e in replay.items():
+            e.mul_(d).add_(snap[n].double(), alpha=1.0 - d)
+    worst = max(((state.ema[n].double() - e).abs().max() / e.abs().max().clamp_min(1e-30)).item()
+                for n, e in replay.items())
+    moved = max((state.ema[n] - p).abs().max().item() for n, p in model.named_parameters())
+    n_steps = len(snaps)
+    snaps.clear()  # the closure on the trainer is a reference cycle: free the copies now
+    del trainer.train_step
+    print(f"{cfg.model.name} EMA: {n_steps} steps under set_sync_debug_mode('error'), decay "
+          f"{d}; the EMA against the fp64 replay from the step parameters: worst max|diff| / "
+          f"max|ema| over {len(replay)} tensors {worst:.3e} (tol 1e-5); max|ema - params| "
+          f"{moved:.3e} [{card}]")
+    if not (worst <= 1e-5 and n_steps == len(list(train_ds.batches(int(cfg.training.batch_size))))
+            and moved > 0):
+        raise SystemExit(f"{cfg.model.name} EMA: replay error {worst}, {n_steps} steps")
+    return worst
+
+
+def check_diffusion_vs_cpu(cfg, card: str):
+    """The full-width diffusion model (seeded, every parameter moved by
+    0.01 x N(0, 1) so that the zero-initialised convs carry signal) on the
+    card against the CPU: `single_forward` at timesteps 800 and 999 on 2
+    training samples, its loss and every parameter gradient; the 3-step
+    rollout of 2 test samples for both samplers, fed the same noise.  No
+    attention kernel launches."""
+    import torch
+
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.models import registry
+
+    cfg.testing["sequence_length"] = int(cfg.model.context_size) + 3
+    train_ds, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                                             int(cfg.model.context_size))
+    g = torch.Generator().manual_seed(0)
+    cpu = registry.build_model(cfg.model, seed=int(cfg.seed))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=g))
+    card_model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda()
+    card_model.load_state_dict(cpu.state_dict())
+    counters = counters_of()
+    before = {n: fn.launches for n, fn in counters.items()}
+    ctx = int(cfg.model.context_size)
+    const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
+    y, w = torch.randn(target.shape, generator=g), torch.randn(target[:, 0].shape, generator=g)
+    k = torch.tensor([800, 999])
+    grads = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card_model, "cuda")):
+        args = [a.to(dev) for a in (const, pres[:, :ctx], prog[:, :ctx], y, k)]
+        loss = (model.single_forward(*args) * w.to(dev)).mean()
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["cuda"]
+    worst = max(((g_card[n] - t).abs().max() / t.abs().max().clamp_min(1e-30)).item()
+                for n, t in g_cpu.items())
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    tc, tp, tg, _ = (torch.from_numpy(a) for a in next(test_ds.batches(2)))
+    shape = (2, 1, *tg.shape[2:])
+    noise = [[torch.randn(shape, generator=g) for _ in range(6)] for _ in range(3)]
+    errs = {}
+    with torch.no_grad():
+        for sampler in ("mean", "reference"):
+            cpu.sampler = card_model.sampler = sampler
+            ref = cpu(tc, tp, tg, noise=noise)
+            got = card_model(tc.cuda(), tp.cuda(), tg.cuda(),
+                             noise=[[z.cuda() for z in step] for step in noise]).cpu()
+            errs[sampler] = ((got - ref).abs().max() / ref.abs().max()).item()
+    used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
+    tol = 1e-3  # fp32 both sides; cuDNN against ATen's CPU convolutions, other orders
+    print(f"{cfg.model.name} card vs CPU (full width, {cfg.model.type}): single_forward at k "
+          f"{k.tolist()} on 2 samples, loss rel {loss_rel:.2e}, worst max|diff|/max|grad| over "
+          f"{len(g_cpu)} tensors {worst:.3e}; 3-step rollout with the same noise, max|diff| / "
+          f"max|ref| {', '.join(f'{s} {e:.3e}' for s, e in errs.items())} (tol {tol:.0e}); "
+          f"attention launches {used} (none wanted) [{card}]")
+    if used or not (worst <= tol and loss_rel <= 1e-5 and max(errs.values()) <= tol):
+        raise SystemExit(f"{cfg.model.name}: the card disagrees with the CPU")
+    return worst, errs
+
+
+def run_diffusion_paths(card: str):
+    """The phases "DiffModernUNet" and "DiffMUNetHPX" (the author's
+    HEALPix + diffusion path): each user path (`run_user_path`: train 1
+    epoch with the v-prediction objective and the EMA, an epoch's steps
+    under set_sync_debug_mode("error"), build_baselines -c, evaluate -c on
+    the EMA weights with ACC), the card against the CPU
+    (`check_diffusion_vs_cpu`); on the lat-lon model also the EMA against
+    its replay (`check_ema_replay`)."""
+    paths, runs, clock = {}, {}, Clock("diffusion", card)
+    for key, argv in (("diffusion", DIFF_ARGV), ("diffusion_hpx", DIFF_HPX_ARGV)):
+        r = run_user_path(key.replace("_", " "), argv, card, batch=16)
+        if "EMA weights" not in r["restored"]:
+            raise SystemExit(f"{key} evaluate -c: {r['restored']!r}, want the EMA weights")
+        clock(f"{key} user path")
+        if key == "diffusion":
+            check_ema_replay(r["cfg"], r["train_ds"], card)
+            clock("EMA replay")
+        check_diffusion_vs_cpu(r["cfg"], card)
+        profile_step_split(r["cfg"], r["train_ds"], card)
+        clock(f"{key} card vs CPU, step split")
+        runs[f"{key}_train"] = r["train"]
+        paths[f"{key}_train"], paths[f"{key}_evaluate"] = r["train"]["launches"], r["launches"]
+    return paths, runs
+
+
 # ---------------------------------------------------------------- the packed path
 PACKED_STEPS = 3
 
@@ -2422,32 +2770,40 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = card_line()
+    clock = Clock("chip_smoke", card)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     build_all()
+    clock("build")
     flash = check_flash(card)
     flash_bwd = check_flash_bwd(card)
     window = check_window(card)
     packed = check_packed(card)
     check_packed_vs_5d(card)
+    clock("kernel checks")
 
     paths, fused_by_path = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
         _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
             "main path", MAIN_ARGV, out_dir, card)
+    cfg.data["n_time"] = HELPER_N_TIME
     check_rollout_vs_cpu(cfg)
     profile_rollout(cfg, card)
+    clock("Swin evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
         train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card)
     paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
     check_train_grads(tcfg, train_ds, card)
     profile_train_step(tcfg, train_ds, card)
+    clock("Swin train")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_eval_") as out_dir:
         _, paths["pangu_evaluate"], pcfg, fused_by_path["pangu_evaluate"] = run_eval_path(
             "pangu evaluate", PANGU_EVAL_ARGV, out_dir, card)
+    pcfg.data["n_time"] = HELPER_N_TIME
     profile_rollout(pcfg, card)
+    clock("Pangu evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
         ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card)
@@ -2461,6 +2817,7 @@ def main() -> int:
     # block's windows through the token-major forward and backward
     check_train_grads(ptcfg, ptrain_ds, card, card_route="packed")
     profile_train_step(ptcfg, ptrain_ds, card)
+    clock("Pangu train")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
         s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
@@ -2470,7 +2827,9 @@ def main() -> int:
     profile_train_step(s8cfg, s8_ds, card)
     prefetch = compare_prefetch(s8cfg, s8_ds, card)
     paths["swin_win8_prefetch"] = prefetch["launches"]
+    clock("swin_win8 train and the prefetch")
     paths["packed"], fused_by_path["packed"] = run_packed_path(card)
+    clock("packed path")
 
     # the U-Net at bench.py's shape: the evaluate CLI (fp32), the same
     # rollout in fp32 and bf16, card vs CPU on 2 samples x 2 steps
@@ -2478,8 +2837,9 @@ def main() -> int:
         _, paths["unet_evaluate"], ucfg, fused_by_path["unet_evaluate"] = run_eval_path(
             "unet evaluate", UNET_EVAL_ARGV, out_dir, card)
     drive_unet_rollout(ucfg, card)
-    ucfg.data["n_time"] = 1536  # 2 samples need no 384 test inits
+    ucfg.data["n_time"] = 1536  # 2 samples need no 256 test inits
     check_rollout_vs_cpu(ucfg)
+    clock("U-Net evaluate")
 
     # training in fp32 and with bf16 compute: the U-Net (shipped config),
     # and one epoch each of the Swin and Pangu in bf16 beside their fp32
@@ -2509,6 +2869,7 @@ def main() -> int:
               f"{b['seconds_per_step']:.4f} s per step ({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), "
               f"{a['samples_per_s']:.2f} against {b['samples_per_s']:.2f} samples/s, peak "
               f"{a['peak_gib']:.2f} against {b['peak_gib']:.2f} GiB [{card}]")
+    clock("U-Net training, bf16 training")
 
     # the real-data path: the WeatherBench zarr tree, the native batcher and
     # decoder, the Swin trained and evaluated with ACC against the baselines
@@ -2516,6 +2877,7 @@ def main() -> int:
     train_runs["zarr_train"] = zarr["train"]
     paths["zarr_train"], fused_by_path["zarr_train"] = zarr["train"]["launches"], zarr["train"]["fused"]
     paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = zarr["eval_launches"], zarr["eval_fused"]
+    clock("zarr path")
 
     # the HEALPix paths: the U-Net's train, baselines and evaluate -c; the
     # Swin at the shipped width (flash) and with 8x8 windows at nside 32
@@ -2536,6 +2898,24 @@ def main() -> int:
     drive_hpx_unet_rollout(card)
     phase_s["HEALPix U-Net rollout, nside 32"] = time.perf_counter() - t0
     print("HEALPix phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f" [{card}]")
+
+    # the ModernUNet family: the lat-lon model at its shipped width
+    # (evaluate, fp32 and bf16 training), the HEALPix one's user path, and
+    # both diffusion models' user paths (v-prediction, EMA, evaluate -c on
+    # the EMA weights)
+    phase_s = {}
+    t0 = time.perf_counter()
+    munet_paths, munet_runs = run_modern_unet_paths(card)
+    phase_s["ModernUNet and MUNetHPX"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diff_paths, diff_runs = run_diffusion_paths(card)
+    phase_s["DiffModernUNet and DiffMUNetHPX"] = time.perf_counter() - t0
+    paths.update(munet_paths)
+    paths.update(diff_paths)
+    train_runs.update(munet_runs)
+    train_runs.update(diff_runs)
+    print("ModernUNet phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f" [{card}]")
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 

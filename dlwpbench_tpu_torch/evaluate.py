@@ -11,7 +11,8 @@ two modes:
 With `-c`, each run directory that `python -m dlwpbench_tpu_torch.train`
 wrote is evaluated: its saved `config.yaml` builds the model and the data,
 and the model's weights come from `checkpoints/<name>_best.ckpt`; the
-files go to `RUN_DIR/evaluation`.  With overrides, `configs/` is composed
+files go to `RUN_DIR/evaluation`; a diffusion run (`training=diffusion`) is
+evaluated on the EMA of its parameters.  With overrides, `configs/` is composed
 Hydra-style and the model's weights come from `--weights` (an `.npz` of
 the flax parameter tree with `/`-joined keys) or a seeded random init from
 the config's `seed`; the files go to `--out-dir` (default
@@ -148,16 +149,23 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
 
 def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
                  device: str = "cuda") -> dict:
-    """Evaluate the best checkpoint of a training run into
-    `run_dir/evaluation`; returns what `_evaluate_model` returns."""
+    """Evaluate the best checkpoint of a training run (a diffusion run's
+    EMA weights) into `run_dir/evaluation`; returns what `_evaluate_model`
+    returns."""
     dev = resolve_device(device)
     _no_tf32()
     cfg = load_saved_config(run_dir)
     model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0))).to(dev)
-    # the optimizer is built only so that load_checkpoint can restore into it
+    # the optimizer (and a diffusion run's EMA) are built only so that
+    # load_checkpoint can restore into them
     trainer = Trainer(model, training_type=str(cfg.training.get("type", "regular")))
     state = load_checkpoint(run_dir, cfg.model.name, trainer.init(), kind="best")
-    print(f"Restored {cfg.model.name} from {run_dir} (epoch {state.epoch})")
+    if state.ema is not None:  # a diffusion run is evaluated on its EMA weights
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state.ema[n])
+    which = "raw" if state.ema is None else "EMA"
+    print(f"Restored {cfg.model.name} (epoch {state.epoch}, {which} weights)")
     return _evaluate_model(cfg, model, batch_size, sequence_length,
                            os.path.join(run_dir, "evaluation"))
 

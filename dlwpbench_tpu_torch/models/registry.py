@@ -29,8 +29,10 @@ def get_model_class(name: str):
 def build_model(model_cfg: dict, **kwargs):
     """Instantiate a model from a config dict with a `type` key.
 
-    Config keys the constructor does not take (e.g. `name`) are dropped;
-    `kwargs` (the init `seed`) are passed through."""
+    Config keys the constructor does not take (e.g. `name`, and `remat` for
+    the diffusion models, which are no rollout models) are dropped, as
+    the JAX `build_model` drops keys its dataclass lacks; `kwargs` (the
+    init `seed`) are passed through."""
     cfg = dict(model_cfg)
     cls = get_model_class(cfg.pop("type"))
     params = inspect.signature(cls.__init__).parameters

@@ -8,6 +8,15 @@
   padding of the 12 faces (`healpix_pad_channels_last`), then the faces
   folded into the batch for one conv; 1x1 convs skip padding.
 - `GeoConvTranspose`: the U-Net decoder's 2x upsampling transposed conv.
+- `PlainConv`, `PlainConvTranspose`: torch's own zero-padded conv and
+  transposed conv (`Conv2d(k, s, padding=(k-1)//2)`, `ConvTranspose2d(k,
+  s, padding)`) on channels-last fields, on the folded faces on HEALPix
+  with no neighbour padding: the ModernUNet's strided downsampling
+  (`modern_unet.py:239-247`, a reference quirk kept on HEALPix) and its
+  k4 / s2 / p1 upsampling, which equals flax's "SAME" transpose and the
+  VALID one cropped by 1 at each edge (`:249-258`).  They are the
+  `nn.Conv2d` and `nn.ConvTranspose2d` themselves, so they carry flax's
+  bare `Conv_k` and `ConvTranspose_k` names.
 - `avg_pool_2x`: the U-Net encoder's 2x2 / stride-2 average pool.
 - `fold_faces` / `unfold_faces`: [B, 12, H, W, C] <-> [B*12, H, W, C].
 - `ACTIVATIONS` and `get_activation`: the activation table and the parser
@@ -67,6 +76,14 @@ def unfold_faces(x: torch.Tensor, faces: int = 12) -> torch.Tensor:
     return x.reshape(BF // faces, faces, H, W, C)
 
 
+def _on_mesh(layer: Callable, x: torch.Tensor, mesh: str) -> torch.Tensor:
+    """An NCHW layer on a channels-last field, on the folded faces on
+    HEALPix."""
+    if mesh == "healpix":
+        return unfold_faces(_nchw(layer, fold_faces(x)))
+    return _nchw(layer, x)
+
+
 class GeoConv(nn.Module):
     """Boundary-aware 2D convolution [B, H, W, Cin] -> [B, H', W', features].
 
@@ -89,16 +106,14 @@ class GeoConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.pad
-        if self.mesh == "healpix":
-            # pad the faces from their neighbours, fold them into the batch, one conv
-            if p:
-                x = healpix_pad_channels_last(x, p)
-            return unfold_faces(_nchw(self.Conv_0, fold_faces(x)))
+        if p and self.mesh == "healpix":
+            # pad the faces from their neighbours; one conv over the folded faces
+            x = healpix_pad_channels_last(x, p)
         if p and self.mesh in ("equirectangular", "torus"):
             x = _circular(x, p, 2)  # longitude
         if p and self.mesh == "torus":
             x = _circular(x, p, 1)
-        return _nchw(self.Conv_0, x)
+        return _on_mesh(self.Conv_0, x, self.mesh)
 
 
 class GeoConvTranspose(nn.Module):
@@ -117,18 +132,43 @@ class GeoConvTranspose(nn.Module):
                                                   stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh == "healpix":
-            return unfold_faces(_nchw(self.ConvTranspose_0, fold_faces(x)))
-        return _nchw(self.ConvTranspose_0, x)
+        return _on_mesh(self.ConvTranspose_0, x, self.mesh)
+
+
+class PlainConv(nn.Conv2d):
+    """torch-style zero-padded conv (padding (k - 1) // 2) of [B, H, W, C]
+    or, on the "healpix" mesh, of each face of [B, 12, n, n, C]."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, mesh: str = "equirectangular"):
+        _check_mesh(mesh)
+        super().__init__(in_features, features, kernel_size, stride=stride,
+                         padding=(int(kernel_size) - 1) // 2)
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _on_mesh(super().forward, x, self.mesh)
+
+
+class PlainConvTranspose(nn.ConvTranspose2d):
+    """torch's ConvTranspose2d(k, s, padding) of [B, H, W, C] or of each
+    face of [B, 12, n, n, C]; (k, s, p) = (4, 2, 1) doubles H and W."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, mesh: str = "equirectangular"):
+        _check_mesh(mesh)
+        super().__init__(in_features, features, kernel_size, stride=stride, padding=padding)
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _on_mesh(super().forward, x, self.mesh)
 
 
 def avg_pool_2x(x: torch.Tensor, mesh: str = "equirectangular") -> torch.Tensor:
     """2x2 / stride-2 average pool of [B, H, W, C] (odd edges dropped), or
     of each face of [B, 12, H, W, C] on the "healpix" mesh."""
     _check_mesh(mesh)
-    if mesh == "healpix":
-        return unfold_faces(_nchw(lambda t: F.avg_pool2d(t, 2, 2), fold_faces(x)))
-    return _nchw(lambda t: F.avg_pool2d(t, 2, 2), x)
+    return _on_mesh(lambda t: F.avg_pool2d(t, 2, 2), x, mesh)
 
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

@@ -10,7 +10,9 @@ the latitude weights, and trains with TF32 off (AdamW, cosine LR, gradient
 clipping to the LR): in fp32, or with `training.compute_dtype=bfloat16`
 in bf16 compute over fp32 master parameters (the forward and backward in
 bf16; the loss, gradients, optimizer state, validation and checkpoints in
-fp32).  Writes `config.yaml`, `metrics.jsonl` and,
+fp32).  `training=diffusion` trains a diffusion model (`model=
+diffusion_modernunet`) on the v-prediction objective with an EMA of its
+parameters, checkpointed beside them.  Writes `config.yaml`, `metrics.jsonl` and,
 with `training.save_model`, best/last checkpoints under `run_dir`;
 `training.continue_training` resumes from the last checkpoint.  Prints the
 JAX CLI's line per epoch.
@@ -92,6 +94,10 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
         lat_weights=lat_w,
         training_type=str(cfg.training.get("type", "regular")),
         compute_dtype=cfg.training.get("compute_dtype"),
+        seed=int(cfg.get("seed", 1234)),
+        num_refinement_steps=int(cfg.training.get("num_refinement_steps", 5)),
+        min_noise_std=float(cfg.training.get("min_noise_std", 4e-4)),
+        ema_decay=float(cfg.training.get("ema_decay", 0.995)),
     )
     state = trainer.init()
     if cfg.verbose:

@@ -28,12 +28,24 @@ The port's counterpart of `dlwpbench_tpu/training/trainer.py:36-456,
   counterpart of `_prefetch_to_device` (`:441-455`, depth 2): staged in
   pinned memory and copied on a side stream while the previous step runs.
   An epoch reads nothing back from the card until its end: the steps are
-  timed with CUDA events read once the epoch's loss is read.
+  timed with CUDA events read once the epoch's loss is read;
+- `training_type="diffusion"` (`:175-202`): the v-prediction loss of a
+  diffusion model's `single_forward` on the residual target, one timestep
+  k for the whole step in [0, T - 1) and Gaussian noise (`_diffusion_loss`;
+  every micro-batch of a step gets the same k, and equal-shaped ones the
+  same noise, as JAX passes one key to all of them, `:208-216`).  k comes
+  from a host generator, so it indexes the schedule's tables on the card
+  without a read back; the noise is drawn on the device from a generator
+  seeded from `seed`.  An EMA of the fp32 master parameters starts as
+  their copy (`:136-140`), is updated after every optimizer step as
+  e * d + p * (1 - d) (`:288-294`, one `torch._foreach_lerp_`), and is
+  checkpointed beside them; validation rolls out the raw parameters
+  (`:258`).
 
 PyTorch runs eagerly: a train step is the model's forward, `backward()`
-and `optimizer.step()`, which updates the parameters in place.  The
-diffusion objective and data parallelism are not ported (they raise and
-name their ROADMAP item).
+and `optimizer.step()`, which updates the parameters in place.  Data
+parallelism is not ported (the train CLI raises and names its ROADMAP
+item).
 """
 
 from __future__ import annotations
@@ -52,7 +64,10 @@ import torch
 from torch import nn
 
 from dlwpbench_tpu_torch import weights as W
+from dlwpbench_tpu_torch.ops import ddpm
 from dlwpbench_tpu_torch.training.losses import mse_loss
+
+TRAINING_TYPES = ("regular", "diffusion")
 
 
 def cosine_lr(epoch: int, base_lr: float, total_epochs: int) -> float:
@@ -76,13 +91,15 @@ def clip_grads_to(grads: list[torch.Tensor], max_norm) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """What a checkpoint holds: the model and optimizer (parameters and
-    AdamW moments live there) and the loop counters."""
+    AdamW moments live there), the loop counters and, for diffusion
+    training, the EMA of the parameters by name."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     epoch: int = 0
     iteration: int = 0
     best_val_error: float = math.inf
+    ema: Optional[dict[str, torch.Tensor]] = None
 
 
 class Trainer:
@@ -99,12 +116,18 @@ class Trainer:
         lat_weights: np.ndarray | None = None,
         training_type: str = "regular",
         compute_dtype: str | None = None,
+        seed: int = 1234,
+        num_refinement_steps: int = 5,
+        min_noise_std: float = 4e-4,
+        ema_decay: float = 0.995,
     ):
-        if training_type != "regular":
-            raise NotImplementedError(
-                f"training.type {training_type!r} (v-prediction diffusion with EMA) "
-                "is not ported to PyTorch yet (ROADMAP queue A, item 10)"
-            )
+        if training_type not in TRAINING_TYPES:
+            raise ValueError(f"training.type {training_type!r}: expected one of {TRAINING_TYPES}")
+        self.diffusion = training_type == "diffusion"
+        if self.diffusion and not hasattr(model, "single_forward"):
+            raise ValueError(
+                f"training.type 'diffusion' needs a diffusion model (DiffModernUNet, "
+                f"DiffMUNetHPX); {type(model).__name__} has no single_forward")
         self.compute_dtype = None
         if compute_dtype not in (None, "float32"):
             dtype = getattr(torch, str(compute_dtype), None)
@@ -115,6 +138,12 @@ class Trainer:
             raise ValueError("gradient_accumulation_steps must be >= 1")
         self.model = model
         self.device = next(model.parameters()).device
+        self.ema_decay = float(ema_decay)
+        if self.diffusion:
+            self.sched = ddpm.make_refiner_schedule(num_refinement_steps, min_noise_std,
+                                                    device=self.device)
+            self._k_gen = torch.Generator().manual_seed(int(seed))
+            self._noise_gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.base_lr = learning_rate
         self.weight_decay = weight_decay
         self.epochs = epochs
@@ -140,7 +169,9 @@ class Trainer:
             self.model.parameters(), lr=self.base_lr, betas=(0.9, 0.999),
             eps=1e-8, weight_decay=self.weight_decay,
         )
-        return TrainState(model=self.model, optimizer=opt)
+        ema = ({n: p.detach().clone() for n, p in self.model.named_parameters()}
+               if self.diffusion else None)
+        return TrainState(model=self.model, optimizer=opt, ema=ema)
 
     def n_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
@@ -189,9 +220,40 @@ class Trainer:
         out = self.model(const, pres, prog)
         return mse_loss(out.float(), target)  # the loss in fp32 whatever the compute dtype
 
-    def train_step(self, state: TrainState, batch, lr: float) -> torch.Tensor:
+    def _diffusion_loss(self, const, pres, prog, target, k: int,
+                        noise: torch.Tensor) -> torch.Tensor:
+        """v-prediction loss (reference `train.py:226-258`): the residual
+        target noised to timestep k, denoised by `single_forward` from the
+        context, MSE against the v target in fp32."""
+        ctx = self.model.context_size
+        if target.shape[1] != 1:
+            raise ValueError(
+                "diffusion training requires sequence_length == context_size + 1 "
+                f"(one residual target); got {target.shape[1]} target frames")
+        target_res = target - prog[:, ctx - 1 : ctx]
+        y_noised = ddpm.add_noise(self.sched, target_res, noise, k)
+        if self.compute_dtype is not None:
+            const, pres, prog, y_noised = (
+                x if x is None else x.to(self.compute_dtype) for x in (const, pres, prog, y_noised))
+        out = self.model.single_forward(
+            const, None if pres is None else pres[:, :ctx], prog[:, :ctx], y_noised,
+            torch.full((prog.shape[0],), k, device=prog.device))
+        v_target = ddpm.v_prediction_target(self.sched, target_res, noise, k)
+        return mse_loss(out[:, None].float(), v_target)
+
+    def _draw_k(self) -> int:
+        """The step's diffusion timestep, uniform in [0, T - 1), on the host."""
+        return int(torch.randint(0, self.sched.num_timesteps - 1, (), generator=self._k_gen))
+
+    def _draw_noise(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self._noise_gen, device=self.device)
+
+    def train_step(self, state: TrainState, batch, lr: float, k: Optional[int] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step over `accum` micro-batches (+ remainder);
-        returns the batch loss (a 0-d tensor on the device)."""
+        returns the batch loss (a 0-d tensor on the device).  Diffusion
+        training draws the step's timestep and noise unless `k` and
+        `noise` (of a micro-batch's target shape) are given."""
         const, pres, prog, target = batch
         params = [p for p in state.model.parameters() if p.requires_grad]
         for group in state.optimizer.param_groups:
@@ -205,12 +267,23 @@ class Trainer:
         chunks = [(i * n_full, (i + 1) * n_full) for i in range(self.accum)]
         if n_full * self.accum < B:
             chunks.append((n_full * self.accum, B))
+        if self.diffusion and k is None:
+            k = self._draw_k()
+        noises = {} if noise is None else {tuple(noise.shape): noise}
         total = torch.zeros((), device=self.device)
         for lo, hi in chunks:
             part = [None if x is None else x[lo:hi] for x in batch]
             w = (hi - lo) / B  # 1.0 for a single chunk
+            if self.diffusion:
+                shape = tuple(part[3].shape)
+                if shape not in noises:
+                    if noise is not None:
+                        raise ValueError(f"noise of shape {tuple(noise.shape)} for a micro-batch "
+                                         f"target of {shape}")
+                    noises[shape] = self._draw_noise(shape)
             with self._compute_params(state.model):
-                loss = self._loss(*part)
+                loss = (self._diffusion_loss(*part, k, noises[shape]) if self.diffusion
+                        else self._loss(*part))
                 (w * loss).backward()
             total = total + w * loss.detach()
 
@@ -240,11 +313,20 @@ class Trainer:
         for batch in prefetch_to_device(dataset.batches(batch_size, shuffle=shuffle),
                                         self.device):
             losses.append(self.train_step(state, batch, lr))
+            if state.ema is not None:
+                self._update_ema(state)
             samples.append(batch[2].shape[0])
             marks.append(mark())
             state.iteration += 1
         state.epoch += 1
         return self._close_epoch(losses, samples, marks)
+
+    def _update_ema(self, state: TrainState) -> None:
+        """ema = ema * d + p * (1 - d) over the fp32 master parameters, as
+        one lerp by 1 - d on the device."""
+        params = dict(state.model.named_parameters())
+        torch._foreach_lerp_(list(state.ema.values()),
+                             [params[n].detach() for n in state.ema], 1.0 - self.ema_decay)
 
     def _close_epoch(self, losses, samples, marks) -> float:
         """The epoch's one read from the card: its mean loss, then each
@@ -420,6 +502,7 @@ def _payload(state: TrainState) -> dict:
         "epoch": state.epoch,
         "iteration": state.iteration,
         "best_val_error": state.best_val_error,
+        "ema": state.ema or {},
     }
 
 
@@ -475,17 +558,25 @@ def _write_payload(run_dir: str, name: str, payload: dict, kind: str):
 
 
 def load_checkpoint(run_dir: str, name: str, state: TrainState, kind: str = "best") -> TrainState:
-    """Restore a checkpoint into `state`'s model and optimizer (in place,
-    on the model's device); returns the TrainState with the stored
-    counters."""
-    payload = torch.load(checkpoint_path(run_dir, name, kind), map_location="cpu",
-                         weights_only=True)
+    """Restore a checkpoint into `state`'s model, optimizer and, when the
+    state has one, EMA (in place, on the model's device); returns the
+    TrainState with the stored counters."""
+    path = checkpoint_path(run_dir, name, kind)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
+    if state.ema is not None:
+        stored = payload.get("ema") or {}
+        if set(stored) != set(state.ema):
+            raise KeyError(f"{path} holds no EMA of this model's parameters")
+        with torch.no_grad():
+            for n, t in state.ema.items():
+                t.copy_(stored[n])
     return TrainState(
         model=state.model,
         optimizer=state.optimizer,
         epoch=int(payload["epoch"]),
         iteration=int(payload["iteration"]),
         best_val_error=float(payload["best_val_error"]),
+        ema=state.ema,
     )

@@ -11,7 +11,11 @@ that submodule's type (the inverse of the mapping at
 - ConvTranspose `kernel` [kh,kw,in,out] -> ConvTranspose2d `weight`
   [in, out, kh, kw], spatially flipped (flax applies the kernel mirrored
   relative to torch)
-- LayerNorm `scale`                     -> `weight`
+- LayerNorm and GroupNorm `scale`       -> `weight`
+- DenseGeneral `kernel` (the query, key, value and out projections of
+  flax's `MultiHeadDotProductAttention`: [C, heads, hd], or [heads, hd, C]
+  for out) -> `DenseGeneral` (a Linear) `weight` [heads*hd, C] or
+  [C, heads*hd]; its `bias` [heads, hd] flattened
 - `bias` as is, and parameters declared on a module itself (Swin's
   `relative_position_bias_table_{i}_{d}`) as is.
 
@@ -64,7 +68,20 @@ def load_npz(path: str) -> dict[str, Any]:
         return unflatten_tree({k: z[k] for k in z.files})
 
 
-_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm)
+class DenseGeneral(nn.Linear):
+    """A Linear that loads and saves the multi-axis kernel and bias of a
+    flax `DenseGeneral`: `kernel_shape` folds to [in_features,
+    out_features], `bias_shape` to [out_features]."""
+
+    def __init__(self, kernel_shape: tuple[int, ...], bias_shape: tuple[int, ...],
+                 in_axes: int = 1):
+        kernel_shape, bias_shape = tuple(kernel_shape), tuple(bias_shape)
+        super().__init__(int(np.prod(kernel_shape[:in_axes])),
+                         int(np.prod(kernel_shape[in_axes:])))
+        self.kernel_shape, self.bias_shape = kernel_shape, bias_shape
+
+
+_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm, nn.GroupNorm)
 
 
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -73,9 +90,11 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> tuple[str, np.nda
         if leaf in dict(module.named_parameters(recurse=False)):
             return leaf, arr
     elif leaf == "bias":
-        return "bias", arr
-    elif leaf == "scale" and isinstance(module, nn.LayerNorm):
+        return "bias", arr.reshape(-1) if isinstance(module, DenseGeneral) else arr
+    elif leaf == "scale" and isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return "weight", arr
+    elif leaf == "kernel" and isinstance(module, DenseGeneral):
+        return "weight", arr.reshape(module.in_features, module.out_features).T
     elif leaf == "kernel" and isinstance(module, nn.Linear):
         return "weight", arr.T
     elif leaf == "kernel" and isinstance(module, nn.ConvTranspose2d):
@@ -116,9 +135,12 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
 def _to_flax_leaf(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     """(flax leaf name, array in flax layout): the inverse of `_convert`."""
+    if isinstance(module, DenseGeneral):
+        return (("bias", arr.reshape(module.bias_shape)) if name == "bias"
+                else ("kernel", arr.T.reshape(module.kernel_shape)))
     if not isinstance(module, _LAYERS) or name == "bias":
         return name, arr
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return "scale", arr
     if isinstance(module, nn.Linear):
         return "kernel", arr.T

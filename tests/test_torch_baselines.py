@@ -165,10 +165,9 @@ def test_evaluate_run_dir_refuses_overrides(run_dir, extra, capsys):
     assert "-c takes its config and weights from each run directory" in capsys.readouterr().err
 
 
-def test_build_baselines_refuses_healpix(run_dir, tmp_path, monkeypatch):
+def test_build_baselines_remaps_face_fields_as_jax(run_dir, tmp_path, monkeypatch):
     """A run whose fields are HEALPix faces: the fixture's splits with
-    their fields swapped for [T, 4, 12, 2, 2] faces.  The name is kept from
-    when the port refused such a run; it no longer does: the baselines are
+    their fields swapped for [T, 4, 12, 2, 2] faces.  The baselines are
     remapped to the data's 8 x 16 lat-lon grid before the metrics, and the
     metrics are those of `scripts/build_baselines.py` on the same splits
     (rtol 1e-5, as above)."""

@@ -814,3 +814,91 @@ def test_native_batches_through_the_prefetch_on_card(cuda):
     for g, h in zip(got, host):
         for t, a in zip(g, h):
             assert t.device.type == "cuda" and np.array_equal(t.cpu().numpy(), a)
+
+
+# ---------------------------------------------------------------- the ModernUNet family
+MUNET = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2,
+             hidden_channels=(8, 16), context_size=2, norm=True)
+
+
+@pytest.fixture
+def cuda_fp32(cuda):
+    """The card with fp32 convolutions: cuDNN's TF32 off, as the entry
+    points set it."""
+    torch.backends.cudnn.allow_tf32 = False
+    return cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls_name, kw", [("ModernUNet", dict(attention=True)),
+                                          ("MUNetHPX", dict(variant="reference"))])
+def test_modern_unet_on_card_matches_cpu(cuda_fp32, cls_name, kw):
+    """cuDNN convs, GroupNorm and the attention block's plain ops on the
+    card against the CPU: a 2-step rollout within 1e-4 of max; no
+    attention kernel launches."""
+    from dlwpbench_tpu_torch.models import modern_unet as mu
+
+    spatial = (12, 4, 4) if cls_name == "MUNetHPX" else (8, 16)
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(2, t, c, *spatial, generator=g) for t, c in ((1, 2), (4, 1), (4, 2))]
+    model = getattr(mu, cls_name)(**MUNET, **kw, seed=1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+        ref = model(*args)
+        before = fa.flash_window_attention_fwd.launches
+        got = model.to(cuda_fp32)(*(a.to(cuda_fp32) for a in args)).cpu()
+    assert fa.flash_window_attention_fwd.launches == before
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["mean", "reference"])
+def test_diffusion_rollout_on_card_matches_cpu_with_the_same_noise(cuda_fp32, sampler):
+    from dlwpbench_tpu_torch.models import modern_unet as mu
+
+    g = torch.Generator().manual_seed(1)
+    args = [torch.randn(2, t, c, 8, 16, generator=g) for t, c in ((1, 2), (4, 1), (4, 2))]
+    noise = [[torch.randn(2, 1, 2, 8, 16, generator=g) for _ in range(6)] for _ in range(2)]
+    model = mu.DiffModernUNet(**MUNET, sampler=sampler, seed=2)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+        ref = model(*args, noise=noise)
+        got = model.to(cuda_fp32)(*(a.to(cuda_fp32) for a in args),
+                                  noise=[[z.to(cuda_fp32) for z in step] for step in noise]).cpu()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_diffusion_epoch_on_card_reads_nothing_back(cuda):
+    """A diffusion training epoch's steps (k on the host, the noise on the
+    card, the EMA update) under set_sync_debug_mode("error")."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset
+    from dlwpbench_tpu_torch.models import modern_unet as mu
+    from dlwpbench_tpu_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    ds = WindowedWeatherDataset(
+        prognostic=rng.standard_normal((20, 2, 8, 16)).astype(np.float32),
+        prescribed=rng.standard_normal((20, 1, 8, 16)).astype(np.float32),
+        constants=rng.standard_normal((2, 8, 16)).astype(np.float32),
+        sequence_length=3, context_size=2)
+    trainer = Trainer(mu.DiffModernUNet(**MUNET, seed=3).to(cuda), training_type="diffusion")
+    state = trainer.init()
+    trainer.train_epoch(state, ds, 4)  # warm-up: cuDNN, the schedule's tables
+    close = trainer._close_epoch
+
+    def close_after_steps(*a):
+        torch.cuda.set_sync_debug_mode("default")
+        return close(*a)
+
+    trainer._close_epoch = close_after_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_epoch(state, ds, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(loss) and state.iteration == 2 * len(list(ds.batches(4)))

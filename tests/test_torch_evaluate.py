@@ -6,7 +6,8 @@
   whose lat-weighted RMSE per lead (and the other curves) match the JAX
   `rollout_dataset` + `compute_metrics` within 1e-4 relative (fp32 over
   a 16-step closed-loop rollout, where the summation order of two
-  frameworks differs).
+  frameworks differs);
+- `evaluate -c` on a diffusion run forecasts with its EMA weights.
 """
 
 import json
@@ -30,6 +31,7 @@ from dlwpbench_tpu_torch import resolve_device, weights
 from dlwpbench_tpu_torch.data import dataset as tdataset
 from dlwpbench_tpu_torch.data import sources as tsources
 from dlwpbench_tpu_torch.training import config as tconfig
+from dlwpbench_tpu_torch.utils import netcdf3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
@@ -145,3 +147,46 @@ def test_acc_and_climatology_rmse_match_jax(tmp_path):
         for name in names:
             assert len(got[key][name]) == 6
             np.testing.assert_allclose(got[key][name], want[key][name], rtol=0, atol=1e-5)
+
+
+def test_evaluate_run_dir_uses_the_ema_of_a_diffusion_run(tmp_path, monkeypatch, capsys):
+    """`evaluate -c` on a diffusion run restores the best checkpoint's EMA
+    weights (`scripts/evaluate.py:49-62`): its forecasts are the rollout of
+    the EMA, not of the raw parameters, and it says so."""
+    import torch
+
+    from dlwpbench_tpu_torch import evaluate, train
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.evaluation import evaluate as TE
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.config import load_saved_config
+
+    run = str(tmp_path / "diff")
+    train.main(["model=diffusion_modernunet", "training=diffusion", "data=synthetic",
+                "data.height=4", "data.width=8", "data.n_time=120",
+                "model.hidden_channels=[8,16]", "training.epochs=1", "training.batch_size=8",
+                "validation.batch_size=4", "validation.sequence_length=4", "verbose=false",
+                f"run_dir={run}", "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)
+    capsys.readouterr()
+    res = evaluate.main(["-c", run, "--sequence-length", "4", "--batch-size", "4",
+                         "--device", "cpu"])["diff"]
+    assert "(epoch 1, EMA weights)" in capsys.readouterr().out
+    assert np.isfinite(res["rmse"]["var0"]).all()
+
+    cfg = load_saved_config(run)
+    cfg.testing["sequence_length"] = 4
+    payload = torch.load(os.path.join(run, "checkpoints", f"{cfg.model.name}_best.ckpt"),
+                         weights_only=True)
+    _, _, test_ds, stats = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing, 2)
+    test_ds.sequence_length = 4
+    outs = {}
+    for which in ("ema", "model"):
+        model = registry.build_model(cfg.model).eval()
+        model.load_state_dict({**payload["model"], **payload[which]})
+        outs[which] = TE.rollout_dataset(model, test_ds, 4)[1]
+    assert not np.array_equal(outs["ema"], outs["model"])
+    names = res["variables"]
+    data, _ = netcdf3.read_dataset(os.path.join(run, "evaluation", "outputs.nc"))
+    want = TE.denormalize(outs["ema"], stats, names)[:, :, 0]
+    np.testing.assert_allclose(data[names[0]], want, rtol=0, atol=1e-6 * np.abs(want).max())

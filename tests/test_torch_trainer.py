@@ -186,10 +186,14 @@ def test_submitted_checkpoint_holds_values_before_an_in_place_update(tmp_path):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(training_type="diffusion"), "item 10"),
+    (dict(training_type="diffusion"), "single_forward"),
+    (dict(training_type="ddim"), "training.type"),
+    (dict(compute_dtype="int8"), "floating"),
 ])
 def test_out_of_scope_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """What the trainer cannot honour raises: diffusion training of a model
+    with no denoiser, an unknown training type, a non-float compute dtype."""
+    with pytest.raises(ValueError, match=match):
         ttr.Trainer(tswin.SwinTransformer(**CFG), **kw)
 
 
@@ -301,3 +305,166 @@ def test_cli_trains_the_unet_in_bf16(tmp_path):
     assert res["state"].model.GeoConv_0.Conv_0.weight.dtype == torch.float32
     payload = torch.load(tmp_path / "checkpoints" / "unet_last.ckpt", weights_only=True)
     assert {t.dtype for t in payload["model"].values()} == {torch.float32}
+
+
+# ---------------------------------------------------------------- diffusion training
+# A small DiffModernUNet on the 4x8 grid, context 2, one residual target
+# frame.  JAX draws k and the noise from its own keys; the port is fed the
+# same draws.  Tolerances, fp32: the losses rtol 1e-5; the parameters and
+# the EMA after the steps within PARAM_ATOL = lr / 100 (see the module's
+# docstring); bf16 compute: the loss within 2e-3 relative of JAX's bf16
+# loss (bf16 rounds at other points in the two frameworks).
+DCFG = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2,
+            hidden_channels=(8, 16), context_size=2, norm=True, sampler="mean")
+SEED = 1234
+
+
+def _diff_arrays(T=24):
+    return {**_arrays(T), "context_size": 2, "sequence_length": 3}
+
+
+def _diff_pair(accum=1, compute_dtype=None):
+    """(JAX trainer, its state, port trainer, its state) on one init; the
+    JAX params come from an init through `single_forward`."""
+    from dlwpbench_tpu.models import modern_unet as jmu
+    from dlwpbench_tpu_torch.models import modern_unet as tmu
+
+    jmodel = jmu.DiffModernUNet(**DCFG)
+    jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=accum,
+                     training_type="diffusion", num_refinement_steps=1000, seed=SEED,
+                     compute_dtype=compute_dtype)
+    c, p, g, t = next(iter(JDataset(**_diff_arrays()).batches(1)))
+    params = jmodel.init(jax.random.PRNGKey(0), c, p[:, :2], g[:, :2], t,
+                         jnp.zeros((1,), jnp.int32), method=jmodel.single_forward)
+    rng = np.random.default_rng(0)  # the zero-initialised convs carry signal
+    params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32), params)
+    jstate = jtr.TrainState(params=params, opt_state=jt.tx.init(params),
+                            ema_params=jax.tree_util.tree_map(jnp.copy, params))
+    tt = ttr.Trainer(tmu.DiffModernUNet(**DCFG), learning_rate=LR, epochs=5,
+                     gradient_accumulation_steps=accum, training_type="diffusion",
+                     num_refinement_steps=1000, seed=SEED, compute_dtype=compute_dtype)
+    tstate = tt.init(params=_np_tree(params))
+    return jt, jstate, tt, tstate
+
+
+def _jax_draws(key, shape, T=1001):
+    """JAX's k and noise of one step from its key (`trainer.py:184-187`)."""
+    kk, kn = jax.random.split(key)
+    k = int(jax.random.randint(kk, (), 0, T - 1))
+    return k, torch.from_numpy(np.array(jax.random.normal(kn, shape, jnp.float32)))
+
+
+def _assert_params_close(got_model_or_tree, want, atol=PARAM_ATOL):
+    got = weights.flatten_tree(got_model_or_tree)
+    want = weights.flatten_tree(_np_tree(want))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        d = np.abs(g - want[path]).max()
+        assert d <= atol, (path, float(d))
+
+
+def test_diffusion_step_matches_jax_with_accumulation():
+    """One optimizer step on a batch of 3 in 2 micro-batches and a
+    remainder, all of one shape, so all take JAX's one noise draw and k."""
+    jt, jstate, tt, tstate = _diff_pair(accum=2)
+    batch = next(TDataset(**_diff_arrays()).batches(3))
+    key = jax.random.PRNGKey(11)
+    k, noise = _jax_draws(key, (1, 1, 2, 4, 8))
+    lr = ttr.cosine_lr(0, LR, 5)
+    params, _, j_loss = jt._train_step(jstate.params, jstate.opt_state,
+                                       *(jnp.asarray(x) for x in batch), jnp.float32(lr), key)
+    t_loss = tt.train_step(tstate, tt._to_device(batch), lr, k=k, noise=noise)
+    np.testing.assert_allclose(t_loss.item(), float(j_loss), rtol=1e-5)
+    _assert_params_close(weights.to_flax_tree(tstate.model), params["params"])
+
+
+def test_diffusion_ema_matches_jax_after_two_steps(monkeypatch):
+    """Two steps of each trainer's own epoch loop (the same shuffled
+    batches); the port draws JAX's k and noise.  The EMA starts as the
+    parameters and follows e * d + p * (1 - d) after each step."""
+    jt, jstate, tt, tstate = _diff_pair()
+    jds, tds = JDataset(**_diff_arrays(T=12)), TDataset(**_diff_arrays(T=12))
+    sizes = [b[2].shape[0] for b in tds.batches(2)]
+    assert sizes == [2, 1]
+    key, draws = jax.random.PRNGKey(SEED), []
+    for n in sizes:
+        key, sub = jax.random.split(key)
+        draws.append(_jax_draws(sub, (n, 1, 2, 4, 8)))
+    monkeypatch.setattr(tt, "_draw_k", lambda: draws[0][0])
+    monkeypatch.setattr(tt, "_draw_noise", lambda shape: draws.pop(0)[1])
+    jt.train_epoch(jstate, jds, 2)
+    tt.train_epoch(tstate, tds, 2)
+    assert not draws and tstate.iteration == 2
+    _assert_params_close(weights.to_flax_tree(tstate.model), jstate.params["params"])
+    _assert_params_close(weights.to_flax_tree(tt.model, tstate.ema), jstate.ema_params["params"])
+
+
+def test_bf16_diffusion_step_matches_jax():
+    """bf16 compute: the denoiser's output is fp32 (JAX's promotion from
+    the fp32 time embedding), and the step's loss is JAX's bf16 loss."""
+    jt, jstate, tt, tstate = _diff_pair(compute_dtype="bfloat16")
+    batch = next(TDataset(**_diff_arrays()).batches(2))
+    key = jax.random.PRNGKey(5)
+    k, noise = _jax_draws(key, (2, 1, 2, 4, 8))
+    c, p, g, t = tt._to_device(batch)
+    with tt._compute_params(tstate.model):
+        out = tstate.model.single_forward(c.bfloat16(), p[:, :2].bfloat16(), g[:, :2].bfloat16(),
+                                          t.bfloat16(), torch.tensor([k, k]))
+    assert out.dtype == torch.float32
+    lr = ttr.cosine_lr(0, LR, 5)
+    _, _, j_loss = jt._train_step(jstate.params, jstate.opt_state,
+                                  *(jnp.asarray(x) for x in batch), jnp.float32(lr), key)
+    t_loss = tt.train_step(tstate, (c, p, g, t), lr, k=k, noise=noise)
+    assert abs(t_loss.item() - float(j_loss)) <= 2e-3 * abs(float(j_loss))
+    assert tstate.model.time_mlp1.weight.dtype == torch.float32
+
+
+def test_diffusion_checkpoint_carries_the_ema(tmp_path):
+    """fit writes the EMA beside the parameters; load_checkpoint restores it
+    (continue_training's path), and refuses a checkpoint without one."""
+    from dlwpbench_tpu_torch.models import modern_unet as tmu
+
+    ds = TDataset(**_diff_arrays(T=20))
+    tt = ttr.Trainer(tmu.DiffModernUNet(**DCFG, seed=2), epochs=1, training_type="diffusion")
+    state = tt.init()
+    tt.fit(state, ds, ds, batch_size=4, run_dir=str(tmp_path), model_name="d", verbose=False)
+    ema = {n: t.clone() for n, t in state.ema.items()}
+    assert any(not torch.equal(ema[n], p) for n, p in state.model.named_parameters())
+    fresh = ttr.Trainer(tmu.DiffModernUNet(**DCFG, seed=5), epochs=2, training_type="diffusion")
+    restored = ttr.load_checkpoint(str(tmp_path), "d", fresh.init(), kind="last")
+    assert restored.epoch == 1 and restored.ema is not None
+    for n, t in restored.ema.items():
+        assert torch.equal(t, ema[n]), n
+    fresh.fit(restored, ds, ds, batch_size=4, run_dir=str(tmp_path), model_name="d", verbose=False)
+    assert restored.epoch == 2 and not torch.equal(restored.ema["time_mlp1.weight"],
+                                                   ema["time_mlp1.weight"])
+    regular = ttr.Trainer(tmu.DiffModernUNet(**DCFG), epochs=1)
+    regular.fit(regular.init(), ds, ds, batch_size=4, run_dir=str(tmp_path / "r"),
+                model_name="d", verbose=False)
+    with pytest.raises(KeyError, match="no EMA"):
+        ttr.load_checkpoint(str(tmp_path / "r"), "d", fresh.init(), kind="last")
+
+
+@pytest.mark.parametrize("argv", [
+    ["model=modernunet", "data=synthetic", "data.height=8", "data.width=16"],
+    ["model=modernunet_inverted_hpx", "data=synthetic_hpx8"],
+    ["model=diffusion_modernunet", "model.type=DiffMUNetHPX", "model.mesh=healpix",
+     "data=synthetic_hpx8", "training=diffusion"],
+], ids=["modernunet", "inverted_hpx", "diffusion_hpx"])
+def test_cli_trains_the_modern_unets_on_cpu(tmp_path, argv):
+    """The shipped ModernUNet configs at hidden (8, 16) through the train
+    CLI: finite losses, best and last checkpoints (the diffusion run's with
+    its EMA)."""
+    from dlwpbench_tpu_torch import train
+
+    res = train.main([*argv, "data.n_time=120", "model.hidden_channels=[8,16]",
+                      "training.epochs=1", "training.batch_size=8", "validation.batch_size=4",
+                      "validation.sequence_length=4", "verbose=false", f"run_dir={tmp_path}",
+                      "--device", "cpu"])
+    assert np.isfinite(res["train_loss"] + res["val_loss"]).all()
+    name = res["state"].model.__class__.__name__
+    payload = torch.load(next((tmp_path / "checkpoints").glob("*_last.ckpt")), weights_only=True)
+    assert bool(payload["ema"]) == name.startswith("Diff")
+    # remat per rollout step, as the CLI sets it; the diffusion models drop the key
+    assert getattr(res["state"].model, "remat", None) is (None if name.startswith("Diff") else True)
