@@ -70,9 +70,9 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      0 of every other kernel);
    - U-Net evaluate at `bench.py`'s shape: `python -m
      dlwpbench_tpu_torch.evaluate model=unet
-     model.hidden_channels=[64,128,256] data=synthetic data.n_time=24000
-     --batch-size 128` (two batches of 16-step rollouts, fp32, 0
-     attention launches), the same rollout in fp32 and in bf16 (parameters
+     model.hidden_channels=[64,128,256] data=synthetic data.n_time=12100
+     --batch-size 64` (two batches of 16-step rollouts, fp32, 0
+     attention launches), the same rollout at batch 128 in fp32 and in bf16 (parameters
      and inputs cast as `bench.py` casts them) with and without the host
      copies, and the card against the CPU on 2 samples x 2 steps;
    - training in bf16 compute (`training.compute_dtype=bfloat16`): the
@@ -128,6 +128,24 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      EMA against its fp64 replay from the step parameters; the denoiser,
      its gradients and 3-step rollouts of both samplers card vs CPU on the
      same noise; every phase step's seconds;
+   - Navier-Stokes and the recurrent models (no attention kernel: every
+     count 0), in one temporary working directory: `python -m
+     dlwpbench_tpu_torch.train model=convlstm data=navier_stokes` with the
+     shipped training defaults (30 epochs of batch 32), `build_baselines
+     -c`, `evaluate -c` (batch 4, ACC), then `model=distana` 1 epoch and
+     `evaluate -c`; every entry point generates `navier_stokes.yaml`'s
+     dataset (16 trajectories, n 64, 50,000 solver steps) on the card and
+     each generation is timed; the first one's fields checked (finite,
+     mean-free, no enstrophy growth over the second half), the solver's
+     launches per step and busy share profiled, the same initial field
+     card vs CPU over 100 steps; each model's s per step, grid-points/s,
+     busy share, RMSE per lead beside persistence's, card-vs-CPU rollout
+     and gradients; ConvLSTMHPX (`model.mesh=healpix`) and DISTANAHPX 1
+     epoch each on `synthetic_hpx8` with card-vs-CPU gradients; `python -m
+     dlwpbench_tpu_torch.make_wb_learnable --years 1979 1982
+     --inner-steps 5` into a temporary root, timed, and its store loaded
+     through `build_datasets` on `data=wb_learnable` with its lag
+     autocorrelations;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -1052,13 +1070,15 @@ def step_calls(model, B: int) -> dict:
     as "on a CUDA device"), from the model's own geometry."""
     import collections
 
+    from dlwpbench_tpu_torch.models.base import RecurrentModel
     from dlwpbench_tpu_torch.models.modern_unet import DiffModernUNet, ModernUNet
     from dlwpbench_tpu_torch.models.pangu import PanguWeather
     from dlwpbench_tpu_torch.models.unet import UNet
 
     calls = collections.Counter()
-    if isinstance(model, (UNet, ModernUNet, DiffModernUNet)):
-        return calls  # convs, GroupNorm, pools and GELU: no attention kernel
+    if isinstance(model, (UNet, ModernUNet, DiffModernUNet, RecurrentModel)):
+        # convs, GroupNorm, pools, GELU, Dense and LSTM gates: no attention kernel
+        return calls
     if isinstance(model, PanguWeather):
         win = model.window_size
         N = win[0] * win[1] * win[2]
@@ -1170,6 +1190,14 @@ def check_forecast_files(out_dir: str, res: dict, cfg, n_batches: int, batch: in
           "Frobenius curves finite")
 
 
+def tensors_of(*arrays, device="cpu"):
+    """Numpy arrays or tensors as tensors on `device`; None (a source
+    without constants or prescribed channels) stays None."""
+    import torch
+
+    return [None if a is None else torch.as_tensor(a).to(device) for a in arrays]
+
+
 def check_rollout_vs_cpu(cfg, weights=None, test_ds=None, weights_label="restored"):
     """The same full-width model (seeded, or with `weights`, a state dict)
     on 2 samples x 2 steps of the test split (`test_ds`, or built from
@@ -1188,10 +1216,10 @@ def check_rollout_vs_cpu(cfg, weights=None, test_ds=None, weights_label="restore
     model = registry.build_model(cfg.model, seed=int(cfg.seed)).eval()
     if weights is not None:
         model.load_state_dict(weights)
-    args = [torch.from_numpy(a) for a in (const, pres, prog)]
+    args = tensors_of(const, pres, prog)
     with torch.no_grad():
         ref = model(*args)
-        got = model.to("cuda")(*[a.cuda() for a in args]).cpu()
+        got = model.to("cuda")(*tensors_of(*args, device="cuda")).cpu()
     err = (got - ref).abs().max().item()
     tol = 1e-3  # fp32, two closed-loop steps of 8 blocks; other summation orders
     print(f"reference: full-width {cfg.model.name} ({weights_label if weights is not None else 'seeded'} "
@@ -1381,7 +1409,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
 
     from dlwpbench_tpu_torch.models import registry
 
-    const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
+    const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
     cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
@@ -1395,7 +1423,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
     before_fused = new_design_launches(counters)
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card_model, "cuda")):
-        out = model(*(a.to(dev) for a in (const, pres, prog)))
+        out = model(*tensors_of(const, pres, prog, device=dev))
         loss = torch.mean((out.float() - target.to(dev)) ** 2)
         loss.backward()
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
@@ -1493,7 +1521,7 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
     from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.trainer import Trainer
 
-    const, pres, prog, target = (torch.from_numpy(a) for a in next(train_ds.batches(2)))
+    const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
     cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
@@ -1538,14 +1566,16 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
 # ---------------------------------------------------------------- the U-Net at bench.py's shape
 # `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
 # of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
-# channels).  n_time=24000 holds 256 test inits: two batches of 128 (three
-# until the ModernUNet phases needed the time).
+# channels).  n_time=12100 holds 128 test inits: one batch of 128 for the
+# rollout with its inputs on the card, two batches of 64 through the
+# evaluate CLI (24,000 frames and two batches of 128 until the
+# Navier-Stokes phase needed the time: their data set-up took 54 s).
 UNET_EVAL_BATCH = 128
+UNET_DRIVE_N_TIME = 12100
 UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
-                  "data.n_time=24000", "--batch-size", str(UNET_EVAL_BATCH),
+                  f"data.n_time={UNET_DRIVE_N_TIME}", "--batch-size", str(UNET_EVAL_BATCH // 2),
                   "--sequence-length", "17", "--device", "cuda"]
 UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
-UNET_DRIVE_N_TIME = 12100  # 128 test inits: one batch
 
 
 def drive_unet_rollout(cfg, card: str):
@@ -2190,12 +2220,7 @@ def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: boo
     ways on the forecast file's first field, on the card by default,
     against `--device cpu`.  Returns the train run, the evaluate launches,
     results and "Restored ..." line, the config and the training split."""
-    import contextlib
-
-    import numpy as np
-
-    from dlwpbench_tpu_torch import build_baselines, evaluate as eval_cli, remap_healpix
-    from dlwpbench_tpu_torch.utils import netcdf3
+    from dlwpbench_tpu_torch import build_baselines, remap_healpix
 
     name = label.replace(" ", "_")
     cwd = os.getcwd()
@@ -2206,42 +2231,62 @@ def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: boo
             train, cfg, train_ds = run_train_path(f"{label} train", argv, run_dir, card)
             report_epoch(f"{label} train", train, cfg, train_ds, card)
             base = build_baselines.main(["-c", run_dir])
-            counters = counters_of()
-            reset_counters(counters)
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(_Tee(sys.stdout)) as out:
-                res = eval_cli.main(["-c", run_dir, "--batch-size", str(batch),
-                                     "--device", "cuda"])[name]
-            wall = time.perf_counter() - t0
-            restored = next(ln for ln in out.getvalue().splitlines() if ln.startswith("Restored"))
-            launches = {n: fn.launches for n, fn in counters.items()}
-            data, _ = netcdf3.read_dataset(os.path.join(run_dir, "evaluation", "outputs.nc"))
-            names = res["variables"]
-            n = sum(k for k, _ in res["batch_seconds"])
-            steps = 17 - int(cfg.model.context_size)  # evaluate's --sequence-length 17
-            want = (n, steps, int(cfg.data.height), int(cfg.data.width))
-            shapes = {v: data[v].shape for v in names}
-            rmse = np.array([res["rmse"][v] for v in names])
-            acc = np.array([res["acc"][v] for v in names])
-            print(f"{label} evaluate -c: {len(res['batch_seconds'])} batches of "
-                  f"{[k for k, _ in res['batch_seconds']]} x {steps} steps, {wall:.1f} s wall, "
-                  f"steady-state {res['gridpoints_per_s']} grid-points/s "
-                  f"({'HEALPix pixels' if cfg.data.get('healpix_nside') else 'the lat-lon grid'}); "
-                  f"outputs.nc {shapes}; RMSE var0 {np.round(res['rmse']['var0'], 4).tolist()}, "
-                  f"ACC var0 {np.round(res['acc']['var0'], 4).tolist()}; persistence RMSE var0 "
-                  f"at the last lead {base['persistence']['rmse']['var0'][-1]:.4f}; attention "
-                  f"launches {launches} (none wanted) [{card}]")
-            if (any(launches.values()) or any(sh != want for sh in shapes.values())
-                    or not (np.isfinite(rmse).all() and np.isfinite(acc).all())):
-                raise SystemExit(f"{label} evaluate -c: launches {launches}, outputs {shapes} "
-                                 f"(want {want}), RMSE finite {np.isfinite(rmse).all()}, "
-                                 f"ACC finite {np.isfinite(acc).all()}")
+            ev = evaluate_run_dir(label, run_dir, cfg, card, batch, base)
             if remap:
-                check_remap_cli(remap_healpix.main, data[names[0]], work, card)
+                check_remap_cli(remap_healpix.main, ev["data"][ev["res"]["variables"][0]],
+                                work, card)
         finally:
             os.chdir(cwd)
-    return dict(train=train, launches=launches, res=res, restored=restored, cfg=cfg,
-                train_ds=train_ds)
+    return dict(train=train, launches=ev["launches"], res=ev["res"], restored=ev["restored"],
+                cfg=cfg, train_ds=train_ds)
+
+
+def evaluate_run_dir(label: str, run_dir: str, cfg, card: str, batch: int, base: dict):
+    """`python -m dlwpbench_tpu_torch.evaluate -c RUN_DIR` on the card in
+    the working directory (ACC against its baselines' climatology, `base`
+    the baselines' results): every launch counter set to 0 just before and
+    read just after, none wanted; the forecast files on the data's lat-lon
+    grid (a HEALPix run's remapped), every RMSE and ACC finite.  Returns
+    the results, the launches, the "Restored ..." line and the forecast
+    file's fields."""
+    import contextlib
+
+    import numpy as np
+
+    from dlwpbench_tpu_torch import evaluate as eval_cli
+    from dlwpbench_tpu_torch.utils import netcdf3
+
+    name = os.path.basename(os.path.normpath(run_dir))
+    counters = counters_of()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as out:
+        res = eval_cli.main(["-c", run_dir, "--batch-size", str(batch), "--device", "cuda"])[name]
+    wall = time.perf_counter() - t0
+    restored = next(ln for ln in out.getvalue().splitlines() if ln.startswith("Restored"))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    data, _ = netcdf3.read_dataset(os.path.join(run_dir, "evaluation", "outputs.nc"))
+    names = res["variables"]
+    n = sum(k for k, _ in res["batch_seconds"])
+    steps = 17 - int(cfg.model.context_size)  # evaluate's --sequence-length 17
+    want = (n, steps, int(cfg.data.height), int(cfg.data.width))
+    shapes = {v: data[v].shape for v in names}
+    rmse = np.array([res["rmse"][v] for v in names])
+    acc = np.array([res["acc"][v] for v in names])
+    print(f"{label} evaluate -c: {len(res['batch_seconds'])} batches of "
+          f"{[k for k, _ in res['batch_seconds']]} x {steps} steps, {wall:.1f} s wall, "
+          f"steady-state {res['gridpoints_per_s']} grid-points/s "
+          f"({'HEALPix pixels' if cfg.data.get('healpix_nside') else 'the lat-lon grid'}); "
+          f"outputs.nc {shapes}; RMSE var0 {np.round(res['rmse']['var0'], 4).tolist()}, "
+          f"ACC var0 {np.round(res['acc']['var0'], 4).tolist()}; persistence RMSE var0 "
+          f"at the last lead {base['persistence']['rmse']['var0'][-1]:.4f}; attention "
+          f"launches {launches} (none wanted) [{card}]")
+    if (any(launches.values()) or any(sh != want for sh in shapes.values())
+            or not (np.isfinite(rmse).all() and np.isfinite(acc).all())):
+        raise SystemExit(f"{label} evaluate -c: launches {launches}, outputs {shapes} "
+                         f"(want {want}), RMSE finite {np.isfinite(rmse).all()}, "
+                         f"ACC finite {np.isfinite(acc).all()}")
+    return dict(res=res, launches=launches, restored=restored, data=data)
 
 
 def run_hpx_unet_path(card: str):
@@ -2672,6 +2717,263 @@ def run_diffusion_paths(card: str):
     return paths, runs
 
 
+# ---------------------------------------------------------------- Navier-Stokes and the recurrent models
+# `configs/data/navier_stokes.yaml` as shipped (n 64, 16 trajectories, 50
+# records of 1,000 solver steps); ConvLSTM with the shipped training
+# defaults (30 epochs of batch 32), DISTANA 1 epoch; both evaluated at
+# batch 4 (the test split's 8 windows of 17 frames: two batches)
+NS_CONVLSTM_ARGV = ["model=convlstm", "data=navier_stokes"]
+NS_DISTANA_ARGV = ["model=distana", "data=navier_stokes", "training.epochs=1"]
+NS_EVAL_BATCH = 4
+RECURRENT_HPX_ARGV = {
+    "convlstm_hpx": ["model=convlstm", "model.type=ConvLSTMHPX", "model.mesh=healpix",
+                     *HPX8_TRAIN_TAIL],
+    "distana_hpx": ["model=distana", "model.type=DISTANAHPX", *HPX8_TRAIN_TAIL],
+}
+# the wb_learnable store at `configs/data/wb_learnable.yaml`'s years; 5
+# solver steps a frame where the generator's default is 600 (time only:
+# the solver's steps are host-bound, 29,200 of them here)
+WB_ARGS = ["--years", "1979", "1982", "--inner-steps", "5"]
+NS_TOL = 1e-4  # the solver, card vs CPU: max|diff| / max|w|, fp32, cuFFT vs pocketfft
+
+
+def profile_solver(n: int, batch: int, card: str):
+    """The solver's launches per step (the kernels of 20 profiled steps less
+    those of 10, over 10: the tables and cuFFT's plans exist already) and
+    its busy share over 200 steps (device time over the wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwpbench_tpu_torch.data import ns2d
+
+    w0 = ns2d.initial_field(0, n, batch).cuda()
+    ns2d.simulate(w0, n=n, record_steps=1, inner_steps=2)
+    kernels, device_us, wall_us = [], 0.0, 0.0
+    for steps in (10, 20, 200):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ns2d.simulate(w0, n=n, record_steps=1, inner_steps=steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        kernels.append(sum(e.count for e in events))
+        device_us = sum(e.self_device_time_total for e in events)
+    per_step = (kernels[1] - kernels[0]) / 10 if kernels[0] else None
+    busy = device_us / wall_us if device_us else None
+    print(f"NS solver at n {n}, batch {batch}: "
+          + ("launches not measured (no device events)" if per_step is None else
+             f"{per_step:.1f} launches per solver step (kernels of 20 steps less 10, over 10)")
+          + "; " + ("busy not measured" if busy is None else
+                    f"busy {100 * busy:.1f}% over 200 steps ({wall_us / 200:.1f} us a step, "
+                    f"device {device_us / 200:.1f} us)") + f" [{card}]")
+    return per_step, busy
+
+
+def check_solver(gen: dict, cfg, card: str):
+    """The first generation of the dataset (`gen`: its raw trajectories,
+    seconds and peak memory): finite, the mean vorticity below 1e-3, no
+    growth over the forced run's second half (the enstrophy of the last
+    record below twice the middle one's); the same initial field (n 64,
+    batch 2) through 2 records of 50 steps on the card against the CPU,
+    whose enstrophy at the end stays below twice the largest at the start
+    (`tests/test_data.py:22-23`, at its horizon)."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.data import ns2d
+
+    d = cfg.data
+    raw, seconds = gen["traj"], gen["seconds"]
+    n, T = raw.shape[-1], raw.shape[1]
+    ens = (raw ** 2).mean(axis=(2, 3))
+    finite = bool(np.isfinite(raw).all())
+    mean = float(raw.mean(dtype=np.float64))
+    steps = int(d.record_steps) * int(d.inner_steps)
+    print(f"NS dataset: {raw.shape[0]} trajectories x {T} frames of {n} x {n} "
+          f"(navier_stokes.yaml), {steps} solver steps in {seconds:.2f} s "
+          f"({steps / seconds:.1f} steps/s, {raw.shape[0] * steps / seconds:.1f} "
+          f"trajectory-steps/s; the train CLI's generation), peak device memory "
+          f"{gen['peak'] / 2**20:.1f} MiB; finite {finite}, mean vorticity {mean:.3e}, std "
+          f"{raw.std():.4f}, enstrophy (largest over the trajectories) first "
+          f"{ens[:, 0].max():.4f}, middle {ens[:, T // 2].max():.4f}, last "
+          f"{ens[:, -1].max():.4f} [{card}]")
+    if not (finite and abs(mean) < 1e-3 and ens[:, -1].max() < 2.0 * ens[:, T // 2].max()):
+        raise SystemExit("NS dataset: not finite, not mean-free or its enstrophy grew")
+    w0 = ns2d.initial_field(int(d.seed), n, 2)
+    kw = dict(n=n, nu=float(d.nu), dt=float(d.dt), record_steps=2, inner_steps=50)
+    ref = ns2d.simulate(w0, **kw)
+    got = ns2d.simulate(w0.cuda(), **kw).cpu()
+    errs = [((got[:, r] - ref[:, r]).abs().max() / ref[:, r].abs().max()).item() for r in (1, 2)]
+    ens = (got ** 2).mean(dim=(2, 3))
+    print(f"NS solver card vs CPU: the same initial field, n {n}, batch 2, 2 records x 50 steps: "
+          f"max|diff| / max|w| per record {[f'{e:.3e}' for e in errs]} (tol {NS_TOL:.0e}); "
+          f"enstrophy first {ens[:, 0].max().item():.4f} last {ens[:, -1].max().item():.4f}")
+    if not (max(errs) <= NS_TOL and ens[:, -1].max() < 2.0 * ens[:, 0].max()):
+        raise SystemExit("NS solver: the card disagrees with the CPU, or the enstrophy grew")
+    return max(errs)
+
+
+class GenerationLog(list):
+    """While active, every `ns2d.generate_dataset` call (each entry point's
+    own, through `build_datasets`) is timed: its seconds (it ends in a copy
+    to the host), peak device memory and raw trajectories are appended."""
+
+    def __enter__(self):
+        import torch
+
+        from dlwpbench_tpu_torch.data import ns2d
+
+        self.real = real = ns2d.generate_dataset
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            traj = real(*args, **kwargs)
+            self.append(dict(seconds=time.perf_counter() - t0, traj=traj,
+                             peak=torch.cuda.max_memory_allocated()))
+            return traj
+
+        ns2d.generate_dataset = timed
+        return self
+
+    def __exit__(self, *exc):
+        from dlwpbench_tpu_torch.data import ns2d
+
+        ns2d.generate_dataset = self.real
+
+
+def run_ns_paths(card: str):
+    """The phase "Navier-Stokes and the recurrent models", in one temporary
+    working directory: ConvLSTM's user path (`train model=convlstm
+    data=navier_stokes` with the shipped training defaults, its busy share,
+    card-vs-CPU rollout and gradients, `build_baselines -c`, `evaluate -c`
+    with ACC, the RMSE per lead beside persistence's) and DISTANA's (1
+    epoch, the same checks, `evaluate -c` against the same climatology).
+    Each entry point generates `navier_stokes.yaml`'s dataset on the card,
+    as the JAX CLIs do, and each generation is timed (`GenerationLog`);
+    the first one's trajectories are checked and the solver is profiled
+    and held against the CPU (`check_solver`, `profile_solver`).  The
+    checks beside the CLIs (expected launches, busy share, card vs CPU) run
+    on a split of the same shape from 10 solver steps a record.  Then
+    ConvLSTMHPX and DISTANAHPX 1 epoch each on `synthetic_hpx8` with
+    card-vs-CPU gradients, and the wb_learnable generator.  No attention
+    kernel launches anywhere."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch import build_baselines
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    paths, runs, clock = {}, {}, Clock("Navier-Stokes", card)
+    t_phase = time.perf_counter()
+    cfg = load_config(cli.CONFIG_DIR, overrides=[*NS_CONVLSTM_ARGV, "data.inner_steps=10"])
+    train_ds, val_ds, test_ds, _ = build_datasets(
+        cfg.data, cfg.training, cfg.validation, cfg.testing, int(cfg.model.context_size),
+        device="cuda")
+    cwd = os.getcwd()
+    with GenerationLog() as gens, tempfile.TemporaryDirectory(prefix="chip_smoke_ns_") as work:
+        os.chdir(work)
+        try:
+            base = None
+            for key, argv in (("ns_convlstm", NS_CONVLSTM_ARGV), ("ns_distana", NS_DISTANA_ARGV)):
+                label = key.replace("_", " ")
+                run_dir = os.path.join(work, "runs", key.split("_")[1])
+                run, rcfg, _ = run_train_path(f"{label} train", argv, run_dir, card,
+                                              datasets=(train_ds, val_ds))
+                if base is None:
+                    check_solver(gens[0], rcfg, card)
+                    per_step, gen_busy = profile_solver(int(rcfg.data.n),
+                                                        int(rcfg.data.n_trajectories), card)
+                report_epoch(f"{label} train", run, rcfg, train_ds, card)
+                check_train_grads(rcfg, train_ds, card, kernels=False)
+                check_rollout_vs_cpu(rcfg, perturbed_state(rcfg), test_ds=test_ds,
+                                     weights_label="seeded, moved by 0.01 N(0, 1)")
+                clock(f"{label} train, busy share, card vs CPU")
+                if base is None:
+                    base = build_baselines.main(["-c", run_dir])
+                    clock("build_baselines -c")
+                ev = evaluate_run_dir(label, run_dir, rcfg, card, NS_EVAL_BATCH, base)
+                rmse = ev["res"]["rmse"]["var0"]
+                pers = base["persistence"]["rmse"]["var0"]
+                print(f"{label}: RMSE of the vorticity per lead (1 .. {len(rmse)}) "
+                      f"{np.round(rmse, 4).tolist()}, persistence's "
+                      f"{np.round(pers, 4).tolist()} (random init, {rcfg.training.epochs} "
+                      f"epoch(s)) [{card}]")
+                clock(f"{label} evaluate -c")
+                runs[f"{key}_train"] = run
+                paths[f"{key}_train"], paths[f"{key}_evaluate"] = run["launches"], ev["launches"]
+        finally:
+            os.chdir(cwd)
+    gen_s = [g["seconds"] for g in gens]
+    print(f"NS generations: {len(gens)} (train, build_baselines, evaluate; train, evaluate), "
+          f"seconds {[round(s, 2) for s in gen_s]} [{card}]")
+    if len(gens) != 5:
+        raise SystemExit(f"NS phase: {len(gens)} generations, want 5")
+
+    for key, argv in RECURRENT_HPX_ARGV.items():
+        label = key.replace("_", " ")
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+            run, rcfg, rds = run_train_path(f"{label} train", argv, run_dir, card)
+        mesh = registry.build_model(rcfg.model).mesh
+        if mesh != "healpix":
+            raise SystemExit(f"{label}: mesh {mesh}, want healpix")
+        check_train_grads(rcfg, rds, card, kernels=False)
+        clock(f"{label} train, card vs CPU gradients")
+        runs[f"{key}_train"], paths[f"{key}_train"] = run, run["launches"]
+
+    run_wb_learnable(card)
+    clock("wb_learnable")
+    used = {p: {n: c for n, c in launches.items() if c} for p, launches in paths.items()}
+    print(f"Navier-Stokes phase: {time.perf_counter() - t_phase:.1f} s; the NS generations "
+          f"{[round(s, 2) for s in gen_s]} s, {per_step} launches per solver step, busy "
+          f"{gen_busy}; attention launches on its {len(paths)} paths {used} (none wanted) "
+          f"[{card}]")
+    if any(used.values()):
+        raise SystemExit(f"Navier-Stokes phase: attention launches {used}")
+    return paths, runs
+
+
+def run_wb_learnable(card: str):
+    """`python -m dlwpbench_tpu_torch.make_wb_learnable` (on the card) into
+    a temporary root at wb_learnable.yaml's years, timed; the store loaded
+    by `build_datasets` on `data=wb_learnable`, its prognostic channels'
+    lag autocorrelations."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch import make_wb_learnable as wb
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wb_") as root:
+        t0 = time.perf_counter()
+        res = wb.main(["--root", root, *WB_ARGS])
+        gen_s = time.perf_counter() - t0
+        cfg = load_config(cli.CONFIG_DIR, overrides=["model=convlstm", "data=wb_learnable",
+                                                     f"data.data_path={root}"])
+        t0 = time.perf_counter()
+        train_ds, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation,
+                                                 cfg.testing, int(cfg.model.context_size))
+        load_s = time.perf_counter() - t0
+    prog = train_ds.prognostic
+    lags = {v: wb.lag_autocorrelations(prog[:, i]) for i, v in
+            enumerate(("msl", "stream250", "stream500"))}
+    steps = res["frames"] * int(WB_ARGS[-1])
+    print(f"wb_learnable: make_wb_learnable {' '.join(WB_ARGS)}: {res['frames']} frames, "
+          f"{steps} solver steps, {gen_s:.1f} s (the store written); build_datasets on "
+          f"data=wb_learnable {load_s:.2f} s: training {prog.shape}, test {test_ds.prognostic.shape}"
+          f"; lag autocorrelations of the training split "
+          + "; ".join(f"{v} " + ", ".join(f"lag {k} {r:.3f}" for k, r in lg.items())
+                      for v, lg in lags.items()) + f" [{card}]")
+    if not (np.isfinite(prog).all() and all(0 < lg[1] <= 1 for lg in lags.values())):
+        raise SystemExit(f"wb_learnable: training split finite {np.isfinite(prog).all()}, "
+                         f"lags {lags}")
+    return gen_s, lags
+
+
 # ---------------------------------------------------------------- the packed path
 PACKED_STEPS = 3
 
@@ -2917,6 +3219,13 @@ def main() -> int:
     train_runs.update(diff_runs)
     print("ModernUNet phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f" [{card}]")
+
+    # Navier-Stokes and the recurrent models: the solver's dataset on the
+    # card, ConvLSTM's and DISTANA's user paths on it, both on HEALPix
+    # faces, the wb_learnable generator
+    ns_paths, ns_runs = run_ns_paths(card)
+    paths.update(ns_paths)
+    train_runs.update(ns_runs)
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'

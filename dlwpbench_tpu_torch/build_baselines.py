@@ -1,7 +1,8 @@
 """Persistence and climatology baselines of a trained run (the port's
 counterpart of `scripts/build_baselines.py`):
 
-    python -m dlwpbench_tpu_torch.build_baselines -c RUN_DIR [--sequence-length 17]
+    python -m dlwpbench_tpu_torch.build_baselines -c RUN_DIR [--sequence-length 17] \
+        [--device cuda]
 
 Loads the run's saved config, builds its datasets, and forecasts the test
 split's inits with persistence (each init held over the range) and with
@@ -13,8 +14,9 @@ faces to the `data.height` x `data.width` lat-lon grid on a HEALPix run
 forecast; writes `outputs/{persistence,climatology}/evaluation/`
 (`metrics.json`, `rmses.nc`) under the working directory, and the
 climatology forecast as `outputs/climatology/evaluation/outputs.npz`,
-which `python -m dlwpbench_tpu_torch.evaluate` reads for ACC.  Everything
-runs on the host; nothing runs on a device.
+which `python -m dlwpbench_tpu_torch.evaluate` reads for ACC.  The
+baselines run on the host; only a computed source (the Navier-Stokes
+solver) runs on `--device`.
 """
 
 from __future__ import annotations
@@ -41,13 +43,13 @@ def _months(times: np.ndarray) -> np.ndarray:
     return times.astype("datetime64[M]").astype(int) % 12 + 1
 
 
-def build_baselines(run_dir: str, sequence_length: int = 17) -> dict:
+def build_baselines(run_dir: str, sequence_length: int = 17, device: str = "cuda") -> dict:
     """Returns {"persistence": metrics, "climatology": metrics}."""
     cfg = load_saved_config(run_dir)
     ctx = int(cfg.model.context_size)
     cfg.testing["sequence_length"] = sequence_length
     train_ds, _, test_ds, stats = build_datasets(
-        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx
+        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx, device=device
     )
     test_ds.sequence_length = sequence_length
     if len(test_ds) == 0:
@@ -111,8 +113,11 @@ def main(argv=None) -> dict:
     ap.add_argument("-c", "--configuration-dir", required=True,
                     help="a run directory written by python -m dlwpbench_tpu_torch.train")
     ap.add_argument("--sequence-length", type=int, default=17)
+    ap.add_argument("--device", default="cuda",
+                    help="where a computed source (Navier-Stokes) is solved: cuda (default) "
+                         "or cpu")
     args = ap.parse_args(argv)
-    return build_baselines(args.configuration_dir, args.sequence_length)
+    return build_baselines(args.configuration_dir, args.sequence_length, args.device)
 
 
 if __name__ == "__main__":

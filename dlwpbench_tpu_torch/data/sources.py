@@ -3,13 +3,16 @@
 The port's copy of `dlwpbench_tpu/data/sources.py`:
 - `synthetic`: deterministic ERA5-like random fields, on a lat-lon grid
   or on the HEALPix faces (`healpix_nside`);
+- `NavierStokes`: trajectories of the pseudo-spectral solver
+  (`data/ns2d.py`), generated on `device` (the card unless the caller
+  passes "cpu") from an initial field drawn on the host, so that every
+  device starts from the same field;
 - `WeatherBenchZarr`: the reference's zarr tree layout
   (`data/datasets/datasets.py:277-298`): per-variable directories of yearly
   zarr stores, split by date range, z-score normalised per variable and
   level, read by the port's `zarr_lite`.  A HEALPix tree's arrays carry a
   face dim (`[time, (level,) face, height, width]`), which passes through
   to fields [T, C, 12, n, n].
-`NavierStokes` raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,24 +30,20 @@ from dlwpbench_tpu_torch.data.dataset import (
     synthetic_weatherbench,
 )
 
-_NOT_PORTED = {
-    "NavierStokes": "ROADMAP queue A, Navier-Stokes solver",
-}
-
-
 def build_datasets(data_cfg: dict, training_cfg: dict, validation_cfg: dict,
-                   testing_cfg: dict | None = None, context_size: int = 1):
-    """Returns (train_ds, val_ds, test_ds, stats) per the config."""
+                   testing_cfg: dict | None = None, context_size: int = 1,
+                   device="cuda"):
+    """Returns (train_ds, val_ds, test_ds, stats) per the config; a source
+    that computes its data (`NavierStokes`) computes it on `device`."""
     typ = data_cfg["type"]
     if typ == "synthetic":
         return _synthetic(data_cfg, training_cfg, validation_cfg, testing_cfg, context_size)
+    if typ == "NavierStokes":
+        return _navier_stokes(data_cfg, training_cfg, validation_cfg, testing_cfg, context_size,
+                              device)
     if typ == "WeatherBenchZarr":
         return _weatherbench_zarr(data_cfg, training_cfg, validation_cfg, testing_cfg,
                                   context_size)
-    if typ in _NOT_PORTED:
-        raise NotImplementedError(
-            f"data type {typ!r} is not ported to PyTorch yet ({_NOT_PORTED[typ]})"
-        )
     raise ValueError(f"unknown data type {typ!r}")
 
 
@@ -104,6 +103,42 @@ def _synthetic(d, tr, va, te, ctx):
     idx = idx[idx + test_seq + 1 <= len(test_times)]
     if len(idx):
         test.init_indices = idx.tolist()
+    return train, val, test, stats
+
+
+def _navier_stokes(d, tr, va, te, ctx, device):
+    """Trajectories [B, T, n, n] split 70/15/15 by trajectory; each split's
+    trajectories concatenated onto one time axis, so windows run across
+    trajectory boundaries, as in the JAX package (ROADMAP queue C)."""
+    from dlwpbench_tpu_torch import resolve_device
+    from dlwpbench_tpu_torch.data import ns2d
+
+    traj = ns2d.generate_dataset(
+        seed=int(d.get("seed", 7)),
+        n=int(d["n"]),
+        batch=int(d.get("n_trajectories", 16)),
+        nu=float(d.get("nu", 1e-3)),
+        dt=float(d.get("dt", 1e-3)),
+        record_steps=int(d.get("record_steps", 50)),
+        inner_steps=int(d.get("inner_steps", 1000)),
+        device=resolve_device(device),
+    )  # [B, T, n, n]
+    stats = {"vorticity": compute_stats(traj)}
+    if d.get("normalize", True):
+        traj = stats["vorticity"].normalize(traj).astype(np.float32)
+    B = traj.shape[0]
+    n_train = max(1, int(B * 0.7))
+    n_val = max(1, int(B * 0.15))
+
+    def as_prog(a):  # trajectories -> one time axis, a channel dim added
+        return a.reshape(-1, *a.shape[2:])[:, None]  # [B*T, 1, n, n]
+
+    train = _mk((None, None, as_prog(traj[:n_train])), int(tr["sequence_length"]), ctx,
+                float(tr.get("noise", 0)), 1)
+    val = _mk((None, None, as_prog(traj[n_train : n_train + n_val])),
+              int(va["sequence_length"]), ctx, 0.0, 2)
+    test = _mk((None, None, as_prog(traj[n_train + n_val :])),
+               int((te or va)["sequence_length"]), ctx, 0.0, 3)
     return train, val, test, stats
 
 

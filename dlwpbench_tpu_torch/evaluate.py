@@ -87,7 +87,8 @@ def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: 
     dev = next(model.parameters()).device
     cfg.testing["sequence_length"] = sequence_length
     _, _, test_ds, stats = build_datasets(
-        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), int(cfg.model.context_size)
+        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), int(cfg.model.context_size),
+        device=dev,
     )
     test_ds.sequence_length = sequence_length
     if len(test_ds) == 0:

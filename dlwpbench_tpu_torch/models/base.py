@@ -13,7 +13,10 @@ frames, the rest is closed-loop.  The JAX package scans the steps with
 `lax.scan`; here they are a Python loop (PyTorch runs eagerly).
 With `remat`, each step runs under `torch.utils.checkpoint` (the per-step
 counterpart of `wrap_remat`, `:59-78`): its activations are recomputed in
-the backward pass instead of kept.
+the backward pass instead of kept.  `remat_step` is that per-step
+checkpoint, shared with the recurrent models that run their own loop
+(ConvLSTM, DISTANA), whose carry (the previous output and every LSTM
+state) passes through it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 REMAT_POLICIES = ("full",)
+
+
+def remat_step(step, remat: bool, *args):
+    """`step(*args)`, under a per-step checkpoint when `remat` holds and
+    gradients are on: the step's activations are recomputed in the
+    backward pass from `args` (the step's input and carry) instead of
+    kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(step, *args, use_reentrant=False)
+    return step(*args)
 
 
 def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -42,11 +55,12 @@ def _flatten_window(win: torch.Tensor) -> torch.Tensor:
 
 
 class RolloutModel(nn.Module):
-    """Base class: subclasses implement `step` (and optionally `precompute`).
+    """Base class: subclasses implement `step` (and optionally `init_state`
+    and `precompute`).
 
     `step(x, state[, aux])` maps the assembled input [B, H, W, Cin] to the
     prognostic increment [B, H, W, Cq] and the next model state (None for
-    stateless nets).
+    stateless nets); `init_state` gives the state a rollout starts from.
 
     `remat=True` rematerialises each rollout step in the backward pass;
     `remat_policy` "full" saves nothing of the step.  The JAX package's
@@ -74,6 +88,13 @@ class RolloutModel(nn.Module):
     def step(self, x: torch.Tensor, state: Any, aux: Any = None):
         raise NotImplementedError
 
+    def init_state(self, frame: torch.Tensor) -> Any:
+        """Optional recurrent state, reset per sequence (None by default).
+        `frame` is the first prognostic frame [B, (F), H, W, Cq]; the JAX
+        hook takes its shape alone, the port's state also follows its
+        dtype and device."""
+        return None
+
     def precompute(self) -> Any:
         """Per-rollout constants derived from the parameters alone (e.g.
         Swin's expanded attention biases), computed once per rollout and
@@ -99,9 +120,8 @@ class RolloutModel(nn.Module):
         pres = None if prescribed is None else _to_channels_last(prescribed)
 
         window = prog[:, :ctx]
-        state = None  # stateful models (ConvLSTM) bring their state when ported
+        state = self.init_state(window[:, 0])
         aux = self.precompute()  # once per rollout, outside any checkpoint
-        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for t in range(steps):
             parts = [] if const is None else [const]
@@ -109,12 +129,56 @@ class RolloutModel(nn.Module):
                 parts.append(_flatten_window(pres[:, t : t + ctx]))
             parts.append(_flatten_window(window))
             x_t = torch.cat(parts, dim=-1)
-            if remat:
-                delta, state = checkpoint(self._step, x_t, state, aux, use_reentrant=False)
-            else:
-                delta, state = self._step(x_t, state, aux)
+            delta, state = remat_step(self._step, self.remat, x_t, state, aux)
             out = window[:, -1] + delta  # residual prediction
             window = torch.cat([window[:, 1:], out[:, None]], dim=1)
             outs.append(out)
         # [B, steps, H, W, C] -> [B, steps, C, H, W]
+        return torch.movedim(torch.stack(outs, dim=1), -1, 2)
+
+
+class RecurrentModel(RolloutModel):
+    """The rollout of the recurrent models (ConvLSTM, DISTANA; JAX
+    `convlstm.py:83-131`, `distana.py:137-184`), which differs from
+    `RolloutModel`'s: a loop from t = 0 over all T frames with one frame
+    per step, the input the ground truth while t < `context_size` and the
+    model's previous output after; a state from `init_state`, reset per
+    batch; `out = in_t + delta`; the outputs from `context_size` on.  Each
+    step's input is the constants, the step's prescribed frame and `in_t`
+    on channels.  With `remat` each step is checkpointed with its carry
+    (`in_t` and the state), as `wrap_remat` checkpoints the JAX scan's body.
+    Subclasses implement `init_state(frame)` and `step(x, state)`."""
+
+    def _body(self, in_t, state, const, pres_t):
+        parts = [] if const is None else [const]
+        if pres_t is not None:
+            parts.append(pres_t)
+        delta, state = self.step(torch.cat([*parts, in_t], dim=-1), state)
+        return in_t + delta, state
+
+    def forward(
+        self,
+        constants: Optional[torch.Tensor] = None,
+        prescribed: Optional[torch.Tensor] = None,
+        prognostic: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        if prognostic is None:
+            raise ValueError("prognostic input is required")
+        ctx = self.context_size
+        if prognostic.shape[1] <= ctx:
+            raise ValueError(
+                f"sequence length {prognostic.shape[1]} must exceed context {ctx}"
+            )
+        prog = _to_channels_last(prognostic)
+        const = None if constants is None else _to_channels_last(constants)[:, 0]
+        pres = None if prescribed is None else _to_channels_last(prescribed)
+        state = self.init_state(prog[:, 0])
+        out, outs = None, []
+        for t in range(prog.shape[1]):
+            in_t = prog[:, t] if t < ctx else out
+            out, state = remat_step(self._body, self.remat, in_t, state, const,
+                                    None if pres is None else pres[:, t])
+            if t >= ctx:
+                outs.append(out)
+        # [B, T-ctx, (F), H, W, C] -> [B, T-ctx, C, (F), H, W]
         return torch.movedim(torch.stack(outs, dim=1), -1, 2)

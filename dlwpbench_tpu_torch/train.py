@@ -5,7 +5,8 @@
 
 Composes `configs/` with Hydra-style overrides, builds the model from the
 registry (seeded random init from the config's `seed`; per-step
-rematerialisation on unless `model.remat=false`), builds the datasets and
+rematerialisation on unless `model.remat=false`), builds the datasets (a
+Navier-Stokes source solves on the same device) and
 the latitude weights, and trains with TF32 off (AdamW, cosine LR, gradient
 clipping to the LR): in fp32, or with `training.compute_dtype=bfloat16`
 in bf16 compute over fp32 master parameters (the forward and backward in
@@ -71,7 +72,7 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
     model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 1234))).to(dev)
     ctx = int(cfg.model.context_size)
     train_ds, val_ds, _, _ = build_datasets(
-        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx
+        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx, device=dev
     )
 
     lat_w = None  # lat-weighted validation on the lat-lon grids

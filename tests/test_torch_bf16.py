@@ -37,6 +37,17 @@ from dlwpbench_tpu_torch.training import trainer as ttr
 
 LOSS_RTOL = 2e-3
 LR = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the ops here are small, and the
+    suite's workers share the cores (each extra thread only waits on the
+    others)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 H, W = 8, 16
 BASE = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2, context_size=1)
 FAMILIES = {

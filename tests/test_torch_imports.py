@@ -1,10 +1,11 @@
-"""The port imports neither JAX, flax nor the JAX package.
+"""The port imports neither JAX, flax, the JAX package nor pandas.
 
 `dlwpbench_tpu_torch` starts with `dlwpbench_tpu`: only the `_torch`
-package itself is allowed.  The check reads every import statement (and
-every `importlib.import_module` / `__import__` of a literal name) in the
-port and in `chip_smoke.py`, then imports the port's modules in a fresh
-interpreter in which `jax`, `flax` and `dlwpbench_tpu` cannot be imported.
+package itself is allowed.  pandas is not on the card's machine.  The
+check reads every import statement (and every `importlib.import_module` /
+`__import__` of a literal name) in the port and in `chip_smoke.py`, then
+imports the port's modules in a fresh interpreter in which `jax`, `flax`,
+`dlwpbench_tpu` and `pandas` cannot be imported.
 """
 
 import ast
@@ -17,7 +18,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "dlwpbench_tpu_torch")
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|dlwpbench_tpu(?!_torch))(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|pandas|dlwpbench_tpu(?!_torch))(\.|$)")
 
 
 def _port_files():
@@ -51,6 +52,7 @@ def test_no_jax_imports(path):
 def test_forbidden_pattern():
     assert FORBIDDEN.match("jax.numpy") and FORBIDDEN.match("flax")
     assert FORBIDDEN.match("dlwpbench_tpu") and FORBIDDEN.match("dlwpbench_tpu.models")
+    assert FORBIDDEN.match("pandas") and FORBIDDEN.match("pandas.core")
     assert not FORBIDDEN.match("dlwpbench_tpu_torch.models")
     assert not FORBIDDEN.match("jaxtyping_free")
 
@@ -62,7 +64,7 @@ def test_port_loads_without_jax():
     )
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, chip_smoke, dlwpbench_tpu_torch.evaluate\n"
         f"for m in {modules!r}:\n"

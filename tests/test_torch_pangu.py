@@ -35,6 +35,17 @@ SMALL = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2, 
 ODD = dict(SMALL, patch_size=(2, 2), n_lat=7, n_lon=13)
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the ops here are small, and the
+    suite's workers share the cores (each extra thread only waits on the
+    others)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

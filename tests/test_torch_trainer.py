@@ -46,6 +46,17 @@ LR = 1e-3
 PARAM_ATOL = LR / 100
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the ops here are small, and the
+    suite's workers share the cores (each extra thread only waits on the
+    others)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _arrays(T=64, seed=0):
     rng = np.random.default_rng(seed)
     H, W = CFG["img_height"], CFG["img_width"]
@@ -244,13 +255,18 @@ def test_cli_honours_remat_and_refuses_what_is_not_ported(tmp_path, monkeypatch)
             train.main([*TINY, f"run_dir={tmp_path}"])
 
 
+# 60 frames: 13 training windows (2 steps of batch 8) and 2 validation
+# windows, so the epoch validates and writes both checkpoints
 PANGU_TINY = ["model=panguweather", "data=synthetic", "data.height=8", "data.width=16",
-              "data.n_time=120", "model.embed_dim=16", "model.num_heads=[1,2,2,1]",
+              "data.n_time=60", "model.embed_dim=16", "model.num_heads=[1,2,2,1]",
               "model.window_size=[2,3,4]", "training.epochs=1", "training.batch_size=8",
               "validation.batch_size=4", "validation.sequence_length=3"]
 
 
 def test_cli_trains_pangu_on_cpu_without_jax(tmp_path):
+    """The train CLI in a fresh interpreter that cannot import JAX, with
+    one intra-op thread (the suite's workers share the cores; more threads
+    only contend)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu'):\n"
@@ -260,7 +276,8 @@ def test_cli_trains_pangu_on_cpu_without_jax(tmp_path):
     )
     argv = [*PANGU_TINY, f"run_dir={tmp_path}", "--device", "cpu"]
     proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "Model pangu has" in proc.stdout and "epoch   1  train" in proc.stdout
     for kind in ("best", "last"):

@@ -212,7 +212,7 @@ def test_unet_builds_from_the_shipped_config():
     same flax parameter paths and shapes, the bottom level's half convs
     included; `UNetHPX` builds from it (without its `mesh` key) on the
     HEALPix mesh, and a family
-    not ported yet (`ConvLSTM`) is the registry's KeyError."""
+    not ported yet (`FNO2DModule`) is the registry's KeyError."""
     from dlwpbench_tpu.models import build_model as jbuild
     from dlwpbench_tpu_torch.training.config import load_config
 
@@ -230,8 +230,8 @@ def test_unet_builds_from_the_shipped_config():
     hpx = registry.build_model({**{k: v for k, v in cfg.model.items() if k != "mesh"},
                                 "type": "UNetHPX"})
     assert isinstance(hpx, tunet.UNetHPX) and hpx.mesh == "healpix"
-    with pytest.raises(KeyError, match="ConvLSTM"):
-        registry.build_model({**cfg.model, "type": "ConvLSTM"})
+    with pytest.raises(KeyError, match="FNO2DModule"):
+        registry.build_model({**cfg.model, "type": "FNO2DModule"})
 
 
 def test_unet_bf16_rollout_stays_bf16():
