@@ -115,7 +115,7 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      windows of 64 tokens), listed under `hpx_cases` in the `kernels` line;
    - the ModernUNet family (no attention kernel: every count 0): the
      ModernUNet at `configs/model/modernunet.yaml`'s shipped width through
-     the evaluate CLI (3 batches of 32 x 15 steps) with a profiled rollout
+     the evaluate CLI (2 batches of 32 x 15 steps) with a profiled rollout
      and card vs CPU, and 1 training epoch in fp32 and in bf16 compute,
      each with its busy share after an epoch under
      `set_sync_debug_mode("error")`, a profiled step split into
@@ -134,7 +134,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      shipped training defaults (30 epochs of batch 32), `build_baselines
      -c`, `evaluate -c` (batch 4, ACC), then `model=distana` 1 epoch and
      `evaluate -c`; every entry point generates `navier_stokes.yaml`'s
-     dataset (16 trajectories, n 64, 50,000 solver steps) on the card and
+     dataset (16 trajectories, n 64, 50 records of 500 solver steps where
+     it ships 1,000) on the card and
      each generation is timed; the first one's fields checked (finite,
      mean-free, no enstrophy growth over the second half), the solver's
      launches per step and busy share profiled, the same initial field
@@ -146,6 +147,21 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      --inner-steps 5` into a temporary root, timed, and its store loaded
      through `build_datasets` on `data=wb_learnable` with its lag
      autocorrelations;
+   - the spectral families (no attention kernel: every count 0; the DFTs
+     and SHTs on cuBLAS and cuFFT), each 1 epoch at batch 32 through the
+     train CLI with its s per step, grid-points/s, device ops per step,
+     busy share and peak memory after an epoch under
+     `set_sync_debug_mode("error")`, and its rollout and gradients card vs
+     CPU: TFNO (`model=fno`), FourCastNet (`model=fourcastnet`, AFNO) and
+     SFNO (`model=sfno`) through their user paths (`build_baselines -c`,
+     `evaluate -c` with ACC), FNO (`model.type=FNO2DModule`),
+     FourCastNetv2 (`model=fourcastnetv2`, the SFNO mixer) and the
+     ModernUNet with its Fourier block (`model.use_fourier=true`) through
+     the train CLI; SFNO's profiled training step and its epoch in bf16
+     compute; the `fft_impl` branches ("matmul", the default, and "fft")
+     of SFNO's spherical convolution and FourCastNet's AFNO filter at the
+     shipped shapes against each other, timed, and one SFNO training step
+     each way;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -174,10 +190,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
-# The evaluate paths: the shipped configs on synthetic data.  n_time=9060
-# makes the synthetic record long enough for 96 biweekly test inits, three
-# full eval batches of 32 (the config's testing batch size).
-EVAL_TAIL = ["data=synthetic", "data.n_time=9060", "--batch-size", "32",
+# The evaluate paths: the shipped configs on synthetic data.  n_time=6060
+# makes the synthetic record long enough for 64 biweekly test inits, two
+# full eval batches of 32 (the config's testing batch size; three at 9,060
+# frames until the spectral phase needed the room: 18 s of host time a
+# build against 12 s).
+EVAL_TAIL = ["data=synthetic", "data.n_time=6060", "--batch-size", "32",
              "--sequence-length", "17", "--device", "cuda"]
 MAIN_ARGV = ["model=swintransformer", *EVAL_TAIL]
 PANGU_EVAL_ARGV = ["model=panguweather", *EVAL_TAIL]
@@ -1071,13 +1089,18 @@ def step_calls(model, B: int) -> dict:
     import collections
 
     from dlwpbench_tpu_torch.models.base import RecurrentModel
+    from dlwpbench_tpu_torch.models.fno import FNO2DModule
+    from dlwpbench_tpu_torch.models.fourcastnet import FourCastNet
     from dlwpbench_tpu_torch.models.modern_unet import DiffModernUNet, ModernUNet
     from dlwpbench_tpu_torch.models.pangu import PanguWeather
+    from dlwpbench_tpu_torch.models.sfno import SFNO2DModule
     from dlwpbench_tpu_torch.models.unet import UNet
 
     calls = collections.Counter()
-    if isinstance(model, (UNet, ModernUNet, DiffModernUNet, RecurrentModel)):
-        # convs, GroupNorm, pools, GELU, Dense and LSTM gates: no attention kernel
+    if isinstance(model, (UNet, ModernUNet, DiffModernUNet, RecurrentModel, FNO2DModule,
+                          FourCastNet, SFNO2DModule)):
+        # convs, GroupNorm, pools, GELU, Dense, LSTM gates, the DFTs and
+        # SHTs (cuBLAS, cuFFT): no attention kernel
         return calls
     if isinstance(model, PanguWeather):
         win = model.window_size
@@ -1253,17 +1276,27 @@ def _print_profile(prof, what: str, wall_us: float, card: str, top: int):
     return total / wall_us, gemm / total
 
 
-def profile_rollout(cfg, card: str):
-    """Kernel time by name over one eval batch's 16-step rollout."""
+def helper_test_split(cfg):
+    """The test split of `cfg` (the checks beside an evaluate path share
+    one build: a split of 3,200 synthetic frames takes seconds of host
+    time)."""
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+
+    return build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                          int(cfg.model.context_size))[2]
+
+
+def profile_rollout(cfg, card: str, test_ds=None):
+    """Kernel time by name over one eval batch's 16-step rollout (of
+    `test_ds`, or of the test split built from `cfg`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.data.sources import build_datasets
     from dlwpbench_tpu_torch.models import registry
 
-    cfg.testing["sequence_length"] = 17
-    _, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
-                                      int(cfg.model.context_size))
+    if test_ds is None:
+        test_ds = helper_test_split(cfg)
+    test_ds.sequence_length = 17
     batch = [torch.from_numpy(a).cuda() for a in next(test_ds.batches(EVAL_BATCH))[:3]]
     model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda().eval()
     with torch.no_grad():
@@ -1398,18 +1431,19 @@ def perturbed_state(cfg, scale: float = 0.01):
 
 
 def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool = True,
-                      weights=None):
-    """The full-width model's loss and every parameter gradient, 2 samples x
-    2 steps, on the card (kernels; `card_route` forces an attention route)
-    against the CPU (auto: plain einsum or the kernels' plain versions).
-    Every launch of a kernel with two designs must take the new one; a
-    model without attention (`kernels=False`) must launch none.  `weights`
-    (a state dict) replaces the seeded init on both sides."""
+                      weights=None, samples: int = 2):
+    """The full-width model's loss and every parameter gradient, `samples`
+    samples x 2 steps, on the card (kernels; `card_route` forces an
+    attention route) against the CPU (auto: plain einsum or the kernels'
+    plain versions).  Every launch of a kernel with two designs must take
+    the new one; a model without attention (`kernels=False`) must launch
+    none.  `weights` (a state dict) replaces the seeded init on both
+    sides."""
     import torch
 
     from dlwpbench_tpu_torch.models import registry
 
-    const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
+    const, pres, prog, target = tensors_of(*next(train_ds.batches(samples)))
     cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
@@ -1442,7 +1476,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     print(f"gradients: full-width {cfg.model.name} (card route "
           f"{card_route if card_route is not None else cfg.model.get('use_flash_attention')}, "
-          f"kernel launches {used}), 2 samples x 2 steps, loss card {l_card:.8f} cpu "
+          f"kernel launches {used}), {samples} samples x 2 steps, loss card {l_card:.8f} cpu "
           f"{l_cpu:.8f} (rel {loss_rel:.2e}); worst max|diff|/max|grad| over "
           f"{len(g_cpu)} tensors {worst[0]:.3e} ({worst[1]}) (tol {tol:.0e})")
     if not (worst[0] <= tol and loss_rel <= 1e-5 and bool(used) == kernels):
@@ -2040,7 +2074,8 @@ def batch_build_ms(ds, bs: int) -> float:
 def epoch_busy(cfg, train_ds, check_sync: bool = False):
     """One training epoch of the model under the profiler: (device time,
     kernels and copies, per step in ms; its share of the epoch's step
-    seconds), or (None, None) when the profiler sees no device time.  With
+    seconds; the device ops (kernels, copies, memsets) launched per step),
+    or (None, None, None) when the profiler sees no device time.  With
     `check_sync`, an epoch before it runs its steps under
     `set_sync_debug_mode("error")` (`sync_free_epoch`)."""
     import torch
@@ -2058,11 +2093,13 @@ def epoch_busy(cfg, train_ds, check_sync: bool = False):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_epoch(state, train_ds, int(cfg.training.batch_size))
         torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA"))
+    rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in rows)
     if not dev_us:
-        return None, None
-    return dev_us / 1e3 / len(trainer.timings), dev_us / 1e6 / sum(t for _, t in trainer.timings)
+        return None, None, None
+    steps = len(trainer.timings)
+    return (dev_us / 1e3 / steps, dev_us / 1e6 / sum(t for _, t in trainer.timings),
+            sum(e.count for e in rows) / steps)
 
 
 def run_zarr_path(card: str, synthetic):
@@ -2101,7 +2138,7 @@ def run_zarr_path(card: str, synthetic):
             bs = int(cfg.training.batch_size)
             for label, res, rcfg, ds in (("synthetic", syn, scfg, sds),
                                          ("zarr", train, cfg, train_ds)):
-                dev_ms, busy = epoch_busy(rcfg, ds)
+                dev_ms, busy, _ = epoch_busy(rcfg, ds)
                 res["device_ms"], res["busy"] = dev_ms, busy
                 res["batch_build_ms"] = batch_build_ms(ds, bs)
                 print(f"zarr path, Swin train on {label} data: {res['seconds_per_step']:.4f} s "
@@ -2186,13 +2223,15 @@ HPX_UNET32 = ["model=unet_hpx", "model.hidden_channels=[64,128,256]", "data=synt
 def report_epoch(label: str, run: dict, cfg, train_ds, card: str):
     """A training path's busy share: one more epoch under the profiler,
     after an epoch whose steps run under set_sync_debug_mode("error")."""
-    dev_ms, busy = epoch_busy(cfg, train_ds, check_sync=True)
-    run["device_ms"], run["busy"] = dev_ms, busy
+    dev_ms, busy, ops = epoch_busy(cfg, train_ds, check_sync=True)
+    run["device_ms"], run["busy"], run["device_ops_per_step"] = dev_ms, busy, ops
     print(f"{label}: an epoch's steps ran under set_sync_debug_mode('error') and raised "
           f"nothing; {run['seconds_per_step']:.4f} s per step, {run['gridpoints_per_s']:.1f} "
           f"grid-points/s; device " + ("not measured" if dev_ms is None else
                                        f"{dev_ms:.2f} ms a step, busy {100 * busy:.1f}% of the "
-                                       f"steps' seconds (one more epoch under the profiler)")
+                                       f"steps' seconds, {ops:.1f} device ops (kernels, "
+                                       f"copies, memsets) a step (one more epoch under the "
+                                       f"profiler)")
           + f" [{card}]")
 
 
@@ -2208,7 +2247,8 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: bool = False):
+def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: bool = False,
+                  datasets=None):
     """A user's path, in a temporary working directory (the baselines and
     the evaluator's climatology live under `./outputs/`): `python -m
     dlwpbench_tpu_torch.train ARGV` (1 epoch) with its s per step,
@@ -2218,8 +2258,9 @@ def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: boo
     lat-lon grid (a HEALPix run's remapped), every RMSE and ACC finite;
     with `remap`, then `python -m dlwpbench_tpu_torch.remap_healpix` both
     ways on the forecast file's first field, on the card by default,
-    against `--device cpu`.  Returns the train run, the evaluate launches,
-    results and "Restored ..." line, the config and the training split."""
+    against `--device cpu`.  `datasets` as `run_train_path` takes them.
+    Returns the train run, the evaluate launches, results and "Restored
+    ..." line, the config and the training split."""
     from dlwpbench_tpu_torch import build_baselines, remap_healpix
 
     name = label.replace(" ", "_")
@@ -2228,7 +2269,8 @@ def run_user_path(label: str, argv: list, card: str, batch: int = 32, remap: boo
         os.chdir(work)
         try:
             run_dir = os.path.join(work, "runs", name)
-            train, cfg, train_ds = run_train_path(f"{label} train", argv, run_dir, card)
+            train, cfg, train_ds = run_train_path(f"{label} train", argv, run_dir, card,
+                                                  datasets=datasets)
             report_epoch(f"{label} train", train, cfg, train_ds, card)
             base = build_baselines.main(["-c", run_dir])
             ev = evaluate_run_dir(label, run_dir, cfg, card, batch, base)
@@ -2460,7 +2502,7 @@ def run_hpx_swin_paths(card: str):
 # ---------------------------------------------------------------- the ModernUNet family
 # `configs/model/modernunet.yaml` at its shipped width (hidden 64, 128, 256,
 # 1024; 89,568,046 parameters on the 4 + 1 + 8 synthetic channels): the
-# evaluate paths' 96 test inits and the training paths' 11 batches.  The
+# evaluate paths' 64 test inits and the training paths' 11 batches.  The
 # reference's HEALPix ModernUNet (`modernunet_inverted_hpx.yaml`, hidden
 # 136, 68, 34) and the HEALPix diffusion model on the training paths' 1,536
 # frames (11 training batches, 16 test inits: one evaluate batch); the
@@ -2541,7 +2583,7 @@ def profile_step_split(cfg, train_ds, card: str):
 
 def run_modern_unet_paths(card: str):
     """The phases "ModernUNet" (lat-lon, shipped width) and "MUNetHPX":
-    the evaluate CLI (3 batches of 32 x 16 steps, fp32) with a profiled
+    the evaluate CLI (2 batches of 32 x 15 steps, fp32) with a profiled
     rollout and card vs CPU; 1 training epoch in fp32 and in bf16 compute
     through the train CLI, each with its busy share after an epoch under
     set_sync_debug_mode("error"), a profiled step split into
@@ -2555,9 +2597,11 @@ def run_modern_unet_paths(card: str):
                                                            out_dir, card)
     clock("evaluate CLI")
     cfg.data["n_time"] = HELPER_N_TIME
-    profile_rollout(cfg, card)
+    helper = helper_test_split(cfg)
+    profile_rollout(cfg, card, test_ds=helper)
     weights = perturbed_state(cfg)
-    check_rollout_vs_cpu(cfg, weights, weights_label="seeded, moved by 0.01 N(0, 1)")
+    check_rollout_vs_cpu(cfg, weights, test_ds=helper,
+                         weights_label="seeded, moved by 0.01 N(0, 1)")
     clock("profile, card vs CPU rollout")
     for key, argv in (("munet_train", MUNET_TRAIN_ARGV),
                       ("munet_train_bf16", [*MUNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"])):
@@ -2718,12 +2762,17 @@ def run_diffusion_paths(card: str):
 
 
 # ---------------------------------------------------------------- Navier-Stokes and the recurrent models
-# `configs/data/navier_stokes.yaml` as shipped (n 64, 16 trajectories, 50
-# records of 1,000 solver steps); ConvLSTM with the shipped training
-# defaults (30 epochs of batch 32), DISTANA 1 epoch; both evaluated at
-# batch 4 (the test split's 8 windows of 17 frames: two batches)
-NS_CONVLSTM_ARGV = ["model=convlstm", "data=navier_stokes"]
-NS_DISTANA_ARGV = ["model=distana", "data=navier_stokes", "training.epochs=1"]
+# `configs/data/navier_stokes.yaml` (n 64, 16 trajectories, 50 records)
+# with 500 solver steps a record where it ships 1,000 (time only, as the
+# wb_learnable generator's: every entry point regenerates the dataset, five
+# generations of host-bound solver steps; the shapes and splits as
+# shipped; at 250 the forced flow is still spinning up and the check's
+# enstrophy doubles over the second half); ConvLSTM with the shipped training defaults (30 epochs of batch
+# 32), DISTANA 1 epoch; both evaluated at batch 4 (the test split's 8
+# windows of 17 frames: two batches)
+NS_CONVLSTM_ARGV = ["model=convlstm", "data=navier_stokes", "data.inner_steps=500"]
+NS_DISTANA_ARGV = ["model=distana", "data=navier_stokes", "data.inner_steps=500",
+                   "training.epochs=1"]
 NS_EVAL_BATCH = 4
 RECURRENT_HPX_ARGV = {
     "convlstm_hpx": ["model=convlstm", "model.type=ConvLSTMHPX", "model.mesh=healpix",
@@ -2974,6 +3023,178 @@ def run_wb_learnable(card: str):
     return gen_s, lags
 
 
+# ---------------------------------------------------------------- the spectral families
+# The shipped configs on 768 synthetic frames (5 full batches of 32 a
+# training epoch, 6 validation windows, 7 test inits; half the training
+# paths' 1,536 to fit the script's time), on the 32 x 64 grid of
+# `BASELINE.json` configs[2] and [3], 4 + 1 + 8 channels: TFNO (`fno.yaml`), FNO
+# (`model.type=FNO2DModule`), FourCastNet (`fourcastnet.yaml`, AFNO),
+# FourCastNetv2 (`fourcastnetv2.yaml`, the SFNO mixer), SFNO (`sfno.yaml`,
+# 18,756,872 parameters) and the ModernUNet with its Fourier block at level 0
+# (`modernunet.yaml` + `model.use_fourier=true`).  "user": the user's path
+# (train, build_baselines -c, evaluate -c with ACC); else the train CLI only.
+SPECTRAL_TAIL = ["data=synthetic", "data.n_time=768", "training.epochs=1"]
+SPECTRAL_PATHS = {
+    "tfno": (["model=fno", *SPECTRAL_TAIL], True),
+    "fno": (["model=fno", "model.type=FNO2DModule", *SPECTRAL_TAIL], False),
+    "fourcastnet": (["model=fourcastnet", *SPECTRAL_TAIL], True),
+    "fourcastnetv2": (["model=fourcastnetv2", *SPECTRAL_TAIL], False),
+    "sfno": (["model=sfno", *SPECTRAL_TAIL], True),
+    "munet_fourier": (["model=modernunet", "model.use_fourier=true", *SPECTRAL_TAIL], False),
+}
+FFT_TOL = 1e-4  # matmul against fft: max|diff| / max|value|, fp32 (DFT sums vs cuFFT)
+# Samples of each path's card-vs-CPU gradient check.  The AFNO filter's
+# ReLU and softshrink have kinks: an fp32 value within rounding of one
+# lands on either side on the two devices and moves one position's term of
+# a bias gradient (`b1` sums 32 x 17 positions a sample), by 4.7e-4 and
+# 8.3e-4 of that gradient's max at 2 samples in 2 of 12 batches (fp32
+# against fp64 on one CPU), at most 2.9e-4 at 8 samples over 12 batches:
+# FourCastNet's check takes 8, so that one such term stays well inside the
+# tolerance (1e-3); the smooth models take 2, as every earlier path.
+GRAD_SAMPLES = {"fourcastnet": 8}
+
+
+def compare_fft_impls(card: str, train_ds):
+    """The two `fft_impl` branches of SFNO's `SphericalConv` ([32, 32, 64,
+    256], lmax 32) and FourCastNet's `AFNO2DFilter` ([32, 32, 64, 64], 4
+    blocks) at the shipped shapes, on one set of weights: the output and
+    the input's and every weight's gradient held against each other, the
+    forward's and forward + backward's device ms; then one SFNO training
+    step at batch 32 both ways (the shipped model, seeded) on `train_ds`."""
+    import torch
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.models.sfno import SphericalConv
+    from dlwpbench_tpu_torch.ops.spectral import FFT_IMPLS, AFNO2DFilter
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for name, build, shape in (
+        ("SphericalConv", lambda impl: SphericalConv(256, 256, 32, 64, fft_impl=impl),
+         (32, 32, 64, 256)),
+        ("AFNO2DFilter", lambda impl: AFNO2DFilter(64, 4, fft_impl=impl), (32, 32, 64, 64)),
+    ):
+        mods = {impl: build(impl).cuda() for impl in FFT_IMPLS}
+        mods["fft"].load_state_dict(mods["matmul"].state_dict())
+        x = torch.randn(*shape, device="cuda", generator=g)
+        w = torch.randn(*shape, device="cuda", generator=g)
+        got = {}
+        for impl, mod in mods.items():
+            xx = x.clone().requires_grad_(True)
+            out = mod(xx)
+            (out * w).sum().backward()
+            got[impl] = {"out": out.detach(), "x": xx.grad,
+                         **{n: p.grad for n, p in mod.named_parameters()}}
+
+            def fwd(mod=mod):
+                with torch.no_grad():
+                    mod(x)
+
+            def fwd_bwd(mod=mod):
+                xx = x.detach().requires_grad_(True)
+                (mod(xx) * w).sum().backward()
+
+            times[(name, impl)] = (cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10))
+        worst = max(((got["fft"][k] - v).abs().max().item() / v.abs().max().item(), k)
+                    for k, v in got["matmul"].items())
+        print(f"fft_impl: {name} {list(shape)}: matmul forward {times[(name, 'matmul')][0]:.4f} "
+              f"ms, forward + backward {times[(name, 'matmul')][1]:.4f} ms; fft (cuFFT) "
+              f"{times[(name, 'fft')][0]:.4f} / {times[(name, 'fft')][1]:.4f} ms; fft against "
+              f"matmul worst max|diff|/max {worst[0]:.3e} ({worst[1]}, tol {FFT_TOL:.0e}) [{card}]")
+        if not worst[0] <= FFT_TOL:
+            raise SystemExit(f"{name}: the fft branch disagrees with the matmul branch")
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=SPECTRAL_PATHS["sfno"][0])
+    batch = next(train_ds.batches(int(cfg.training.batch_size)))
+    step_ms, losses = {}, {}
+    for impl in FFT_IMPLS:
+        model = registry.build_model({**cfg.model, "fft_impl": impl, "remat": True},
+                                     seed=int(cfg.seed)).cuda()
+        trainer = run_trainer(cfg, model)
+        state = trainer.init()
+        tensors = trainer._to_device(batch)
+        losses[impl] = trainer.train_step(state, tensors, 1e-3).item()
+        step_ms[impl] = cuda_ms(lambda: trainer.train_step(state, tensors, 1e-3), 5)
+    rel = abs(losses["fft"] - losses["matmul"]) / abs(losses["matmul"])
+    print(f"fft_impl: sfno training step at batch {len(batch[2])}: matmul {step_ms['matmul']:.2f} "
+          f"ms, fft {step_ms['fft']:.2f} ms (CUDA events, 5 steps after 2); first-step loss "
+          f"matmul {losses['matmul']:.8f} fft {losses['fft']:.8f} (rel {rel:.2e}) [{card}]")
+    if not rel <= 1e-5:
+        raise SystemExit("sfno: the fft branch's loss disagrees with the matmul branch's")
+    return times, step_ms
+
+
+def run_spectral_paths(card: str):
+    """The phase "spectral families": each path of `SPECTRAL_PATHS` through
+    the train CLI (1 epoch at batch 32, no attention launch) with its s per
+    step, grid-points/s, device ops per step, busy share and peak memory
+    after an epoch under set_sync_debug_mode("error"); TFNO's,
+    FourCastNet's and SFNO's user paths on through `build_baselines -c`
+    and `evaluate -c` with ACC; every model's 2-step rollout and gradients
+    card vs CPU (seeded weights moved by 0.01 N(0, 1)); SFNO's profiled
+    training step and its epoch in bf16 compute; both `fft_impl` branches
+    against each other (`compare_fft_impls`)."""
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    paths, runs, clock = {}, {}, Clock("spectral", card)
+    t_phase = time.perf_counter()
+    splits = {}  # context size -> (train, val, test): the paths share one data config
+    for key, (argv, user) in SPECTRAL_PATHS.items():
+        label = key.replace("_", " ")
+        cfg = load_config(cli.CONFIG_DIR, overrides=argv)
+        ctx = int(cfg.model.context_size)
+        if ctx not in splits:
+            splits[ctx] = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                                         ctx)[:3]
+        train_ds, val_ds, test_ds = splits[ctx]
+        if user:
+            r = run_user_path(label, argv, card, datasets=(train_ds, val_ds))
+            run, rcfg, rds = r["train"], r["cfg"], r["train_ds"]
+            paths[f"{key}_evaluate"] = r["launches"]
+        else:
+            with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+                run, rcfg, rds = run_train_path(f"{label} train", argv, run_dir, card,
+                                                datasets=(train_ds, val_ds))
+            report_epoch(f"{label} train", run, rcfg, rds, card)
+        weights = perturbed_state(rcfg)
+        check_rollout_vs_cpu(rcfg, weights, test_ds=test_ds,
+                             weights_label="seeded, moved by 0.01 N(0, 1)")
+        check_train_grads(rcfg, rds, card, kernels=False, weights=weights,
+                          samples=GRAD_SAMPLES.get(key, 2))
+        runs[f"{key}_train"], paths[f"{key}_train"] = run, run["launches"]
+        clock(f"{label} path, card vs CPU")
+        if key == "sfno":
+            profile_train_step(rcfg, rds, card)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_sfno_bf16_") as run_dir:
+                b16, bcfg, bds = run_train_path(
+                    "sfno train bf16", [*argv, "training.compute_dtype=bfloat16"], run_dir, card)
+            report_epoch("sfno train bf16", b16, bcfg, bds, card)
+            runs["sfno_train_bf16"], paths["sfno_train_bf16"] = b16, b16["launches"]
+            print(f"training, fp32 against bf16 compute: sfno {run['seconds_per_step']:.4f} "
+                  f"against {b16['seconds_per_step']:.4f} s per step "
+                  f"({run['seconds_per_step'] / b16['seconds_per_step']:.2f}x), peak "
+                  f"{run['peak_gib']:.2f} against {b16['peak_gib']:.2f} GiB [{card}]")
+            clock("sfno profiled step, bf16 epoch")
+    fft_times, sfno_step_ms = compare_fft_impls(card, splits[1][0])
+    clock("fft_impl comparison")
+    used = {p: {n: c for n, c in launches.items() if c} for p, launches in paths.items()}
+    print("spectral phase: " + "; ".join(
+        f"{k} {r['seconds_per_step']:.4f} s a step, {r['gridpoints_per_s']:.1f} grid-points/s, "
+        + ("device not measured" if r["busy"] is None else
+           f"{r['device_ops_per_step']:.1f} device ops a step, busy {100 * r['busy']:.1f}%")
+        + f", peak {r['peak_gib']:.2f} GiB" for k, r in runs.items())
+        + f" [{card}]")
+    print(f"spectral phase: {time.perf_counter() - t_phase:.1f} s; attention launches on its "
+          f"{len(paths)} paths {used} (none wanted) [{card}]")
+    if any(used.values()):
+        raise SystemExit(f"spectral phase: attention launches {used}")
+    return paths, runs, dict(fft_ms=fft_times, sfno_step_ms=sfno_step_ms)
+
+
 # ---------------------------------------------------------------- the packed path
 PACKED_STEPS = 3
 
@@ -3089,8 +3310,9 @@ def main() -> int:
         _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
             "main path", MAIN_ARGV, out_dir, card)
     cfg.data["n_time"] = HELPER_N_TIME
-    check_rollout_vs_cpu(cfg)
-    profile_rollout(cfg, card)
+    helper = helper_test_split(cfg)
+    check_rollout_vs_cpu(cfg, test_ds=helper)
+    profile_rollout(cfg, card, test_ds=helper)
     clock("Swin evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
@@ -3226,6 +3448,13 @@ def main() -> int:
     ns_paths, ns_runs = run_ns_paths(card)
     paths.update(ns_paths)
     train_runs.update(ns_runs)
+
+    # the spectral families: TFNO, FNO, FourCastNet, FourCastNetv2, SFNO and
+    # the ModernUNet's Fourier block through the CLIs, card vs CPU, and the
+    # two fft_impl branches against each other
+    spectral_paths, spectral_runs, _ = run_spectral_paths(card)
+    paths.update(spectral_paths)
+    train_runs.update(spectral_runs)
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'

@@ -141,7 +141,8 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
     dev = resolve_device(device)
     _no_tf32()
     cfg = load_config(CONFIG_DIR, overrides=overrides)
-    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)))
+    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)),
+                                 grid_shape=registry.data_grid_shape(cfg.data))
     if weights:
         W.load_flax_params(model, W.load_npz(weights))
     return _evaluate_model(cfg, model.to(dev), batch_size, sequence_length,
@@ -156,7 +157,8 @@ def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
     dev = resolve_device(device)
     _no_tf32()
     cfg = load_saved_config(run_dir)
-    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0))).to(dev)
+    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)),
+                                 grid_shape=registry.data_grid_shape(cfg.data)).to(dev)
     # the optimizer (and a diffusion run's EMA) are built only so that
     # load_checkpoint can restore into them
     trainer = Trainer(model, training_type=str(cfg.training.get("type", "regular")))

@@ -29,9 +29,12 @@ dtype of its input and its parameters.  In the diffusion model with bf16
 parameters the fp32 time embedding makes the AdaGN output fp32, and from
 the first block on the trunk runs in fp32.  torch's layers refuse mixed
 dtypes, so every parametrised layer here goes through `_promoted`, which
-applies JAX's rule.  `FourierResidualBlock` (`:162`) needs
-`SpectralConv2d` and is not ported: `use_fourier` on the lat-lon mesh
-raises (ROADMAP queue A, item 12).
+applies JAX's rule.
+
+`use_fourier` puts a `FourierResidualBlock` (`:162`, two
+`ops.spectral.SpectralConv2d` layers with 16 x 16 modes, each beside a
+Dense skip) at level 0 on the lat-lon mesh; the HEALPix models ignore it,
+as JAX's do.  Its mode counts follow the grid (`grid_shape`).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from dlwpbench_tpu_torch.ops.conv import (
     unfold_faces,
 )
 from dlwpbench_tpu_torch.ops.padding import healpix_pad_channels_last
+from dlwpbench_tpu_torch.ops.spectral import SpectralConv2d
 from dlwpbench_tpu_torch.utils.device import device_constant
 from dlwpbench_tpu_torch.weights import DenseGeneral
 
@@ -172,6 +176,39 @@ class ResidualBlock(nn.Module):
         return h + x
 
 
+class FourierResidualBlock(nn.Module):
+    """Spectral residual block: (GroupNorm ->) activation ->
+    SpectralConv2d + Dense, twice, and a Dense shortcut only when the
+    channel count changes.  It takes no time embedding (JAX's ignores
+    `emb`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, modes1: int = 16,
+                 modes2: int = 16, activation: str = "gelu", norm: bool = False,
+                 n_groups: int = 1, grid_shape: Optional[Sequence[int]] = None):
+        super().__init__()
+        self.act, self.norm = get_activation(activation), norm
+        if norm:
+            self.GroupNormCL_0 = GroupNormCL(in_channels, n_groups)
+            self.GroupNormCL_1 = GroupNormCL(out_channels, n_groups)
+        self.SpectralConv2d_0 = SpectralConv2d(in_channels, out_channels, modes1, modes2,
+                                               grid_shape=grid_shape)
+        self.Dense_0 = nn.Linear(in_channels, out_channels)
+        self.SpectralConv2d_1 = SpectralConv2d(out_channels, out_channels, modes1, modes2,
+                                               grid_shape=grid_shape)
+        self.Dense_1 = nn.Linear(out_channels, out_channels)
+        if in_channels != out_channels:
+            self.Dense_2 = nn.Linear(in_channels, out_channels)
+
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.act(self.GroupNormCL_0(x) if self.norm else x)
+        y = self.SpectralConv2d_0(h) + _promoted(self.Dense_0, h)
+        y = self.act(self.GroupNormCL_1(y) if self.norm else y)
+        out = self.SpectralConv2d_1(y) + _promoted(self.Dense_1, y)
+        if hasattr(self, "Dense_2"):
+            x = _promoted(self.Dense_2, x)
+        return out + x
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """flax's `MultiHeadDotProductAttention` (self-attention, no dropout,
     no mask): query, key and value projections to [heads, hd], the query
@@ -233,14 +270,11 @@ class ModernUNetCore(nn.Module):
                  activation: str = "gelu", norm: bool = False, attention: bool = False,
                  mesh: str = "equirectangular", use_scale_shift_norm: bool = False,
                  use_fourier: bool = False, variant: str = "upstream",
-                 emb_features: Optional[int] = None):
+                 emb_features: Optional[int] = None,
+                 grid_shape: Optional[Sequence[int]] = None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r}: expected one of {VARIANTS}")
-        if use_fourier and mesh == "equirectangular":
-            raise NotImplementedError(
-                "use_fourier (FourierResidualBlock, SpectralConv2d) is not ported to "
-                "PyTorch yet (ROADMAP queue A, item 12)")
         self.act = get_activation(activation)
         self.mesh, self.variant = mesh, variant
         hc = self.hidden_channels = tuple(int(c) for c in hidden_channels)
@@ -267,7 +301,12 @@ class ModernUNetCore(nn.Module):
                 down = add("GeoConv", GeoConv(ch, ch, 3, mesh, strides=2))
             else:  # the reference's plain zero-padded conv, outside its HEALPix wrapper
                 down = add("Conv", PlainConv(ch, ch, 3, stride=2, mesh=mesh))
-            self.enc.append((down, block(ch, c, blk_norm)))
+            if use_fourier and mesh == "equirectangular" and lvl == 0:
+                blk = add("FourierResidualBlock", FourierResidualBlock(
+                    ch, c, activation=activation, norm=blk_norm, grid_shape=grid_shape))
+            else:
+                blk = block(ch, c, blk_norm)
+            self.enc.append((down, blk))
             ch = c
             skip_ch.append(c)
 
@@ -342,7 +381,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 def _init_like_flax(model: nn.Module, seed: int) -> None:
     """flax's default init: lecun-normal Dense and conv kernels, zero
-    biases, unit norm scales; the ZeroConvs stay zero."""
+    biases, unit norm scales; the ZeroConvs stay zero; the spectral layers
+    draw their own weights (`init_`)."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in model.modules():
@@ -352,6 +392,8 @@ def _init_like_flax(model: nn.Module, seed: int) -> None:
                 kh, kw = m.kernel_size
                 _lecun_normal_(m.weight, kh * kw * m.in_channels // m.groups, gen)
             else:
+                if isinstance(m, SpectralConv2d):
+                    m.init_(gen)
                 continue
             m.bias.zero_()
         for m in model.modules():
@@ -366,7 +408,8 @@ def _in_channels(constant: int, prescribed: int, prognostic: int, context: int) 
 class ModernUNet(RolloutModel):
     """Reference `ModernUNet` (config `type: ModernUNet`).  `seed` seeds the
     random init (flax's defaults); weights from the JAX model come in
-    through `weights.load_flax_params`."""
+    through `weights.load_flax_params`.  `grid_shape` (H, W) sizes the
+    Fourier block's spectral weights for the data's grid (`use_fourier`)."""
 
     def __init__(
         self,
@@ -381,6 +424,7 @@ class ModernUNet(RolloutModel):
         norm: bool = False,
         use_fourier: bool = False,
         variant: str = "upstream",
+        grid_shape: Optional[Sequence[int]] = None,
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,
@@ -391,7 +435,8 @@ class ModernUNet(RolloutModel):
             _in_channels(constant_channels, prescribed_channels, prognostic_channels,
                          context_size),
             hidden_channels, int(prognostic_channels), activation=activation, norm=norm,
-            attention=attention, mesh=mesh, use_fourier=use_fourier, variant=variant)
+            attention=attention, mesh=mesh, use_fourier=use_fourier, variant=variant,
+            grid_shape=grid_shape)
         self.hidden_channels = self.ModernUNetCore_0.hidden_channels
         _init_like_flax(self, seed)
 

@@ -31,10 +31,16 @@ def build_model(model_cfg: dict, **kwargs):
 
     Config keys the constructor does not take (e.g. `name`, and `remat` for
     the diffusion models, which are no rollout models) are dropped, as
-    the JAX `build_model` drops keys its dataclass lacks; `kwargs` (the
-    init `seed`) are passed through."""
+    the JAX `build_model` drops keys its dataclass lacks; so are `kwargs`
+    (the init `seed`, the data's `grid_shape` (H, W), which sizes the
+    spectral weights of the models that take it)."""
     cfg = dict(model_cfg)
     cls = get_model_class(cfg.pop("type"))
     params = inspect.signature(cls.__init__).parameters
-    return cls(**{k: v for k, v in cfg.items() if k in params}, **kwargs)
+    return cls(**{k: v for k, v in {**cfg, **kwargs}.items() if k in params})
+
+
+def data_grid_shape(data_cfg) -> tuple[int, int]:
+    """(height, width) of a data config: the grid a lat-lon model runs on."""
+    return int(data_cfg["height"]), int(data_cfg["width"])
 

@@ -69,7 +69,8 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
     # instead of O(rollout)); override with model.remat=false
     if "remat" not in cfg.model:
         cfg.model["remat"] = True
-    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 1234))).to(dev)
+    model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 1234)),
+                                 grid_shape=registry.data_grid_shape(cfg.data)).to(dev)
     ctx = int(cfg.model.context_size)
     train_ds, val_ds, _, _ = build_datasets(
         cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx, device=dev

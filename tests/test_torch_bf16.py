@@ -2,7 +2,8 @@
 the JAX package on the CPU.
 
 The counterpart of `tests/test_trainer.py::TestMixedPrecision` and
-`tests/test_bf16_zoo.py` for the port's three families.  From one JAX
+`tests/test_bf16_zoo.py` for the port's families (the U-Net, the Swin,
+Pangu, and the spectral TFNO, FourCastNet and SFNO).  From one JAX
 init and the same numpy batches, the JAX trainer and the port's take
 three steps with `compute_dtype="bfloat16"`.
 
@@ -11,7 +12,10 @@ Tolerances:
   rounding is up to 2^-9 = 2e-3 of the value); XLA fuses elementwise
   chains and rounds once per fusion where ATen rounds after every op, so
   the two trainers round at other points.  Measured here: at most 6e-4
-  over three steps of each family;
+  over three steps of the U-Net, the Swin, Pangu and FourCastNet, 1.7e-3
+  of TFNO and SFNO, whose chains of Dense layers and GELUs have no
+  normalisation between them (JAX's bf16 losses there stay within 1.3e-4
+  of fp32's, the port's move 1.5e-3: the port rounds at more points);
 - the spectral losses, fp32: rtol 1e-5 (an FFT of 16 to 64 points in
   another order).
 """
@@ -56,6 +60,12 @@ FAMILIES = {
                  depths=[2, 2], num_heads=[2, 2], use_flash_attention=False),
     "Pangu": dict(type="PanguWeather", embed_dim=16, num_heads=[1, 2, 2, 1],
                   window_size=[2, 2, 4], patch_size=[1, 1], n_lat=H, n_lon=W),
+    # the spectral families: the transforms in fp32 between bf16 layers
+    "TFNO": dict(type="TFNO2DModule", hidden_channels=8, lifting_channels=16,
+                 projection_channels=16, n_modes=[3, 4], n_layers=2),
+    "FourCastNet": dict(type="FourCastNet", img_height=H, img_width=W, embed_dim=16, depth=2,
+                        num_blocks=4),
+    "SFNO": dict(type="SFNO2DModule", embed_dim=8, num_layers=2, height=H, width=W),
 }
 
 

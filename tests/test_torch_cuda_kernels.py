@@ -902,3 +902,115 @@ def test_diffusion_epoch_on_card_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(loss) and state.iteration == 2 * len(list(ds.batches(4)))
+
+
+# ---------------------------------------------------------------- the spectral families
+def _spectral_layer(kind, fft_impl):
+    from dlwpbench_tpu_torch.models.sfno import SphericalConv
+    from dlwpbench_tpu_torch.ops import spectral as sp
+
+    if kind == "dense":
+        return sp.SpectralConv2d(6, 5, 4, 5, fft_impl=fft_impl, grid_shape=(16, 32))
+    if kind == "tucker":
+        return sp.SpectralConv2d(6, 5, 4, 5, tucker_rank=0.8, fft_impl=fft_impl,
+                                 grid_shape=(16, 32))
+    if kind == "afno":
+        return sp.AFNO2DFilter(6, 2, fft_impl=fft_impl)
+    return SphericalConv(6, 5, 16, 32, fft_impl=fft_impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_impl", ["matmul", "fft"])
+@pytest.mark.parametrize("kind", ["dense", "tucker", "afno", "sht"])
+def test_spectral_layers_card_vs_cpu(cuda, kind, fft_impl):
+    """Each spectral layer's output and gradients on the card (cuBLAS,
+    cuFFT; TF32 off) within 1e-4 of each tensor's max of the CPU's, no
+    attention kernel launched, the DFT tables held on the card once; in
+    bf16 the result comes back in bf16."""
+    torch.manual_seed(0)
+    cpu = _spectral_layer(kind, fft_impl)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    card = _spectral_layer(kind, fft_impl).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 16, 32, 6)
+    w = torch.randn_like(cpu(x))
+    launches = [c.launches for c in (fa.flash_window_attention_fwd, wa.window_attention_qkv_fwd,
+                                     wa.window_attention_qkv5d_fwd, pk.packed_window_attention_fwd)]
+    got = {}
+    for name, mod, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        xx = x.to(dev).detach().requires_grad_(True)  # a leaf on either device
+        out = mod(xx)
+        (out * w.to(dev)).sum().backward()
+        got[name] = {"out": out.detach().cpu(), "x": xx.grad.cpu(),
+                     **{n: p.grad.cpu() for n, p in mod.named_parameters()}}
+    for n, ref in got["cpu"].items():
+        err = (got["card"][n] - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), (n, err)
+    assert launches == [c.launches for c in (fa.flash_window_attention_fwd,
+                                             wa.window_attention_qkv_fwd,
+                                             wa.window_attention_qkv5d_fwd,
+                                             pk.packed_window_attention_fwd)]
+    with torch.no_grad():
+        y16 = card.to(torch.bfloat16)(x.to(cuda, torch.bfloat16))
+    assert y16.dtype == torch.bfloat16 and torch.isfinite(y16.float()).all()
+
+
+@pytest.mark.cuda
+def test_spectral_tables_are_copied_once(cuda):
+    """A forward pass on the card copies nothing from the host after the
+    first: its DFT and SHT tables are the same card tensors call after
+    call, and a second forward runs under set_sync_debug_mode("error")."""
+    from dlwpbench_tpu_torch.ops import sht, spectral as sp
+
+    conv = sp.SpectralConv2d(4, 4, 4, 5, grid_shape=(16, 32)).to(cuda)
+    x = torch.randn(2, 16, 32, 4, device=cuda)
+    conv(x)
+    a = sp._device_tables(sp._band_dft_mats, 16, 32, 4, 5, device=x.device)
+    t = sht.sht_tables(16, 32)
+    f = sht._tables_on(t, "fwd", x.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        conv(x)
+        sht.isht_real(*sht.sht_real(x[..., 0], t), t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(u is v for u, v in zip(a, sp._device_tables(sp._band_dft_mats, 16, 32, 4, 5,
+                                                            device=x.device)))
+    assert f is sht._tables_on(t, "fwd", x.device) and f.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    dict(type="TFNO2DModule", hidden_channels=8, lifting_channels=16, projection_channels=16,
+         n_modes=[4, 5], n_layers=2),
+    dict(type="FourCastNet", img_height=16, img_width=32, embed_dim=16, depth=2, num_blocks=4),
+    dict(type="FourCastNet", img_height=16, img_width=32, embed_dim=16, depth=2, filter="SFNO"),
+    dict(type="SFNO2DModule", embed_dim=16, num_layers=2, height=16, width=32),
+], ids=["tfno", "fourcastnet", "fourcastnetv2", "sfno"])
+def test_spectral_models_card_vs_cpu(cuda, cfg):
+    """A small model of each spectral family: 2 closed-loop steps and
+    every parameter gradient on the card within 1e-4 of each tensor's
+    max of the CPU's."""
+    from dlwpbench_tpu_torch.models import registry
+
+    base = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2, remat=True)
+    cpu = registry.build_model({**cfg, **base}, seed=1)
+    card = registry.build_model({**cfg, **base}, seed=1).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(*s, generator=g) for s in ((2, 1, 2, 16, 32), (2, 3, 1, 16, 32),
+                                                   (2, 3, 2, 16, 32))]
+    target = torch.randn(2, 2, 2, 16, 32, generator=g)
+    got = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        out = model(*(a.to(dev) for a in args))
+        torch.mean((out - target.to(dev)) ** 2).backward()
+        got[name] = {"out": out.detach().cpu(),
+                     **{n: p.grad.cpu() for n, p in model.named_parameters()}}
+    top = max(v.abs().max().item() for k, v in got["cpu"].items() if k != "out")
+    for n, ref in got["cpu"].items():
+        scale = max(ref.abs().max().item(), 1e-6 * top)
+        err = (got["card"][n] - ref).abs().max().item()
+        assert err <= 1e-4 * scale, (n, err, scale)

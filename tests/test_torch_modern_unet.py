@@ -227,6 +227,43 @@ def test_modern_unet_rollout_and_grads_match_jax(case):
     assert_grads_close(_torch_grads(tmodel), weights.flatten_tree(_np_tree(j_grads["params"])))
 
 
+# the Fourier block at level 0 (16 x 16 modes): on 8 x 16 the grid keeps
+# 8 x 9 of them and the bands overlap (the fft branch), 8 channels in and
+# 12 out (its Dense shortcut); on 32 x 64 all 16 x 16, on the matmul branch
+FOURIER_CASES = {"upstream-fourier-8x16": ("upstream", (8, 16), (12, 16)),
+                 "reference-fourier-32x64": ("reference", (32, 64), (8, 16))}
+
+
+@pytest.mark.parametrize("case", sorted(FOURIER_CASES))
+def test_fourier_modern_unet_rollout_and_grads_match_jax(case):
+    """`use_fourier` on the lat-lon mesh: batch 2, context 2, 2 closed-loop
+    steps through the `FourierResidualBlock` at level 0, the port with
+    per-step remat, built for the grid (`grid_shape`)."""
+    variant, spatial, hidden = FOURIER_CASES[case]
+    B, T = 2, 4
+    const, pres = _randn(1, B, 1, 2, *spatial), _randn(2, B, T, 1, *spatial)
+    prog, target = _randn(3, B, T, 2, *spatial), _randn(4, B, T - 2, 2, *spatial)
+    kw = dict(SMALL, variant=variant, use_fourier=True, hidden_channels=hidden)
+    jmodel = jmu.ModernUNet(**kw)
+    params = _perturbed(jmodel.init(jax.random.PRNGKey(0), const, pres, prog))
+    assert "FourierResidualBlock_0" in params["params"]["ModernUNetCore_0"]
+
+    def loss_fn(p):
+        out = jmodel.apply(p, const, pres, prog)
+        return jnp.mean((out - target) ** 2), out
+
+    (j_loss, j_out), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    tmodel = tmu.ModernUNet(**kw, grid_shape=spatial, remat=True)
+    weights.load_flax_params(tmodel, _np_tree(params))
+    out = tmodel(*map(torch.from_numpy, (const, pres, prog)))
+    assert out.shape == j_out.shape == (B, T - 2, 2, *spatial)
+    assert np.abs(out.detach().numpy() - j_out).max() <= MODEL_TOL * np.abs(j_out).max()
+    loss = torch.mean((out - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    assert_grads_close(_torch_grads(tmodel), weights.flatten_tree(_np_tree(j_grads["params"])))
+
+
 def test_modern_unet_starts_as_persistence():
     """The zero-initialised head: a fresh model predicts a zero residual,
     so its rollout repeats the last context frame."""
@@ -268,10 +305,26 @@ def test_shipped_configs_build_the_jax_layout(overrides, cls, n_params):
 
 
 def test_fourier_blocks_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmu.ModernUNet(**SMALL, use_fourier=True)
-    # on HEALPix the JAX core ignores use_fourier, and so does the port
-    assert tmu.MUNetHPX(**SMALL, use_fourier=True).mesh == "healpix"
+    """`use_fourier` on the lat-lon mesh builds JAX's layout (the
+    `FourierResidualBlock_0` at level 0, the residual blocks numbered from
+    level 1); on HEALPix the JAX core ignores it, and so does the port; an
+    unknown variant still raises."""
+    def shapes(tree):
+        return {k: v.shape for k, v in weights.flatten_tree(tree).items()}
+
+    x = [_randn(i, 1, 3, c, 8, 16) for i, c in enumerate((2, 1, 2))]
+    x[0] = x[0][:, :1]
+    kw = dict(SMALL, use_fourier=True, hidden_channels=(16, 16))
+    jtree = jax.eval_shape(jmu.ModernUNet(**kw).init, jax.random.PRNGKey(0), *x)["params"]
+    tmodel = tmu.ModernUNet(**kw, grid_shape=(8, 16))
+    assert shapes(weights.to_flax_tree(tmodel)) == shapes(jax.tree_util.tree_map(
+        lambda a: np.empty(a.shape, a.dtype), jtree))
+    blk = tmodel.ModernUNetCore_0.FourierResidualBlock_0
+    assert blk.SpectralConv2d_0.weights1.shape == (8, 16, 8, 9, 2)  # 16 modes kept as 8 x 9
+    assert hasattr(blk, "Dense_2") and not hasattr(tmodel.ModernUNetCore_0, "ResidualBlock_5")
+    hpx = tmu.MUNetHPX(**SMALL, use_fourier=True)
+    assert hpx.mesh == "healpix" and not any(
+        "Fourier" in n for n, _ in hpx.named_modules())
     with pytest.raises(ValueError, match="variant"):
         tmu.ModernUNet(**SMALL, variant="dense")
 
