@@ -115,7 +115,7 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      windows of 64 tokens), listed under `hpx_cases` in the `kernels` line;
    - the ModernUNet family (no attention kernel: every count 0): the
      ModernUNet at `configs/model/modernunet.yaml`'s shipped width through
-     the evaluate CLI (2 batches of 32 x 15 steps) with a profiled rollout
+     the evaluate CLI (3 batches of 32 x 15 steps) with a profiled rollout
      and card vs CPU, and 1 training epoch in fp32 and in bf16 compute,
      each with its busy share after an epoch under
      `set_sync_debug_mode("error")`, a profiled step split into
@@ -190,12 +190,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
-# The evaluate paths: the shipped configs on synthetic data.  n_time=6060
-# makes the synthetic record long enough for 64 biweekly test inits, two
-# full eval batches of 32 (the config's testing batch size; three at 9,060
-# frames until the spectral phase needed the room: 18 s of host time a
-# build against 12 s).
-EVAL_TAIL = ["data=synthetic", "data.n_time=6060", "--batch-size", "32",
+# The evaluate paths: the shipped configs on synthetic data.  n_time=9060
+# makes the synthetic record long enough for 96 biweekly test inits, three
+# full eval batches of 32 (the config's testing batch size).
+EVAL_TAIL = ["data=synthetic", "data.n_time=9060", "--batch-size", "32",
              "--sequence-length", "17", "--device", "cuda"]
 MAIN_ARGV = ["model=swintransformer", *EVAL_TAIL]
 PANGU_EVAL_ARGV = ["model=panguweather", *EVAL_TAIL]
@@ -1032,6 +1030,15 @@ def check_packed_vs_5d(card: str):
 
 
 # ---------------------------------------------------------------- expected launches
+def build_for(cfg, model_cfg=None, **kwargs):
+    """The run's model (`cfg.model`, or `model_cfg`) built for its data's
+    grid, which sizes the spectral weights of the models that take it."""
+    from dlwpbench_tpu_torch.models import registry
+
+    return registry.build_model(cfg.model if model_cfg is None else model_cfg,
+                                grid_shape=registry.data_grid_shape(cfg.data), **kwargs)
+
+
 def counters_of():
     """Every kernel wrapper's launch counter, by kernel name."""
     from dlwpbench_tpu_torch.ops import flash_attention as fa
@@ -1162,7 +1169,6 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
     import torch
 
     from dlwpbench_tpu_torch import evaluate as cli
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.config import load_config
 
     cfg = load_config(cli.CONFIG_DIR, overrides=[a for a in argv if "=" in a])
@@ -1175,7 +1181,7 @@ def run_eval_path(label: str, argv: list, out_dir: str, card: str):
     launches = {name: fn.launches for name, fn in counters.items()}
 
     steps = int(argv[argv.index("--sequence-length") + 1]) - int(cfg.model.context_size)
-    model = registry.build_model(cfg.model)  # its geometry only, for the routing rule
+    model = build_for(cfg)  # its geometry only, for the routing rule
     want = expected_launches(model, counters, [(n, steps, 1) for n, _ in res["batch_seconds"]])
     print(f"{label}: evaluate {' '.join(argv)}: {len(res['batch_seconds'])} batches, {wall:.1f} s "
           f"wall (data, model, rollout, files), peak device memory "
@@ -1228,7 +1234,6 @@ def check_rollout_vs_cpu(cfg, weights=None, test_ds=None, weights_label="restore
     import torch
 
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
 
     if test_ds is None:
         cfg.testing["sequence_length"] = 3
@@ -1236,7 +1241,7 @@ def check_rollout_vs_cpu(cfg, weights=None, test_ds=None, weights_label="restore
                                           int(cfg.model.context_size))
     test_ds.sequence_length = 3
     const, pres, prog, _ = next(test_ds.batches(2))
-    model = registry.build_model(cfg.model, seed=int(cfg.seed)).eval()
+    model = build_for(cfg, seed=int(cfg.seed)).eval()
     if weights is not None:
         model.load_state_dict(weights)
     args = tensors_of(const, pres, prog)
@@ -1292,13 +1297,12 @@ def profile_rollout(cfg, card: str, test_ds=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.models import registry
 
     if test_ds is None:
         test_ds = helper_test_split(cfg)
     test_ds.sequence_length = 17
     batch = [torch.from_numpy(a).cuda() for a in next(test_ds.batches(EVAL_BATCH))[:3]]
-    model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda().eval()
+    model = build_for(cfg, seed=int(cfg.seed)).cuda().eval()
     with torch.no_grad():
         model(*batch)
         torch.cuda.synchronize()
@@ -1339,7 +1343,6 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
 
     from dlwpbench_tpu_torch import train as cli
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.config import load_config
 
     cfg = load_config(cli.CONFIG_DIR, overrides=argv)
@@ -1350,7 +1353,7 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
     epochs, bs, vbs = int(cfg.training.epochs), int(cfg.training.batch_size), int(cfg.validation.batch_size)
     steps, val_steps = int(cfg.training.sequence_length) - ctx, int(cfg.validation.sequence_length) - ctx
     train_bs, val_bs = _batch_sizes(len(train_ds), bs), _batch_sizes(len(val_ds), vbs)
-    model = registry.build_model({**cfg.model, "remat": True})  # geometry, for the rule
+    model = build_for(cfg, {**cfg.model, "remat": True})  # geometry, for the rule
     counters = counters_of()
     # remat: every training forward runs twice (once more in the backward)
     train_rollouts = [(b, steps, 2) for b in train_bs * epochs]
@@ -1420,9 +1423,8 @@ def perturbed_state(cfg, scale: float = 0.01):
     rollout is more than persistence and every gradient is exercised."""
     import torch
 
-    from dlwpbench_tpu_torch.models import registry
 
-    model = registry.build_model(cfg.model, seed=int(cfg.seed))
+    model = build_for(cfg, seed=int(cfg.seed))
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in model.parameters():
@@ -1441,16 +1443,15 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
     sides."""
     import torch
 
-    from dlwpbench_tpu_torch.models import registry
 
     const, pres, prog, target = tensors_of(*next(train_ds.batches(samples)))
-    cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
+    cpu = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
     card_cfg = {**cfg.model, "remat": True}
     if card_route is not None:
         card_cfg["use_flash_attention"] = card_route
-    card_model = registry.build_model(card_cfg, seed=int(cfg.seed)).cuda()
+    card_model = build_for(cfg, card_cfg, seed=int(cfg.seed)).cuda()
     card_model.load_state_dict(cpu.state_dict())
     counters = counters_of()
     before = {name: fn.launches for name, fn in counters.items()}
@@ -1507,10 +1508,9 @@ def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.models import registry
 
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
-    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     trainer = run_trainer(cfg, model, compute_dtype=compute_dtype)
     state = trainer.init()
     tensors = trainer._to_device(batch)
@@ -1552,17 +1552,16 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
     scale of bf16 rounding itself."""
     import torch
 
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.trainer import Trainer
 
     const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
-    cpu = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed))
+    cpu = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
     card_cfg = {**cfg.model, "remat": True}
     if card_route is not None:
         card_cfg["use_flash_attention"] = card_route
-    card_model = registry.build_model(card_cfg, seed=int(cfg.seed)).cuda()
+    card_model = build_for(cfg, card_cfg, seed=int(cfg.seed)).cuda()
     card_model.load_state_dict(cpu.state_dict())
 
     def grads(model, dev, dtype):
@@ -1626,7 +1625,6 @@ def drive_unet_rollout(cfg, card: str):
     from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
 
     cfg.testing["sequence_length"] = 17
     cfg.data["n_time"] = UNET_DRIVE_N_TIME
@@ -1635,7 +1633,7 @@ def drive_unet_rollout(cfg, card: str):
     batch = next(test_ds.batches(UNET_EVAL_BATCH))
     if batch[2].shape[0] != UNET_EVAL_BATCH:
         raise SystemExit(f"unet rollout: a test batch of {batch[2].shape[0]}, want {UNET_EVAL_BATCH}")
-    model32 = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0))).cuda().eval()
+    model32 = build_for(cfg, seed=int(cfg.get("seed", 0))).cuda().eval()
     models = {"float32": model32, "bfloat16": copy.deepcopy(model32).to(torch.bfloat16)}
     counters = counters_of()
     reset_counters(counters)
@@ -1750,13 +1748,12 @@ def compare_prefetch(cfg, train_ds, card: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.trainer import Trainer, cosine_lr
 
     bs = int(cfg.training.batch_size)
     ctx = int(cfg.model.context_size)
     steps = int(cfg.training.sequence_length) - ctx
-    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     # many epochs' worth of cosine schedule: the LR stays near its base
     trainer = Trainer(model, learning_rate=float(cfg.training.learning_rate),
                       weight_decay=float(cfg.training.optimizer_weight_decay), epochs=100)
@@ -2081,9 +2078,8 @@ def epoch_busy(cfg, train_ds, check_sync: bool = False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.models import registry
 
-    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     trainer = run_trainer(cfg, model, epochs=100)
     state = trainer.init()
     if check_sync:
@@ -2114,7 +2110,6 @@ def run_zarr_path(card: str, synthetic):
     import torch
 
     from dlwpbench_tpu_torch import build_baselines, evaluate as eval_cli
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.trainer import checkpoint_path
 
     t_phase = time.perf_counter()
@@ -2162,7 +2157,7 @@ def run_zarr_path(card: str, synthetic):
             res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--device", "cuda"])["swin"]
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
-            model = registry.build_model(cfg.model)  # its geometry only, for the routing rule
+            model = build_for(cfg)  # its geometry only, for the routing rule
             steps = 16
             want = expected_launches(model, counters,
                                      [(n, steps, 1) for n, _ in res["batch_seconds"]])
@@ -2399,7 +2394,6 @@ def drive_hpx_unet_rollout(card: str):
 
     from dlwpbench_tpu_torch import train as cli
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.ops import conv as conv_mod
     from dlwpbench_tpu_torch.training.config import load_config
 
@@ -2409,7 +2403,7 @@ def drive_hpx_unet_rollout(card: str):
     batch = next(train_ds.batches(EVAL_BATCH))
     if batch[2].shape[0] != EVAL_BATCH:
         raise SystemExit(f"hpx unet rollout: a batch of {batch[2].shape[0]}, want {EVAL_BATCH}")
-    model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda().eval()
+    model = build_for(cfg, seed=int(cfg.seed)).cuda().eval()
     args = [torch.from_numpy(a).cuda() for a in batch[:3]]
     counters = counters_of()
     reset_counters(counters)
@@ -2502,7 +2496,7 @@ def run_hpx_swin_paths(card: str):
 # ---------------------------------------------------------------- the ModernUNet family
 # `configs/model/modernunet.yaml` at its shipped width (hidden 64, 128, 256,
 # 1024; 89,568,046 parameters on the 4 + 1 + 8 synthetic channels): the
-# evaluate paths' 64 test inits and the training paths' 11 batches.  The
+# evaluate paths' 96 test inits and the training paths' 11 batches.  The
 # reference's HEALPix ModernUNet (`modernunet_inverted_hpx.yaml`, hidden
 # 136, 68, 34) and the HEALPix diffusion model on the training paths' 1,536
 # frames (11 training batches, 16 test inits: one evaluate batch); the
@@ -2546,10 +2540,9 @@ def profile_step_split(cfg, train_ds, card: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dlwpbench_tpu_torch.models import registry
 
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
-    model = registry.build_model({**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
+    model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     trainer = run_trainer(cfg, model)
     state = trainer.init()
     tensors = trainer._to_device(batch)
@@ -2583,7 +2576,7 @@ def profile_step_split(cfg, train_ds, card: str):
 
 def run_modern_unet_paths(card: str):
     """The phases "ModernUNet" (lat-lon, shipped width) and "MUNetHPX":
-    the evaluate CLI (2 batches of 32 x 15 steps, fp32) with a profiled
+    the evaluate CLI (3 batches of 32 x 15 steps, fp32) with a profiled
     rollout and card vs CPU; 1 training epoch in fp32 and in bf16 compute
     through the train CLI, each with its busy share after an epoch under
     set_sync_debug_mode("error"), a profiled step split into
@@ -2640,9 +2633,8 @@ def check_ema_replay(cfg, train_ds, card: str):
     trainer's fp32 lerp rounds each step: tol 1e-5 of each tensor's max)."""
     import torch
 
-    from dlwpbench_tpu_torch.models import registry
 
-    model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda()
+    model = build_for(cfg, seed=int(cfg.seed)).cuda()
     trainer = run_trainer(cfg, model, epochs=100)
     state = trainer.init()
     replay = {n: t.double() for n, t in state.ema.items()}
@@ -2685,17 +2677,16 @@ def check_diffusion_vs_cpu(cfg, card: str):
     import torch
 
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
 
     cfg.testing["sequence_length"] = int(cfg.model.context_size) + 3
     train_ds, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
                                              int(cfg.model.context_size))
     g = torch.Generator().manual_seed(0)
-    cpu = registry.build_model(cfg.model, seed=int(cfg.seed))
+    cpu = build_for(cfg, seed=int(cfg.seed))
     with torch.no_grad():
         for p in cpu.parameters():
             p.add_(0.01 * torch.randn(p.shape, generator=g))
-    card_model = registry.build_model(cfg.model, seed=int(cfg.seed)).cuda()
+    card_model = build_for(cfg, seed=int(cfg.seed)).cuda()
     card_model.load_state_dict(cpu.state_dict())
     counters = counters_of()
     before = {n: fn.launches for n, fn in counters.items()}
@@ -2779,10 +2770,10 @@ RECURRENT_HPX_ARGV = {
                      *HPX8_TRAIN_TAIL],
     "distana_hpx": ["model=distana", "model.type=DISTANAHPX", *HPX8_TRAIN_TAIL],
 }
-# the wb_learnable store at `configs/data/wb_learnable.yaml`'s years; 5
+# the wb_learnable store at `configs/data/wb_learnable.yaml`'s years; 2
 # solver steps a frame where the generator's default is 600 (time only:
-# the solver's steps are host-bound, 29,200 of them here)
-WB_ARGS = ["--years", "1979", "1982", "--inner-steps", "5"]
+# the solver's steps are host-bound, 11,680 of them here)
+WB_ARGS = ["--years", "1979", "1982", "--inner-steps", "2"]
 NS_TOL = 1e-4  # the solver, card vs CPU: max|diff| / max|w|, fp32, cuFFT vs pocketfft
 
 
@@ -2913,7 +2904,6 @@ def run_ns_paths(card: str):
     from dlwpbench_tpu_torch import build_baselines
     from dlwpbench_tpu_torch import train as cli
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.training.config import load_config
 
     paths, runs, clock = {}, {}, Clock("Navier-Stokes", card)
@@ -2966,7 +2956,7 @@ def run_ns_paths(card: str):
         label = key.replace("_", " ")
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
             run, rcfg, rds = run_train_path(f"{label} train", argv, run_dir, card)
-        mesh = registry.build_model(rcfg.model).mesh
+        mesh = build_for(rcfg).mesh
         if mesh != "healpix":
             raise SystemExit(f"{label}: mesh {mesh}, want healpix")
         check_train_grads(rcfg, rds, card, kernels=False)
@@ -3064,7 +3054,6 @@ def compare_fft_impls(card: str, train_ds):
     import torch
 
     from dlwpbench_tpu_torch import train as cli
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.models.sfno import SphericalConv
     from dlwpbench_tpu_torch.ops.spectral import FFT_IMPLS, AFNO2DFilter
     from dlwpbench_tpu_torch.training.config import load_config
@@ -3110,7 +3099,7 @@ def compare_fft_impls(card: str, train_ds):
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
     step_ms, losses = {}, {}
     for impl in FFT_IMPLS:
-        model = registry.build_model({**cfg.model, "fft_impl": impl, "remat": True},
+        model = build_for(cfg, {**cfg.model, "fft_impl": impl, "remat": True},
                                      seed=int(cfg.seed)).cuda()
         trainer = run_trainer(cfg, model)
         state = trainer.init()
@@ -3211,13 +3200,12 @@ def run_packed_path(card: str):
     import torch
 
     from dlwpbench_tpu_torch import train as cli
-    from dlwpbench_tpu_torch.models import registry
     from dlwpbench_tpu_torch.models.pangu import expand_earth_bias, shift_window_mask
     from dlwpbench_tpu_torch.ops import packed_attention as pk
     from dlwpbench_tpu_torch.training.config import load_config
 
     cfg = load_config(cli.CONFIG_DIR, overrides=PANGU_TRAIN_ARGV)
-    model = registry.build_model(cfg.model)  # its geometry only
+    model = build_for(cfg)  # its geometry only
     win = model.window_size
     N = win[0] * win[1] * win[2]
     gen = torch.Generator(device="cuda").manual_seed(5)

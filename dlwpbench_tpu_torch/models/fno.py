@@ -13,7 +13,8 @@ interleaved, then the projection's two), so `weights.load_flax_params`
 maps a JAX tree onto them name for name.
 
 The spectral weights' mode counts follow the grid (`grid_shape`, see
-`ops.spectral.SpectralConv2d`); the entry points pass the data's.
+`ops.spectral.SpectralConv2d`), which every build gives: the entry points
+pass the data's.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class FNOCore(nn.Module):
                  lifting_channels: int = 256, projection_channels: int = 256,
                  n_modes: Sequence[int] = (12, 12), n_layers: int = 4,
                  tucker_rank: Optional[float] = None, use_bias: bool = True,
-                 fft_impl: str = "matmul", grid_shape: Optional[Sequence[int]] = None):
+                 fft_impl: str = "matmul", *, grid_shape: Sequence[int]):
         super().__init__()
         self.n_layers = int(n_layers)
         hidden = int(hidden_channels)
@@ -82,7 +83,7 @@ class FNOCore(nn.Module):
 class FNO2DModule(RolloutModel):
     """Reference `FNO2DModule` (config `type: FNO2DModule`, full spectral
     weights).  `seed` seeds the random init (JAX's distributions);
-    `grid_shape` (H, W) sizes the spectral weights for the data's grid."""
+    `grid_shape` (H, W), the data's grid, sizes the spectral weights."""
 
     tucker = False
 
@@ -101,7 +102,8 @@ class FNO2DModule(RolloutModel):
         context_size: int = 1,
         mesh: str = "equirectangular",
         fft_impl: str = "matmul",
-        grid_shape: Optional[Sequence[int]] = None,
+        *,
+        grid_shape: Sequence[int],
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,

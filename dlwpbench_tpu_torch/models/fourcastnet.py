@@ -165,7 +165,6 @@ class FourCastNet(RolloutModel):
         n_modes: Sequence[int] = (12, 12),
         mesh: str = "equirectangular",
         spmd_mesh: Any = None,
-        dist_axis: str = "x",
         exact_gelu: bool = False,
         fft_impl: str = "matmul",
         remat: bool = False,

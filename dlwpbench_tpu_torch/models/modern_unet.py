@@ -184,7 +184,7 @@ class FourierResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, modes1: int = 16,
                  modes2: int = 16, activation: str = "gelu", norm: bool = False,
-                 n_groups: int = 1, grid_shape: Optional[Sequence[int]] = None):
+                 n_groups: int = 1, *, grid_shape: Sequence[int]):
         super().__init__()
         self.act, self.norm = get_activation(activation), norm
         if norm:
@@ -275,6 +275,9 @@ class ModernUNetCore(nn.Module):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r}: expected one of {VARIANTS}")
+        if use_fourier and mesh == "equirectangular" and grid_shape is None:
+            raise ValueError("use_fourier on the lat-lon mesh sizes its spectral weights for "
+                             "the data's grid: give grid_shape=(H, W)")
         self.act = get_activation(activation)
         self.mesh, self.variant = mesh, variant
         hc = self.hidden_channels = tuple(int(c) for c in hidden_channels)

@@ -47,8 +47,7 @@ class SphericalConv(nn.Module):
 
     def __init__(self, in_channels: int, features: int, nlat: int, nlon: int,
                  grid: str = "equiangular", lmax: Optional[int] = None,
-                 mmax: Optional[int] = None, spmd_mesh: Any = None, dist_axis: str = "x",
-                 dist_pipeline_chunks: int = 4, dist_comm_bf16: Any = "auto",
+                 mmax: Optional[int] = None, spmd_mesh: Any = None,
                  fft_impl: str = "matmul"):
         super().__init__()
         no_mesh(spmd_mesh, "the spherical convolution's SHTs")
@@ -110,11 +109,8 @@ class SFNO2DModule(RolloutModel):
         use_mlp: bool = True,
         mesh: str = "equirectangular",
         spmd_mesh: Any = None,
-        dist_axis: str = "x",
         fft_impl: str = "matmul",
         dist_schedule: str = "per_conv",
-        dist_pipeline_chunks: int = 8,
-        dist_comm_bf16: Any = "auto",
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,

@@ -224,9 +224,7 @@ class SpectralConv2d(nn.Module):
     spectrum and mixes channels with complex weights per mode, m1 =
     min(modes1, H) and m2 = min(modes2, W//2+1).  The weight shapes follow
     the grid; JAX reads it from the first input, the port from
-    `grid_shape` (H, W).  Without it the modes are kept as given, which
-    is JAX's shape on every grid they fit; a grid they do not fit raises
-    and names `grid_shape`.
+    `grid_shape` (H, W), and a field whose grid keeps other modes raises.
 
     `tucker_rank` (a fraction): the complex weight [Cin, Cout, m1, m2] is
     Tucker-factorised, a core `weights{1,2}_core` [r0, r1, r2, r3, 2] and
@@ -237,14 +235,12 @@ class SpectralConv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, modes1: int = 12,
                  modes2: int = 12, tucker_rank: Optional[float] = None,
-                 fft_impl: str = "matmul", grid_shape: Optional[Sequence[int]] = None):
+                 fft_impl: str = "matmul", *, grid_shape: Sequence[int]):
         super().__init__()
         check_fft_impl(fft_impl)
         self.modes, self.fft_impl = (int(modes1), int(modes2)), fft_impl
         self.in_channels, self.out_channels = int(in_channels), int(out_channels)
-        self.m1, self.m2 = self.modes
-        if grid_shape is not None:
-            self.m1, self.m2 = self._kept(*grid_shape)
+        self.m1, self.m2 = self._kept(*grid_shape)
         dims = (self.in_channels, self.out_channels, self.m1, self.m2)
         self.tucker = tucker_rank is not None
         for name in ("weights1", "weights2"):
@@ -352,8 +348,7 @@ class AFNO2DFilter(nn.Module):
 
     def __init__(self, hidden_size: int, num_blocks: int = 8,
                  sparsity_threshold: float = 0.01, hard_thresholding_fraction: float = 1.0,
-                 hidden_size_factor: int = 1, spmd_mesh=None, dist_axis: str = "x",
-                 fft_impl: str = "matmul"):
+                 hidden_size_factor: int = 1, spmd_mesh=None, fft_impl: str = "matmul"):
         super().__init__()
         no_mesh(spmd_mesh, "the AFNO filter")
         check_fft_impl(fft_impl)

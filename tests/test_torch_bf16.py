@@ -14,8 +14,18 @@ Tolerances:
   the two trainers round at other points.  Measured here: at most 6e-4
   over three steps of the U-Net, the Swin, Pangu and FourCastNet, 1.7e-3
   of TFNO and SFNO, whose chains of Dense layers and GELUs have no
-  normalisation between them (JAX's bf16 losses there stay within 1.3e-4
-  of fp32's, the port's move 1.5e-3: the port rounds at more points);
+  normalisation between them.  That gap is two independent roundings,
+  not a fault of either: JAX's own bf16 losses there leave the fp32
+  losses by up to 4.6e-3 (TFNO, step 2) and 4.5e-3 (SFNO, step 3), the
+  port's by 3.2e-3 and 3.7e-3 (this file run as a script prints them);
+  `test_bf16_layers_err_no_more_than_jax` holds the port's bf16 error,
+  layer by layer, to JAX's own;
+- per-layer bf16 error (rms distance from the fp32 forward): the port's
+  at most 1.1 x JAX's.  Measured here: at most 1.0014 x on every layer of
+  the three spectral families.  A spectral transform computed in bf16
+  where JAX keeps it in fp32 fails it at the first spectral layer; a
+  single extra rounding of a spectrum does not show against the error
+  the layer's input already carries;
 - the spectral losses, fp32: rtol 1e-5 (an FFT of 16 to 64 points in
   another order).
 """
@@ -33,6 +43,7 @@ from dlwpbench_tpu.models import build_model as jbuild
 from dlwpbench_tpu.training import losses as jlosses
 from dlwpbench_tpu.training import trainer as jtr
 from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset as TDataset
+from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.ops import flash_attention as fa
 from dlwpbench_tpu_torch.ops import window_attention as wa
@@ -81,17 +92,20 @@ def _tensors(batch):
     return tuple(None if x is None else torch.as_tensor(x) for x in batch)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_bf16_trainer_matches_jax(family):
+def _three_steps(family):
+    """Three training steps from one JAX init on the same batches: the
+    losses of JAX's bf16 trainer, the port's bf16 one and the port's fp32
+    one, and the port's bf16 state."""
     cfg = {**BASE, **FAMILIES[family]}
     batches = list(TDataset(**_arrays()).batches(4))[:3]
     jt = jtr.Trainer(jbuild(dict(cfg)), learning_rate=LR, epochs=5, compute_dtype="bfloat16")
     jstate = jt.init(batches[0])
     init = jax.tree_util.tree_map(np.asarray, jstate.params)
-    tt = ttr.Trainer(registry.build_model(dict(cfg)), learning_rate=LR, epochs=5,
-                     compute_dtype="bfloat16")
+    tt = ttr.Trainer(registry.build_model(dict(cfg), grid_shape=(H, W)), learning_rate=LR,
+                     epochs=5, compute_dtype="bfloat16")
     tstate = tt.init(params=init)
-    t32 = ttr.Trainer(registry.build_model(dict(cfg)), learning_rate=LR, epochs=5)
+    t32 = ttr.Trainer(registry.build_model(dict(cfg), grid_shape=(H, W)), learning_rate=LR,
+                      epochs=5)
     s32 = t32.init(params=init)
 
     params, opt_state = jstate.params, jstate.opt_state
@@ -103,6 +117,12 @@ def test_bf16_trainer_matches_jax(family):
         j_losses.append(float(loss))
         t_losses.append(tt.train_step(tstate, _tensors(b), LR).item())
         f32_losses.append(t32.train_step(s32, _tensors(b), LR).item())
+    return j_losses, t_losses, f32_losses, tstate
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_bf16_trainer_matches_jax(family):
+    j_losses, t_losses, f32_losses, tstate = _three_steps(family)
     np.testing.assert_allclose(t_losses, j_losses, rtol=LOSS_RTOL)
     assert t_losses != f32_losses  # the steps ran in bf16
     # the master parameters, their gradients and AdamW's moments stay fp32
@@ -111,6 +131,79 @@ def test_bf16_trainer_matches_jax(family):
         assert p.grad.dtype == torch.float32
         st = tstate.optimizer.state[p]
         assert st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32
+
+
+LAYER_ERR_RATIO = 1.1
+
+
+def _flax_outputs(tree, prefix=""):
+    """flax's captured intermediates -> {"A.B": first call's output}."""
+    out = {}
+    for key, val in tree.items():
+        if key == "__call__":
+            out[prefix] = np.asarray(val[0], np.float32)
+        else:
+            out.update(_flax_outputs(val, f"{prefix}.{key}" if prefix else key))
+    return out
+
+
+def _port_outputs(model, x):
+    """The port's submodule outputs of one `step`, by module name."""
+    outs, hooks = {}, []
+
+    def keep(name):
+        def hook(module, args, out):
+            if isinstance(out, torch.Tensor):
+                outs.setdefault(name, out.detach().float().numpy())
+        return hook
+
+    for name, m in model.named_modules():
+        if name:
+            hooks.append(m.register_forward_hook(keep(name)))
+    with torch.no_grad():
+        model.step(torch.from_numpy(x).to(next(model.parameters()).dtype), None)
+    for h in hooks:
+        h.remove()
+    return outs
+
+
+def _layer_errors(family):
+    """One bf16 step from the same bf16-exact input on both sides: for each
+    submodule output that both capture in one layout, (name, the port's
+    rms distance from JAX's fp32 output, JAX's bf16 rms distance)."""
+    cfg = {**BASE, **FAMILIES[family]}
+    const, pres, prog, _ = next(TDataset(**_arrays()).batches(4))
+    jm = jbuild(dict(cfg))
+    params = jm.init(jax.random.PRNGKey(0), *(jnp.asarray(a) for a in (const, pres, prog)))
+    last = lambda a: np.moveaxis(a[:, 0], 1, -1)  # [B, T, C, H, W] -> [B, H, W, C]
+    x = np.concatenate([last(const), last(pres), last(prog)], -1)
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+    def jax_outputs(dtype):
+        p = jax.tree_util.tree_map(lambda a: a.astype(dtype), params)
+        _, v = jm.apply(p, jnp.asarray(x, dtype), None, method=type(jm).step,
+                        capture_intermediates=True, mutable=["intermediates"])
+        return _flax_outputs(v["intermediates"])
+
+    j32, j16 = jax_outputs(jnp.float32), jax_outputs(jnp.bfloat16)
+    tmodel = registry.build_model(dict(cfg), grid_shape=(H, W))
+    weights.load_flax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    t16 = _port_outputs(tmodel.to(torch.bfloat16), x)
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a))))
+    # skipped: a layout that differs (FourCastNet's patch conv) or no flax module
+    return [(name, rms(t - j32[name]), rms(j16[name] - j32[name])) for name, t in t16.items()
+            if name in j16 and t.shape == j16[name].shape]
+
+
+@pytest.mark.parametrize("family", ["TFNO", "FourCastNet", "SFNO"])
+def test_bf16_layers_err_no_more_than_jax(family):
+    """Every submodule's bf16 output lies no further from the fp32 forward
+    than JAX's bf16 output of that submodule does (the rms distances,
+    within `LAYER_ERR_RATIO`)."""
+    errors = _layer_errors(family)
+    assert len(errors) >= 8
+    for name, port, ref in errors:
+        assert port <= LAYER_ERR_RATIO * ref, name
 
 
 class _DtypeSpy:
@@ -257,3 +350,17 @@ def test_melr_matches_jax():
     np.testing.assert_allclose(got_k.numpy(), np.asarray(want_k), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-6)
     assert tlosses.EARTH_RADIUS_M == jlosses.EARTH_RADIUS_M
+
+
+if __name__ == "__main__":
+    # `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_bf16.py` from
+    # the repo root: the numbers behind the bf16 tolerances for the
+    # spectral families, on the host's CPU ("fp32": the port's fp32 trainer).
+    for fam in ("TFNO", "FourCastNet", "SFNO"):
+        j, t, f32, _ = _three_steps(fam)
+        gap = lambda a, b: " ".join(f"{abs(x / y - 1):.2e}" for x, y in zip(a, b))
+        print(f"{fam}: per-step loss, |port bf16 / JAX bf16 - 1| {gap(t, j)}; "
+              f"|JAX bf16 / fp32 - 1| {gap(j, f32)}; |port bf16 / fp32 - 1| {gap(t, f32)}")
+        ratios = [port / ref for _, port, ref in _layer_errors(fam)]
+        print(f"{fam}: per-layer rms error, port over JAX: max {max(ratios):.4f} "
+              f"over {len(ratios)} layers")

@@ -997,8 +997,8 @@ def test_spectral_models_card_vs_cpu(cuda, cfg):
     from dlwpbench_tpu_torch.models import registry
 
     base = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2, remat=True)
-    cpu = registry.build_model({**cfg, **base}, seed=1)
-    card = registry.build_model({**cfg, **base}, seed=1).to(cuda)
+    cpu = registry.build_model({**cfg, **base}, seed=1, grid_shape=(16, 32))
+    card = registry.build_model({**cfg, **base}, seed=1, grid_shape=(16, 32)).to(cuda)
     g = torch.Generator().manual_seed(0)
     args = [torch.randn(*s, generator=g) for s in ((2, 1, 2, 16, 32), (2, 3, 1, 16, 32),
                                                    (2, 3, 2, 16, 32))]

@@ -183,11 +183,12 @@ def test_seeded_init_follows_jax_distributions():
     """The port's own init draws JAX's distributions: U(0, 1/(Cin Cout))
     dense spectral weights, N(0, 1)/(Cin Cout) Tucker cores, N(0, 1)/sqrt(r)
     factors, lecun-normal Dense kernels with zero biases."""
-    dense = tfno.FNO2DModule(hidden_channels=16, n_modes=(4, 4), seed=3)
+    dense = tfno.FNO2DModule(hidden_channels=16, n_modes=(4, 4), grid_shape=(8, 16), seed=3)
     w = dense.FNOCore_0.SpectralConv2d_0.weights1
     assert 0.0 <= w.min().item() and w.max().item() <= 1 / 256
     assert abs(w.mean().item() - 0.5 / 256) < 0.05 / 256
-    tucker = tfno.TFNO2DModule(hidden_channels=16, n_modes=(4, 4), seed=3).FNOCore_0
+    tucker = tfno.TFNO2DModule(hidden_channels=16, n_modes=(4, 4), grid_shape=(8, 16),
+                               seed=3).FNOCore_0
     core, f0 = tucker.SpectralConv2d_0.weights1_core, tucker.SpectralConv2d_0.weights1_factor0
     assert abs(core.std().item() * 256 - 1.0) < 0.1
     assert abs(f0.std().item() * np.sqrt(f0.shape[1]) - 1.0) < 0.2
@@ -221,4 +222,4 @@ def test_tfno_run_through_the_clis(tmp_path, monkeypatch):
 
 def test_unknown_fft_impl_raises():
     with pytest.raises(ValueError, match="fft_impl"):
-        tfno.FNO2DModule(fft_impl="dft")
+        tfno.FNO2DModule(fft_impl="dft", grid_shape=(8, 16))

@@ -307,8 +307,9 @@ def test_shipped_configs_build_the_jax_layout(overrides, cls, n_params):
 def test_fourier_blocks_raise_naming_their_item():
     """`use_fourier` on the lat-lon mesh builds JAX's layout (the
     `FourierResidualBlock_0` at level 0, the residual blocks numbered from
-    level 1); on HEALPix the JAX core ignores it, and so does the port; an
-    unknown variant still raises."""
+    level 1), and without the data's grid it raises; on HEALPix the JAX
+    core ignores it, and so does the port; an unknown variant still
+    raises."""
     def shapes(tree):
         return {k: v.shape for k, v in weights.flatten_tree(tree).items()}
 
@@ -322,6 +323,8 @@ def test_fourier_blocks_raise_naming_their_item():
     blk = tmodel.ModernUNetCore_0.FourierResidualBlock_0
     assert blk.SpectralConv2d_0.weights1.shape == (8, 16, 8, 9, 2)  # 16 modes kept as 8 x 9
     assert hasattr(blk, "Dense_2") and not hasattr(tmodel.ModernUNetCore_0, "ResidualBlock_5")
+    with pytest.raises(ValueError, match="grid_shape"):
+        tmu.ModernUNet(**kw)
     hpx = tmu.MUNetHPX(**SMALL, use_fourier=True)
     assert hpx.mesh == "healpix" and not any(
         "Fourier" in n for n, _ in hpx.named_modules())

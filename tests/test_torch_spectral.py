@@ -163,9 +163,11 @@ def test_spectral_conv_branches_agree(tucker):
 
 
 def test_spectral_conv_grid_decides_the_modes():
-    """Without `grid_shape` the modes are kept as given; a grid that clamps
-    them raises and names the fix; with it the shapes are JAX's."""
-    conv = tsp.SpectralConv2d(2, 2, 16, 16)
+    """`grid_shape` is required and sizes the weights as JAX's first input
+    does; a field whose grid keeps other modes raises and names the fix."""
+    with pytest.raises(TypeError, match="grid_shape"):
+        tsp.SpectralConv2d(2, 2, 16, 16)
+    conv = tsp.SpectralConv2d(2, 2, 16, 16, grid_shape=(32, 64))
     assert conv.weights1.shape == (2, 2, 16, 16, 2)
     with pytest.raises(ValueError, match="grid_shape=\\(8, 16\\)"):
         conv(torch.zeros(1, 8, 16, 2))
@@ -174,7 +176,7 @@ def test_spectral_conv_grid_decides_the_modes():
     assert (tsp.SpectralConv2d(2, 2, 16, 16, grid_shape=(8, 16)).weights1.shape
             == jshape["params"]["weights1"].shape == (2, 2, 8, 9, 2))
     with pytest.raises(ValueError, match="fft_impl"):
-        tsp.SpectralConv2d(2, 2, fft_impl="dft")
+        tsp.SpectralConv2d(2, 2, fft_impl="dft", grid_shape=(8, 16))
 
 
 class _Shapes(TorchDispatchMode):
@@ -286,6 +288,6 @@ def test_port_layers_carry_flax_names():
     x = jnp.asarray(_randn(0, 1, 8, 16, 4))
     p = Both().init(jax.random.PRNGKey(0), x)["params"]
     assert sorted(p["SpectralConv2d_0"]) == sorted(
-        n for n, _ in tsp.SpectralConv2d(4, 4, 3, 3, tucker_rank=0.8).named_parameters())
+        n for n, _ in tsp.SpectralConv2d(4, 4, 3, 3, tucker_rank=0.8, grid_shape=(8, 16)).named_parameters())
     assert sorted(p["AFNO2DFilter_0"]) == sorted(
         n for n, _ in tsp.AFNO2DFilter(4, 2).named_parameters())
