@@ -57,8 +57,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      then its epoch before the prefetch (a pageable copy and a sync per
      step, the trainer's loop until the prefetch) and after it (the
      trainer's own epoch, its steps under
-     `torch.cuda.set_sync_debug_mode("error")`), in turns: seconds per
-     step, the device's busy share, and what the host does;
+     `torch.cuda.set_sync_debug_mode("error")`), in turns on 768 frames:
+     seconds per step, the device's busy share, and what the host does;
    on every path each window forward and backward launch must take the
    fused route, and each flash forward and backward launch the mma
    design, as must every launch of the card-vs-CPU gradient checks (Pangu
@@ -70,8 +70,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      0 of every other kernel);
    - U-Net evaluate at `bench.py`'s shape: `python -m
      dlwpbench_tpu_torch.evaluate model=unet
-     model.hidden_channels=[64,128,256] data=synthetic data.n_time=12100
-     --batch-size 64` (two batches of 16-step rollouts, fp32, 0
+     model.hidden_channels=[64,128,256] data=synthetic data.n_time=6000
+     --batch-size 32` (two batches of 16-step rollouts, fp32, 0
      attention launches), the same rollout at batch 128 in fp32 and in bf16 (parameters
      and inputs cast as `bench.py` casts them) with and without the host
      copies, and the card against the CPU on 2 samples x 2 steps;
@@ -131,10 +131,10 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
    - Navier-Stokes and the recurrent models (no attention kernel: every
      count 0), in one temporary working directory: `python -m
      dlwpbench_tpu_torch.train model=convlstm data=navier_stokes` with the
-     shipped training defaults (30 epochs of batch 32), `build_baselines
+     shipped training defaults but 10 epochs (30 shipped), batch 32, `build_baselines
      -c`, `evaluate -c` (batch 4, ACC), then `model=distana` 1 epoch and
      `evaluate -c`; every entry point generates `navier_stokes.yaml`'s
-     dataset (16 trajectories, n 64, 50 records of 500 solver steps where
+     dataset (16 trajectories, n 64, 50 records of 400 solver steps where
      it ships 1,000) on the card and
      each generation is timed; the first one's fields checked (finite,
      mean-free, no enstrophy growth over the second half), the solver's
@@ -162,6 +162,22 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      of SFNO's spherical convolution and FourCastNet's AFNO filter at the
      shipped shapes against each other, timed, and one SFNO training step
      each way;
+   - the graph families (no attention kernel: every count 0; the gathers
+     and per-node sums on ATen's `index_select` and `index_add`, the MLPs
+     on cuBLAS), each 1 epoch at batch 32 on 448 frames through the train
+     CLI with its s per step, grid-points/s, device ops per step, busy
+     share and peak memory after an epoch under
+     `set_sync_debug_mode("error")`, and its rollout and gradients card vs
+     CPU (GraphCast's gradients on 1 sample): GraphCast (`model=graphcast`, 35,232,264
+     parameters) and MeshGraphNet (`model=meshgraphnet`, its Delaunay edge
+     list) through their user paths (`build_baselines -c`, `evaluate -c`
+     at batch 2 with ACC), MeshGraphNet on the 8-stencil
+     (`model.graph_type=grid_2d_8stencil`, the stencil movement) through
+     the train CLI; each one's profiled training step split into GEMMs,
+     gathers and `index_add`, rolls and pads, LayerNorm and the rest;
+     GraphCast's epoch in bf16 compute; one GraphCast processor layer at
+     the shipped shapes on the gather and the onehot movement, against
+     each other and timed;
 5. the run's seconds, the card line, the `kernels` line and, last,
    `{"ok": true, ...}`.
 
@@ -1098,6 +1114,8 @@ def step_calls(model, B: int) -> dict:
     from dlwpbench_tpu_torch.models.base import RecurrentModel
     from dlwpbench_tpu_torch.models.fno import FNO2DModule
     from dlwpbench_tpu_torch.models.fourcastnet import FourCastNet
+    from dlwpbench_tpu_torch.models.graphcast import GraphCastNet
+    from dlwpbench_tpu_torch.models.mgn import MeshGraphNet
     from dlwpbench_tpu_torch.models.modern_unet import DiffModernUNet, ModernUNet
     from dlwpbench_tpu_torch.models.pangu import PanguWeather
     from dlwpbench_tpu_torch.models.sfno import SFNO2DModule
@@ -1105,9 +1123,10 @@ def step_calls(model, B: int) -> dict:
 
     calls = collections.Counter()
     if isinstance(model, (UNet, ModernUNet, DiffModernUNet, RecurrentModel, FNO2DModule,
-                          FourCastNet, SFNO2DModule)):
+                          FourCastNet, SFNO2DModule, GraphCastNet, MeshGraphNet)):
         # convs, GroupNorm, pools, GELU, Dense, LSTM gates, the DFTs and
-        # SHTs (cuBLAS, cuFFT): no attention kernel
+        # SHTs (cuBLAS, cuFFT), the graphs' gathers and per-node sums (ATen):
+        # no attention kernel
         return calls
     if isinstance(model, PanguWeather):
         win = model.window_size
@@ -1334,6 +1353,19 @@ def grid_points(data_cfg) -> int:
     return 12 * int(nside) ** 2 if nside else int(data_cfg.height) * int(data_cfg.width)
 
 
+def train_splits(argv: list):
+    """(train, val): the splits the train CLI builds for `argv`.  Paths on
+    one data config and context size share one build (each takes seconds
+    of host time)."""
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=argv)
+    return build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                          int(cfg.model.context_size))[:2]
+
+
 def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=None):
     """The train CLI on `argv`; `datasets` (train, val), when given, are
     the splits the CLI builds, already built (the expected launches are
@@ -1342,14 +1374,11 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
     import torch
 
     from dlwpbench_tpu_torch import train as cli
-    from dlwpbench_tpu_torch.data.sources import build_datasets
     from dlwpbench_tpu_torch.training.config import load_config
 
     cfg = load_config(cli.CONFIG_DIR, overrides=argv)
     ctx = int(cfg.model.context_size)
-    if datasets is None:
-        datasets = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing, ctx)[:2]
-    train_ds, val_ds = datasets
+    train_ds, val_ds = train_splits(argv) if datasets is None else datasets
     epochs, bs, vbs = int(cfg.training.epochs), int(cfg.training.batch_size), int(cfg.validation.batch_size)
     steps, val_steps = int(cfg.training.sequence_length) - ctx, int(cfg.validation.sequence_length) - ctx
     train_bs, val_bs = _batch_sizes(len(train_ds), bs), _batch_sizes(len(val_ds), vbs)
@@ -1433,14 +1462,16 @@ def perturbed_state(cfg, scale: float = 0.01):
 
 
 def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool = True,
-                      weights=None, samples: int = 2):
+                      weights=None, samples: int = 2, reference=None):
     """The full-width model's loss and every parameter gradient, `samples`
     samples x 2 steps, on the card (kernels; `card_route` forces an
     attention route) against the CPU (auto: plain einsum or the kernels'
     plain versions).  Every launch of a kernel with two designs must take
     the new one; a model without attention (`kernels=False`) must launch
     none.  `weights` (a state dict) replaces the seeded init on both
-    sides."""
+    sides.  `reference`, a dict, keeps the CPU's result for the next call
+    on the same model, batch and weights (another card route): the first
+    call fills it, later ones reuse it."""
     import torch
 
 
@@ -1458,10 +1489,15 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
     before_fused = new_design_launches(counters)
     results = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card_model, "cuda")):
+        if name == "cpu" and reference:
+            results[name] = reference["cpu"]
+            continue
         out = model(*tensors_of(const, pres, prog, device=dev))
         loss = torch.mean((out.float() - target.to(dev)) ** 2)
         loss.backward()
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    if reference is not None:
+        reference["cpu"] = results["cpu"]
     used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
     after_fused = new_design_launches(counters)
     new = {n: after_fused[n] - before_fused[n] for n in before_fused if n in used}
@@ -1600,13 +1636,14 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
 # `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
 # of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
 # channels).  n_time=12100 holds 128 test inits: one batch of 128 for the
-# rollout with its inputs on the card, two batches of 64 through the
-# evaluate CLI (24,000 frames and two batches of 128 until the
-# Navier-Stokes phase needed the time: their data set-up took 54 s).
+# rollout with its inputs on the card; 6000 holds 64, two batches of 32
+# through the evaluate CLI (24,000 frames and two batches of 128 until the
+# Navier-Stokes phase needed the time: their data set-up took 54 s; 12,100
+# frames and two batches of 64 until the graph phase did).
 UNET_EVAL_BATCH = 128
 UNET_DRIVE_N_TIME = 12100
 UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
-                  f"data.n_time={UNET_DRIVE_N_TIME}", "--batch-size", str(UNET_EVAL_BATCH // 2),
+                  "data.n_time=6000", "--batch-size", "32",
                   "--sequence-length", "17", "--device", "cuda"]
 UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
 
@@ -1803,8 +1840,7 @@ def compare_prefetch(cfg, train_ds, card: str):
     variants = {"before, tables copied per forward": before_copies, "before": before,
                 "after": lambda: after(True)}
     counters = counters_of()
-    for run in variants.values():  # warm-up: cuBLAS, the allocator, the pinned pool
-        run()
+    after()  # warm-up: cuBLAS, the allocator, the pinned pool (one epoch warms every variant)
     reset_counters(counters)
     timed = {name: [] for name in variants}
     for name in [*variants, *reversed(variants)]:  # in turns: A B C C B A
@@ -2532,11 +2568,12 @@ class Clock:
         self.t = now
 
 
-def profile_step_split(cfg, train_ds, card: str):
+def profile_step_split(cfg, train_ds, card: str, groups=STEP_GROUPS):
     """One training step at batch 32 under the profiler (in the config's
     compute dtype), its device time by the op that launched each kernel:
-    the convolutions, GroupNorm, the concatenations and the rest (the
-    layout copies around GroupNorm, GELU, AdamW, ... by name)."""
+    `groups` (by default the convolutions, GroupNorm and the
+    concatenations) and the rest (the layout copies around GroupNorm, GELU,
+    AdamW, ... by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2564,7 +2601,7 @@ def profile_step_split(cfg, train_ds, card: str):
     if not kernels:
         return None
     shares = {g: sum(e.self_device_time_total for e in ops if any(k in e.key for k in keys))
-              for g, keys in STEP_GROUPS.items()}
+              for g, keys in groups.items()}
     shares["rest"] = kernels - sum(shares.values())
     top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     print(f"profile: {what}: device time by the op that launched it: " + "; ".join(
@@ -2596,11 +2633,12 @@ def run_modern_unet_paths(card: str):
     check_rollout_vs_cpu(cfg, weights, test_ds=helper,
                          weights_label="seeded, moved by 0.01 N(0, 1)")
     clock("profile, card vs CPU rollout")
+    splits = train_splits(MUNET_TRAIN_ARGV)  # both dtypes train on one build
     for key, argv in (("munet_train", MUNET_TRAIN_ARGV),
                       ("munet_train_bf16", [*MUNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"])):
         label = key.replace("_", " ")
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
-            run, rcfg, rds = run_train_path(label, argv, run_dir, card)
+            run, rcfg, rds = run_train_path(label, argv, run_dir, card, datasets=splits)
         clock(f"{label} CLI")
         report_epoch(label, run, rcfg, rds, card)
         run["step_split"] = profile_step_split(rcfg, rds, card)
@@ -2754,15 +2792,19 @@ def run_diffusion_paths(card: str):
 
 # ---------------------------------------------------------------- Navier-Stokes and the recurrent models
 # `configs/data/navier_stokes.yaml` (n 64, 16 trajectories, 50 records)
-# with 500 solver steps a record where it ships 1,000 (time only, as the
+# with 400 solver steps a record where it ships 1,000 (time only, as the
 # wb_learnable generator's: every entry point regenerates the dataset, five
 # generations of host-bound solver steps; the shapes and splits as
-# shipped; at 250 the forced flow is still spinning up and the check's
-# enstrophy doubles over the second half); ConvLSTM with the shipped training defaults (30 epochs of batch
-# 32), DISTANA 1 epoch; both evaluated at batch 4 (the test split's 8
-# windows of 17 frames: two batches)
-NS_CONVLSTM_ARGV = ["model=convlstm", "data=navier_stokes", "data.inner_steps=500"]
-NS_DISTANA_ARGV = ["model=distana", "data=navier_stokes", "data.inner_steps=500",
+# shipped; the forced flow spins up, and the check's last-over-middle
+# enstrophy ratio is 2.02 at 300 steps, 1.92 at 350 and 1.82 at 400 (the
+# CPU solver from the same field), 1.59 at 500 on the card; 500 until the
+# graph phase needed the time); ConvLSTM with the shipped training
+# defaults but 10 epochs where they ship 30 (time only: a host-bound path,
+# cut to make room for the graph phase), batch 32, DISTANA 1 epoch; both
+# evaluated at batch 4 (the test split's 8 windows of 17 frames: two batches)
+NS_CONVLSTM_ARGV = ["model=convlstm", "data=navier_stokes", "data.inner_steps=400",
+                    "training.epochs=10"]
+NS_DISTANA_ARGV = ["model=distana", "data=navier_stokes", "data.inner_steps=400",
                    "training.epochs=1"]
 NS_EVAL_BATCH = 4
 RECURRENT_HPX_ARGV = {
@@ -2886,7 +2928,7 @@ class GenerationLog(list):
 def run_ns_paths(card: str):
     """The phase "Navier-Stokes and the recurrent models", in one temporary
     working directory: ConvLSTM's user path (`train model=convlstm
-    data=navier_stokes` with the shipped training defaults, its busy share,
+    data=navier_stokes` with the shipped training defaults but 10 epochs, its busy share,
     card-vs-CPU rollout and gradients, `build_baselines -c`, `evaluate -c`
     with ACC, the RMSE per lead beside persistence's) and DISTANA's (1
     epoch, the same checks, `evaluate -c` against the same climatology).
@@ -3184,6 +3226,179 @@ def run_spectral_paths(card: str):
     return paths, runs, dict(fft_ms=fft_times, sfno_step_ms=sfno_step_ms)
 
 
+# ---------------------------------------------------------------- the graph families
+# The shipped configs on 448 synthetic frames (3 full training batches of
+# 32 and one of 7, 3 validation windows, 4 test inits; under the spectral
+# paths' 768, to fit the script's time) on the 32 x 64 grid of
+# `BASELINE.json` configs[4], 4 + 1 + 8 channels: GraphCast
+# (`graphcast.yaml`: mesh level 3, hidden 512, 16 processor layers,
+# 35,232,264 parameters; 2,048 grid nodes, 642 mesh vertices, 5,100
+# multimesh edges) and MeshGraphNet (`meshgraphnet.yaml`: its Delaunay graph
+# through the edge list, 50,452 parameters) through their user paths;
+# MeshGraphNet on the 8-stencil (the stencil movement) through the train CLI.
+GRAPH_TAIL = ["data=synthetic", "data.n_time=448", "training.epochs=1"]
+GRAPH_PATHS = {
+    "graphcast": (["model=graphcast", *GRAPH_TAIL], True),
+    "mgn": (["model=meshgraphnet", *GRAPH_TAIL], True),
+    "mgn_stencil": (["model=meshgraphnet", "model.graph_type=grid_2d_8stencil", *GRAPH_TAIL],
+                    False),
+}
+# the op groups of a graph model's step device time (CPU op names, forward
+# and backward): cuBLAS's products, the gathers with their backward and the
+# per-node sums (index_select, index_add, gather), the stencil's rolls and
+# zero-filled shifts, LayerNorm and its backward
+GRAPH_STEP_GROUPS = {"GEMM": ("aten::mm", "aten::addmm", "aten::bmm"),
+                     "gather and index_add": ("index_select", "index_add", "aten::gather"),
+                     "roll and pad": ("aten::roll", "constant_pad_nd"),
+                     "layer_norm": ("layer_norm",)}
+# The onehot form rounds its operands to bf16: the two forms agree within
+# one bf16 ulp (2^-8) of each tensor's max.
+ONEHOT_TOL = 2.0**-8
+# evaluate -c's batch on the graph paths: the 4 test inits as two batches
+# of 2, so that one batch after the first gives a steady-state rate
+GRAPH_EVAL_BATCH = 2
+# Samples of each graph path's card-vs-CPU gradient check: GraphCast's CPU
+# side takes about 1.8 TFLOP a sample (2 steps, remat, backward), 1 sample
+# keeps it in seconds; the small MeshGraphNets take 2 like the other paths.
+GRAPH_GRAD_SAMPLES = {"graphcast": 1}
+
+
+def compare_movements(card: str):
+    """One GraphCast processor layer at the shipped shapes (`MeshEdgeBlock`
+    + `MeshNodeBlock`, width 512, batch 32, the multimesh's 5,100 edges and
+    642 vertices) on the gather form ("auto", the default) and the onehot
+    form, one set of weights: the outputs, the inputs' and every weight's
+    gradients against each other within the onehot operands' bf16 rounding;
+    the forward's and the forward + backward's device ms (CUDA events)."""
+    import torch
+
+    from dlwpbench_tpu_torch.models.graphcast import _movements
+    from dlwpbench_tpu_torch.ops.graph_ops import MeshEdgeBlock, MeshNodeBlock
+
+    D, B = 512, 32
+    torch.manual_seed(0)
+    edge, node = MeshEdgeBlock(3 * D, D, D, 1).cuda(), MeshNodeBlock(2 * D, D, D, 1).cuda()
+    mvs = {impl: _movements((32, 64, 3, "cell_centers", "rad"), impl)[1]
+           for impl in ("gather", "onehot")}
+    E, V = mvs["gather"].src.size, mvs["gather"].n_src
+    g = torch.Generator(device="cuda").manual_seed(0)
+    e, n, we, wn = (torch.randn(B, m, D, device="cuda", generator=g) for m in (E, V, E, V))
+
+    def layer(ee, nn_, mv):
+        ee = edge(ee, nn_, nn_, mv)
+        return ee, node(ee, nn_, mv)
+
+    got, times = {}, {}
+    for impl, mv in mvs.items():
+        edge.zero_grad(set_to_none=True)  # the other form's timed backward passes added to them
+        node.zero_grad(set_to_none=True)
+        ee, nn_ = e.clone().requires_grad_(True), n.clone().requires_grad_(True)
+        oe, on = layer(ee, nn_, mv)
+        ((oe * we).sum() + (on * wn).sum()).backward()
+        got[impl] = {"edges": oe.detach(), "nodes": on.detach(), "d_edges": ee.grad,
+                     "d_nodes": nn_.grad,
+                     **{f"edge.{k}": p.grad.clone() for k, p in edge.named_parameters()},
+                     **{f"node.{k}": p.grad.clone() for k, p in node.named_parameters()}}
+
+        def fwd(mv=mv):
+            with torch.no_grad():
+                layer(e, n, mv)
+
+        def fwd_bwd(mv=mv):
+            ee, nn_ = e.detach().requires_grad_(True), n.detach().requires_grad_(True)
+            oe, on = layer(ee, nn_, mv)
+            ((oe * we).sum() + (on * wn).sum()).backward()
+
+        times[impl] = (cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 5))
+    worst = max(((got["onehot"][k] - v).abs().max().item() / v.abs().max().item(), k)
+                for k, v in got["gather"].items())
+    (gf, gfb), (of, ofb) = times["gather"], times["onehot"]
+    print(f"movement: one GraphCast processor layer [{B}, {E} edges, {V} vertices, {D}]: "
+          f"gather (index_select, index_add) forward {gf:.4f} ms, forward + backward "
+          f"{gfb:.4f} ms; onehot (incidence products on cuBLAS, fp32) {of:.4f} / {ofb:.4f} ms "
+          f"({of / gf:.2f}x / {ofb / gfb:.2f}x gather's); onehot against gather worst "
+          f"max|diff|/max {worst[0]:.3e} ({worst[1]}, tol {ONEHOT_TOL:.1e}, the onehot "
+          f"operands' bf16 rounding) [{card}]")
+    if not worst[0] <= ONEHOT_TOL:
+        raise SystemExit("movement: the onehot form disagrees with the gather form")
+    return times
+
+
+def run_graph_paths(card: str):
+    """The phase "graph families": each path of `GRAPH_PATHS` through the
+    train CLI (1 epoch at batch 32, no attention launch) with its s per
+    step, grid-points/s, device ops per step, busy share and peak memory
+    after an epoch under set_sync_debug_mode("error"); GraphCast's and
+    MeshGraphNet's user paths on through `build_baselines -c` and `evaluate
+    -c` with ACC; every model's 2-step rollout on 2 samples and its
+    gradients on `GRAPH_GRAD_SAMPLES` card vs CPU (seeded weights moved by
+    0.01 N(0, 1)); each model's profiled training step split
+    into GEMMs, gathers and index_add, rolls and pads, LayerNorm and the
+    rest; GraphCast's epoch in bf16 compute (the CLI's epoch alone); the
+    two movement forms at
+    the shipped processor layer's shapes (`compare_movements`)."""
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    paths, runs, clock = {}, {}, Clock("graph", card)
+    t_phase = time.perf_counter()
+    cfg = load_config(cli.CONFIG_DIR, overrides=GRAPH_PATHS["graphcast"][0])
+    train_ds, val_ds, test_ds = build_datasets(cfg.data, cfg.training, cfg.validation,
+                                               cfg.testing, int(cfg.model.context_size))[:3]
+    eval_gps = {}
+    for key, (argv, user) in GRAPH_PATHS.items():
+        label = key.replace("_", " ")
+        if user:
+            r = run_user_path(label, argv, card, batch=GRAPH_EVAL_BATCH,
+                              datasets=(train_ds, val_ds))
+            run, rcfg, rds = r["train"], r["cfg"], r["train_ds"]
+            paths[f"{key}_evaluate"] = r["launches"]
+            eval_gps[key] = r["res"]["gridpoints_per_s"]
+        else:
+            with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+                run, rcfg, rds = run_train_path(f"{label} train", argv, run_dir, card,
+                                                datasets=(train_ds, val_ds))
+            report_epoch(f"{label} train", run, rcfg, rds, card)
+        runs[f"{key}_train"], paths[f"{key}_train"] = run, run["launches"]
+        clock(f"{label} path")
+        weights = perturbed_state(rcfg)
+        check_rollout_vs_cpu(rcfg, weights, test_ds=test_ds,
+                             weights_label="seeded, moved by 0.01 N(0, 1)")
+        check_train_grads(rcfg, rds, card, kernels=False, weights=weights,
+                          samples=GRAPH_GRAD_SAMPLES.get(key, 2))
+        run["step_split"] = profile_step_split(rcfg, rds, card, GRAPH_STEP_GROUPS)
+        clock(f"{label} card vs CPU, profiled step")
+        if key == "graphcast":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_graphcast_bf16_") as run_dir:
+                b16, _, _ = run_train_path(
+                    "graphcast train bf16", [*argv, "training.compute_dtype=bfloat16"], run_dir,
+                    card, datasets=(train_ds, val_ds))
+            b16["busy"] = None  # not profiled: the CLI's epoch alone, to save the time
+            runs["graphcast_train_bf16"], paths["graphcast_train_bf16"] = b16, b16["launches"]
+            print(f"training, fp32 against bf16 compute: graphcast {run['seconds_per_step']:.4f} "
+                  f"against {b16['seconds_per_step']:.4f} s per step "
+                  f"({run['seconds_per_step'] / b16['seconds_per_step']:.2f}x), peak "
+                  f"{run['peak_gib']:.2f} against {b16['peak_gib']:.2f} GiB [{card}]")
+            clock("graphcast bf16 epoch")
+    movement_ms = compare_movements(card)
+    clock("movement forms")
+    used = {p: {n: c for n, c in launches.items() if c} for p, launches in paths.items()}
+    print("graph phase: " + "; ".join(
+        f"{k} {r['seconds_per_step']:.4f} s a step, {r['gridpoints_per_s']:.1f} grid-points/s, "
+        + ("device not measured" if r["busy"] is None else
+           f"{r['device_ops_per_step']:.1f} device ops a step, busy {100 * r['busy']:.1f}%")
+        + f", peak {r['peak_gib']:.2f} GiB" for k, r in runs.items())
+        + f"; evaluate -c at batch {GRAPH_EVAL_BATCH} " + ", ".join(
+            f"{k} {v} grid-points/s" for k, v in eval_gps.items())
+        + f" [{card}]")
+    print(f"graph phase: {time.perf_counter() - t_phase:.1f} s; attention launches on its "
+          f"{len(paths)} paths {used} (none wanted) [{card}]")
+    if any(used.values()):
+        raise SystemExit(f"graph phase: attention launches {used}")
+    return paths, runs, dict(movement_ms=movement_ms, evaluate_gridpoints_per_s=eval_gps)
+
+
 # ---------------------------------------------------------------- the packed path
 PACKED_STEPS = 3
 
@@ -3284,6 +3499,9 @@ def main() -> int:
     clock = Clock("chip_smoke", card)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    import importlib.util  # the evaluator's plots need it (ROADMAP item 6)
+    print(f"card machine: matplotlib "
+          f"{'installed' if importlib.util.find_spec('matplotlib') else 'not installed'}")
     build_all()
     clock("build")
     flash = check_flash(card)
@@ -3304,7 +3522,11 @@ def main() -> int:
     clock("Swin evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
-        train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card)
+        # the Swin, Pangu, swin_win8 and U-Net training paths and the bf16
+        # ones below share one build of TRAIN_TAIL's splits (context 1)
+        syn_splits = train_splits(TRAIN_ARGV)
+        train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card,
+                                               datasets=syn_splits)
     paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
     check_train_grads(tcfg, train_ds, card)
     profile_train_step(tcfg, train_ds, card)
@@ -3318,26 +3540,33 @@ def main() -> int:
     clock("Pangu evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
-        ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card)
+        ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card,
+                                                  datasets=syn_splits)
     paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
-    # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64)
-    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d")
+    # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64);
+    # the three routes share one CPU reference
+    pangu_ref = {}
+    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d", reference=pangu_ref)
     # Pangu's flash route (`use_flash_attention: true`): every block's
     # windows through the flash forward and backward (N 144, D 32)
-    check_train_grads(ptcfg, ptrain_ds, card, card_route=True)
+    check_train_grads(ptcfg, ptrain_ds, card, card_route=True, reference=pangu_ref)
     # Pangu's token-major route (`use_flash_attention: "packed"`): every
     # block's windows through the token-major forward and backward
-    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed")
+    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed", reference=pangu_ref)
     profile_train_step(ptcfg, ptrain_ds, card)
     clock("Pangu train")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
-        s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card)
+        s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card,
+                                          datasets=syn_splits)
     paths["swin_win8_train"], fused_by_path["swin_win8_train"] = s8["launches"], s8["fused"]
     # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
     check_train_grads(s8cfg, s8_ds, card, card_route="packed")
     profile_train_step(s8cfg, s8_ds, card)
-    prefetch = compare_prefetch(s8cfg, s8_ds, card)
+    # the prefetch's turns on half the training frames (768: 5 full batches
+    # and one of 18 an epoch; 1,536 until the graph phase needed the time)
+    prefetch = compare_prefetch(s8cfg, train_splits([*SWIN8_TRAIN_ARGV, "data.n_time=768"])[0],
+                                card)
     paths["swin_win8_prefetch"] = prefetch["launches"]
     clock("swin_win8 train and the prefetch")
     paths["packed"], fused_by_path["packed"] = run_packed_path(card)
@@ -3367,7 +3596,8 @@ def main() -> int:
     )
     for key, argv in bf16_runs:
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
-            run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card)
+            run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card,
+                                            datasets=syn_splits)
         train_runs[key] = run
         paths[key], fused_by_path[key] = run["launches"], run["fused"]
         if key == "swin_train_bf16":
@@ -3443,6 +3673,13 @@ def main() -> int:
     spectral_paths, spectral_runs, _ = run_spectral_paths(card)
     paths.update(spectral_paths)
     train_runs.update(spectral_runs)
+
+    # the graph families: GraphCast and MeshGraphNet (its Delaunay edge list
+    # and its 8-stencil) through the CLIs, card vs CPU, and the two movement
+    # forms of a GraphCast processor layer against each other
+    graph_paths, graph_runs, _ = run_graph_paths(card)
+    paths.update(graph_paths)
+    train_runs.update(graph_runs)
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'

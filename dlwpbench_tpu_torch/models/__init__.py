@@ -10,8 +10,10 @@ model, each on both meshes (`ModernUNet`, `MUNetHPX`, `DiffModernUNet`,
 meshes (`ConvLSTM`, `ConvLSTMHPX`, `DISTANA`, `DISTANAHPX`), and the
 spectral families: FNO and TFNO (`FNO2DModule`, `TFNO2DModule`),
 FourCastNet (`FourCastNet`, and `FourCastNetv2`, the same class with the
-SFNO filter) and SFNO (`SFNO2DModule`).  Any other type (the graph
-networks) raises the registry's KeyError.
+SFNO filter) and SFNO (`SFNO2DModule`), and the graph families: GraphCast
+on the icosahedral multimesh (`GraphCastNet`) and MeshGraphNet on its grid
+graphs (`MeshGraphNet`).  That is every type the JAX registry holds; any
+other type raises the registry's KeyError.
 """
 
 from dlwpbench_tpu_torch.models import registry
@@ -19,6 +21,8 @@ from dlwpbench_tpu_torch.models.convlstm import ConvLSTM, ConvLSTMHPX
 from dlwpbench_tpu_torch.models.distana import DISTANA, DISTANAHPX
 from dlwpbench_tpu_torch.models.fno import FNO2DModule, TFNO2DModule
 from dlwpbench_tpu_torch.models.fourcastnet import FourCastNet
+from dlwpbench_tpu_torch.models.graphcast import GraphCastNet
+from dlwpbench_tpu_torch.models.mgn import MeshGraphNet
 from dlwpbench_tpu_torch.models.modern_unet import (
     DiffModernUNet,
     DiffMUNetHPX,
@@ -39,6 +43,8 @@ registry.register("DiffMUNetHPX")(DiffMUNetHPX)
 registry.register("FNO2DModule")(FNO2DModule)
 registry.register("FourCastNet")(FourCastNet)
 registry.register("FourCastNetv2")(FourCastNet)  # filter: SFNO in its config
+registry.register("GraphCastNet")(GraphCastNet)
+registry.register("MeshGraphNet")(MeshGraphNet)
 registry.register("ModernUNet")(ModernUNet)
 registry.register("MUNetHPX")(MUNetHPX)
 registry.register("PanguWeather")(PanguWeather)

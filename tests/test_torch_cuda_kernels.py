@@ -1014,3 +1014,128 @@ def test_spectral_models_card_vs_cpu(cuda, cfg):
         scale = max(ref.abs().max().item(), 1e-6 * top)
         err = (got["card"][n] - ref).abs().max().item()
         assert err <= 1e-4 * scale, (n, err, scale)
+
+
+# ---------------------------------------------------------------- the graph families
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    dict(type="GraphCastNet", input_height=16, input_width=32, mesh_level=2, hidden_dim=16,
+         processor_layers=2),
+    dict(type="GraphCastNet", input_height=16, input_width=32, mesh_level=2, hidden_dim=16,
+         processor_layers=2, movement_impl="onehot", aggregation="mean",
+         grid_convention="pole_inclusive"),
+    dict(type="MeshGraphNet", processor_size=2, hidden_dim_processor=16,
+         hidden_dim_node_encoder=16, hidden_dim_edge_encoder=16, hidden_dim_node_decoder=16,
+         graph_type="delaunay"),
+    dict(type="MeshGraphNet", processor_size=2, hidden_dim_processor=16,
+         hidden_dim_node_encoder=16, hidden_dim_edge_encoder=16, hidden_dim_node_decoder=16,
+         graph_type="grid_2d_8stencil", aggregation="mean"),
+], ids=["graphcast", "graphcast-onehot", "mgn-delaunay", "mgn-stencil"])
+def test_graph_models_card_vs_cpu(cuda, cfg):
+    """A small model of each graph family and movement: 2 closed-loop
+    steps and every parameter gradient on the card (ATen's gathers and
+    `index_add` with atomics, cuBLAS; TF32 off) within 1e-4 of each
+    tensor's max of the CPU's; no attention kernel launched."""
+    from dlwpbench_tpu_torch.models import registry
+
+    base = dict(constant_channels=2, prescribed_channels=1, prognostic_channels=2, remat=True)
+    cpu = registry.build_model({**cfg, **base}, seed=1)
+    card = registry.build_model({**cfg, **base}, seed=1).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(*s, generator=g) for s in ((2, 1, 2, 16, 32), (2, 3, 1, 16, 32),
+                                                   (2, 3, 2, 16, 32))]
+    target = torch.randn(2, 2, 2, 16, 32, generator=g)
+    before = [c.launches for c in (fa.flash_window_attention_fwd, wa.window_attention_qkv_fwd,
+                                   wa.window_attention_qkv5d_fwd, pk.packed_window_attention_fwd)]
+    got = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        out = model(*(a.to(dev) for a in args))
+        torch.mean((out - target.to(dev)) ** 2).backward()
+        got[name] = {"out": out.detach().cpu(),
+                     **{n: p.grad.cpu() for n, p in model.named_parameters()}}
+    top = max(v.abs().max().item() for k, v in got["cpu"].items() if k != "out")
+    # the onehot form rounds its operands to bf16: one bf16 ulp where a
+    # value lies at a rounding boundary (tests/_graph_parity.py); MGN's ReLU
+    # has a kink: a pre-activation within rounding of 0 lands on either side
+    # on the two devices and moves one position's term of a gradient, so it
+    # is held as chip_smoke.py holds the full-width models (1e-3)
+    tol = (2.0**-8 if cfg.get("movement_impl") == "onehot"
+           else 1e-3 if cfg["type"] == "MeshGraphNet" else 1e-4)
+    errs = {n: (got["card"][n] - ref).abs().max().item()
+            / max(ref.abs().max().item(), 1e-6 * top) for n, ref in got["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    print(f"worst max|diff| / max: {errs[worst]:.3e} ({worst}), tol {tol:.1e}")
+    assert errs[worst] <= tol, (worst, errs[worst])
+    assert before == [c.launches for c in (fa.flash_window_attention_fwd,
+                                           wa.window_attention_qkv_fwd,
+                                           wa.window_attention_qkv5d_fwd,
+                                           pk.packed_window_attention_fwd)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_onehot_movement_card_vs_cpu(cuda, mode):
+    """The onehot form's gathers and per-node sums (cuBLAS, fp32 products
+    of bf16-rounded operands) against the CPU's on the same input: the
+    forward within 1e-6 of max (equal bf16 operands, other summation
+    orders), the input's gradient within one bf16 ulp (2^-8 of max: its
+    cotangents are rounded to bf16 from sums in other orders); the gather
+    form's both within 1e-5; and the two forms within 2^-8 of max."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.ops import graph_ops as go
+
+    rng = np.random.default_rng(0)
+    src, dst = rng.integers(0, 40, 300), rng.integers(0, 30, 300)
+    x = torch.from_numpy(rng.standard_normal((4, 40, 16)).astype(np.float32))
+    got = {}
+    for impl in ("onehot", "gather"):
+        mv = go.EdgeMovement(src, dst, 40, 30, impl)
+        for dev in ("cpu", cuda):
+            xx = x.detach().to(dev).requires_grad_(True)  # a leaf on either device
+            out = mv.aggregate(mv.gather_src(xx) * 1.5, mode)
+            out.square().sum().backward()
+            got[(impl, str(dev))] = (out.detach().cpu(), xx.grad.cpu())
+    for impl, tols in (("onehot", (1e-6, 2.0**-8)), ("gather", (1e-5, 1e-5))):
+        for a, b, tol in zip(got[(impl, "cpu")], got[(impl, str(cuda))], tols):
+            assert (a - b).abs().max() <= tol * a.abs().max()
+    for a, b in zip(got[("onehot", "cpu")], got[("gather", "cpu")]):
+        assert (a - b).abs().max() <= 2.0**-8 * a.abs().max()
+
+
+@pytest.mark.cuda
+def test_graph_epoch_on_card_reads_nothing_back(cuda):
+    """A GraphCast training epoch's steps under set_sync_debug_mode("error"):
+    the graph's indices and feature tables sit on the card once."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    ds = WindowedWeatherDataset(
+        prognostic=rng.standard_normal((20, 2, 16, 32)).astype(np.float32),
+        prescribed=rng.standard_normal((20, 1, 16, 32)).astype(np.float32),
+        constants=rng.standard_normal((2, 16, 32)).astype(np.float32),
+        sequence_length=3, context_size=1)
+    model = registry.build_model(dict(type="GraphCastNet", input_height=16, input_width=32,
+                                      mesh_level=2, hidden_dim=16, processor_layers=2,
+                                      constant_channels=2, prescribed_channels=1,
+                                      prognostic_channels=2, remat=True)).to(cuda)
+    trainer = Trainer(model)
+    state = trainer.init()
+    trainer.train_epoch(state, ds, 4)  # warm-up: the tables' one copy, cuBLAS
+    close = trainer._close_epoch
+
+    def close_after_steps(*a):
+        torch.cuda.set_sync_debug_mode("default")
+        return close(*a)
+
+    trainer._close_epoch = close_after_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_epoch(state, ds, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(loss)

@@ -211,8 +211,8 @@ def test_unet_builds_from_the_shipped_config():
     """`configs/model/unet.yaml` builds the same net on either side: the
     same flax parameter paths and shapes, the bottom level's half convs
     included; `UNetHPX` builds from it (without its `mesh` key) on the
-    HEALPix mesh, and a family
-    not ported yet (`GraphCastNet`) is the registry's KeyError."""
+    HEALPix mesh, and a type that neither side registers is the registry's
+    KeyError."""
     from dlwpbench_tpu.models import build_model as jbuild
     from dlwpbench_tpu_torch.training.config import load_config
 
@@ -230,8 +230,34 @@ def test_unet_builds_from_the_shipped_config():
     hpx = registry.build_model({**{k: v for k, v in cfg.model.items() if k != "mesh"},
                                 "type": "UNetHPX"})
     assert isinstance(hpx, tunet.UNetHPX) and hpx.mesh == "healpix"
-    with pytest.raises(KeyError, match="GraphCastNet"):
-        registry.build_model({**cfg.model, "type": "GraphCastNet"})
+    with pytest.raises(KeyError, match="IcosahedralUNet"):
+        registry.build_model({**cfg.model, "type": "IcosahedralUNet"})
+
+
+# Small widths for every registered family (a constructor takes the keys
+# it has; the registry drops the rest), and each family's own extras.
+SMALL_ANY = dict(hidden_channels=[4, 8], embed_dim=8, hidden_dim=8, depth=1, num_layers=1,
+                 processor_layers=1, processor_size=1, hidden_dim_processor=8,
+                 num_heads=[2, 2, 2, 2], depths=[2, 2], mlp_ratio=1.0, num_blocks=2,
+                 mesh_level=1, input_height=8, input_width=16, img_height=8, img_width=16,
+                 n_lat=8, n_lon=16, height=8, width=16, lifting_channels=8,
+                 projection_channels=8, n_layers=1)
+SMALL_OF = {"FNO2DModule": dict(hidden_channels=8), "TFNO2DModule": dict(hidden_channels=8),
+            "PanguWeather": dict(window_size=[2, 2, 4], patch_size=[1, 1])}
+
+
+def test_every_jax_model_type_builds_in_the_port():
+    """Every `type` of the JAX registry (`dlwpbench_tpu/models/__init__.py`)
+    resolves in the port's registry and builds at small widths on an 8 x
+    16 grid; the port registers no type that JAX lacks."""
+    from dlwpbench_tpu.models import registry as jregistry
+
+    assert set(registry._REGISTRY) == set(jregistry._REGISTRY)
+    for name in sorted(jregistry._REGISTRY):
+        model = registry.build_model({"type": name, **SMALL_ANY, **SMALL_OF.get(name, {})},
+                                     grid_shape=(8, 16))
+        assert isinstance(model, registry.get_model_class(name)), name
+        assert sum(p.numel() for p in model.parameters()) > 0, name
 
 
 def test_unet_bf16_rollout_stays_bf16():
