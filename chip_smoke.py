@@ -49,7 +49,11 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
    - Pangu evaluate and train, the same commands with
      `model=panguweather` (the 5D window-attention kernels), with the
      same checks; the card's gradients on the forced 5D route, on its
-     flash route and on its token-major route;
+     flash route and on its token-major route; the training run's best
+     checkpoint exported on the card (`python -m
+     dlwpbench_tpu_torch.export_model`) and one batch served from the
+     artifact: 5D-kernel launches as the routing rule counts them, the
+     output against the eager rollout of the same weights;
    - swin_win8 train: `model.window_size=[8,8]
      model.use_flash_attention=null` for 1 epoch (the token-major
      window-attention kernels), its card-vs-CPU gradients on the forced
@@ -72,7 +76,7 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      dlwpbench_tpu_torch.evaluate model=unet
      model.hidden_channels=[64,128,256] data=synthetic data.n_time=6000
      --batch-size 32` (two batches of 16-step rollouts, fp32, 0
-     attention launches), the same rollout at batch 128 in fp32 and in bf16 (parameters
+     attention launches), the rollout at batch 128 in fp32 and in bf16 (parameters
      and inputs cast as `bench.py` casts them) with and without the host
      copies, and the card against the CPU on 2 samples x 2 steps;
    - training in bf16 compute (`training.compute_dtype=bfloat16`): the
@@ -93,8 +97,16 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      batch-building ms beside the synthetic Swin train path's; `python -m
      dlwpbench_tpu_torch.build_baselines -c RUN_DIR`; `python -m
      dlwpbench_tpu_torch.evaluate -c RUN_DIR --batch-size 32` (ACC finite,
-     the files written, flash forwards as the routing rule counts them);
-     the restored checkpoint's rollout on the card against the CPU;
+     the files written, flash forwards as the routing rule counts them;
+     with `--video`: the comparison plot and the video skipped with their
+     messages, the card's machine having neither matplotlib nor ffmpeg);
+     the restored checkpoint's rollout on the card against the CPU; then
+     serving: the run exported with `python -m
+     dlwpbench_tpu_torch.export_model` traced on the card and, a second
+     artifact, on the CPU, each served on the card with `python -m
+     dlwpbench_tpu_torch.serve` (flash launches counted, the forecast
+     within 1e-5 of `evaluate -c`'s, grid-points/s beside evaluate's), and
+     a module archive of the checkpoint round-tripped on the card;
    - the HEALPix paths (`configs/data/synthetic_hpx8.yaml`, nside 8), each
      phase's seconds printed: the U-Net's user path in a temporary working
      directory (`train model=unet_hpx data=synthetic_hpx8` 1 epoch,
@@ -187,6 +199,7 @@ Every time printed stands beside the card's name and power limit.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import glob
 import io
 import json
@@ -214,10 +227,6 @@ EVAL_TAIL = ["data=synthetic", "data.n_time=9060", "--batch-size", "32",
 MAIN_ARGV = ["model=swintransformer", *EVAL_TAIL]
 PANGU_EVAL_ARGV = ["model=panguweather", *EVAL_TAIL]
 EVAL_BATCH = 32
-# the checks beside an evaluate path (a profiled rollout of one batch of
-# 32, card vs CPU on 2 samples) build their own split of 3,200 frames: 34
-# test inits (9,060 frames took about 20 s of host time a build)
-HELPER_N_TIME = 3200
 
 
 def card_line() -> str:
@@ -1161,7 +1170,11 @@ def step_calls(model, B: int) -> dict:
 
 def expected_launches(model, counters, rollouts, backward_rollouts=()):
     """{kernel: launches} over forward rollouts [(batch, steps, passes)] and
-    backward rollouts [(batch, steps)]; every other kernel 0."""
+    backward rollouts [(batch, steps)]; every other kernel 0.  A remat
+    policy ("full", "dots", "dots_no_batch") does not change the count: each
+    recomputes the attention calls (a second forward pass of the step, as
+    JAX recomputes its Pallas calls under every policy), which `passes`
+    counts; an exported program launches what the eager model does."""
     want = {name: 0 for name in counters}
     for B, steps, passes in rollouts:
         for name, n in step_calls(model, B).items():
@@ -1301,9 +1314,10 @@ def _print_profile(prof, what: str, wall_us: float, card: str, top: int):
 
 
 def helper_test_split(cfg):
-    """The test split of `cfg` (the checks beside an evaluate path share
-    one build: a split of 3,200 synthetic frames takes seconds of host
-    time)."""
+    """The test split of `cfg`, the evaluate path's own data (its frames
+    drawn once, `memoise_synthetic_generator`), which the checks beside an
+    evaluate path share: a profiled rollout of one batch of 32, card vs
+    CPU on 2 samples."""
     from dlwpbench_tpu_torch.data.sources import build_datasets
 
     return build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
@@ -1314,8 +1328,8 @@ def profile_rollout(cfg, card: str, test_ds=None):
     """Kernel time by name over one eval batch's 16-step rollout (of
     `test_ds`, or of the test split built from `cfg`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from dlwpbench_tpu_torch.utils import profiling
 
     if test_ds is None:
         test_ds = helper_test_split(cfg)
@@ -1325,7 +1339,7 @@ def profile_rollout(cfg, card: str, test_ds=None):
     with torch.no_grad():
         model(*batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.trace() as prof:
             t0 = time.perf_counter()
             model(*batch)
             torch.cuda.synchronize()
@@ -1542,8 +1556,8 @@ def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
     """Kernel time by name over one training step at batch 32 (in bf16
     compute when `compute_dtype` says so)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from dlwpbench_tpu_torch.utils import profiling
 
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
     model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
@@ -1552,7 +1566,7 @@ def profile_train_step(cfg, train_ds, card: str, compute_dtype=None):
     tensors = trainer._to_device(batch)
     trainer.train_step(state, tensors, 1e-3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         t0 = time.perf_counter()
         trainer.train_step(state, tensors, 1e-3)
         torch.cuda.synchronize()
@@ -1635,13 +1649,16 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
 # ---------------------------------------------------------------- the U-Net at bench.py's shape
 # `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
 # of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
-# channels).  n_time=12100 holds 128 test inits: one batch of 128 for the
-# rollout with its inputs on the card; 6000 holds 64, two batches of 32
-# through the evaluate CLI (24,000 frames and two batches of 128 until the
+# channels).  The rollout with its inputs on the card takes one batch of
+# 128 windows of 17 frames from the training split of 3,200 frames (131
+# windows); 6000 frames hold 64 test inits, two batches of 32 through the
+# evaluate CLI (24,000 frames and two batches of 128 until the
 # Navier-Stokes phase needed the time: their data set-up took 54 s; 12,100
-# frames and two batches of 64 until the graph phase did).
+# frames and two batches of 64 until the graph phase did; the rollout's
+# batch from 12,100 frames' 128 test inits until the serving phase did:
+# the synthetic generator takes about 1.7 ms of host a frame).
 UNET_EVAL_BATCH = 128
-UNET_DRIVE_N_TIME = 12100
+UNET_DRIVE_N_TIME = 3200
 UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
                   "data.n_time=6000", "--batch-size", "32",
                   "--sequence-length", "17", "--device", "cuda"]
@@ -1649,9 +1666,9 @@ UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
 
 
 def drive_unet_rollout(cfg, card: str):
-    """The evaluate path's U-Net rolled over one test batch of 128 in fp32
-    and in bf16, the parameters and inputs cast as `bench.py:105-109` casts
-    them: grid-points/s with the host copies (as `rollout_dataset` times a
+    """The evaluate path's U-Net rolled over one batch of 128 windows of 17
+    frames (from the training split) in fp32 and in bf16, the parameters
+    and inputs cast as `bench.py:105-109` casts them: grid-points/s with the host copies (as `rollout_dataset` times a
     batch: copy in, rollout, copy out; the 2 rollouts after the first) and
     with the inputs resident on the card (CUDA events over 3 rollouts,
     `bench.py`'s quantity), a profile of one resident rollout; the bf16
@@ -1659,17 +1676,17 @@ def drive_unet_rollout(cfg, card: str):
     import copy
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.utils import profiling
 
-    cfg.testing["sequence_length"] = 17
     cfg.data["n_time"] = UNET_DRIVE_N_TIME
-    _, _, test_ds, _ = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
-                                      int(cfg.model.context_size))
-    batch = next(test_ds.batches(UNET_EVAL_BATCH))
+    train_ds = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                              int(cfg.model.context_size))[0]
+    train_ds.sequence_length = 17
+    batch = next(train_ds.batches(UNET_EVAL_BATCH))
     if batch[2].shape[0] != UNET_EVAL_BATCH:
-        raise SystemExit(f"unet rollout: a test batch of {batch[2].shape[0]}, want {UNET_EVAL_BATCH}")
+        raise SystemExit(f"unet rollout: a batch of {batch[2].shape[0]}, want {UNET_EVAL_BATCH}")
     model32 = build_for(cfg, seed=int(cfg.get("seed", 0))).cuda().eval()
     models = {"float32": model32, "bfloat16": copy.deepcopy(model32).to(torch.bfloat16)}
     counters = counters_of()
@@ -1695,7 +1712,7 @@ def drive_unet_rollout(cfg, card: str):
                   f"{dev_rate:.1f} grid-points/s with the inputs on the card ({ms:.3f} ms a "
                   f"rollout) [{card}]")
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiling.trace() as prof:
                 t0 = time.perf_counter()
                 model(*args)
                 torch.cuda.synchronize()
@@ -1783,9 +1800,9 @@ def compare_prefetch(cfg, train_ds, card: str):
     kernel and copy time per step (one more epoch of each under the
     profiler) over those seconds; what the host does in an "after" epoch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.training.trainer import Trainer, cosine_lr
+    from dlwpbench_tpu_torch.utils import profiling
 
     bs = int(cfg.training.batch_size)
     ctx = int(cfg.model.context_size)
@@ -1830,7 +1847,7 @@ def compare_prefetch(cfg, train_ds, card: str):
         """Kernel and copy time per step of one more epoch under the
         profiler (tracing slows the host, not the kernels)."""
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(host=False) as prof:
             n = len(run())
             torch.cuda.synchronize()
         dev = sum(e.self_device_time_total for e in prof.key_averages()
@@ -1873,7 +1890,7 @@ def compare_prefetch(cfg, train_ds, card: str):
     t0 = time.perf_counter()
     n = sum(1 for _ in train_ds.batches(bs, shuffle=True))
     build_s = (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profiling.trace(device=False) as prof:
         t0 = time.perf_counter()
         after()
         torch.cuda.synchronize()
@@ -2112,8 +2129,8 @@ def epoch_busy(cfg, train_ds, check_sync: bool = False):
     `check_sync`, an epoch before it runs its steps under
     `set_sync_debug_mode("error")` (`sync_free_epoch`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from dlwpbench_tpu_torch.utils import profiling
 
     model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
     trainer = run_trainer(cfg, model, epochs=100)
@@ -2122,7 +2139,7 @@ def epoch_busy(cfg, train_ds, check_sync: bool = False):
         sync_free_epoch(trainer, state, train_ds, int(cfg.training.batch_size))
         trainer.timings.clear()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(host=False) as prof:
         trainer.train_epoch(state, train_ds, int(cfg.training.batch_size))
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
@@ -2190,9 +2207,12 @@ def run_zarr_path(card: str, synthetic):
             counters = counters_of()
             reset_counters(counters)
             t0 = time.perf_counter()
-            res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--device", "cuda"])["swin"]
+            with contextlib.redirect_stdout(_Tee(sys.stdout)) as out:
+                res = eval_cli.main(["-c", run_dir, "--batch-size", "32", "--video",
+                                     "--device", "cuda"])["swin"]
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
+            check_plot_skips(out.getvalue())
             model = build_for(cfg)  # its geometry only, for the routing rule
             steps = 16
             want = expected_launches(model, counters,
@@ -2217,11 +2237,198 @@ def run_zarr_path(card: str, synthetic):
             weights = torch.load(checkpoint_path(run_dir, cfg.model.name, "best"),
                                  map_location="cpu", weights_only=True)["model"]
             check_rollout_vs_cpu(cfg, weights=weights, test_ds=test_ds)
+            print(f"zarr path: {time.perf_counter() - t_phase:.1f} s to here [{card}]")
+            serving = run_serve_paths(run_dir, cfg, res, card)
         finally:
             os.chdir(cwd)
-    print(f"zarr path: {time.perf_counter() - t_phase:.1f} s for the phase [{card}]")
+    print(f"zarr path: {time.perf_counter() - t_phase:.1f} s for the phase, serving "
+          f"included [{card}]")
     return dict(data=data, train=train, eval_launches=launches, eval_fused=fused,
-                gridpoints_per_s=res["gridpoints_per_s"])
+                gridpoints_per_s=res["gridpoints_per_s"], serving=serving)
+
+
+def check_plot_skips(stdout: str):
+    """The evaluate CLI's `-c ... --video` on the card's machine, which has
+    no matplotlib: the comparison plot is skipped with a message naming
+    why, and so is the video (for want of ffmpeg, or of matplotlib where
+    ffmpeg exists), after the files and metrics are written."""
+    import importlib.util
+    import shutil
+
+    lines = stdout.splitlines()
+    plot = [ln for ln in lines if ln.startswith("Comparison plot")]
+    video = [ln for ln in lines if ln.startswith("video:")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    want_video = ("written" if has_mpl and shutil.which("ffmpeg") else
+                  "ffmpeg unavailable, skipped" if not shutil.which("ffmpeg") else
+                  "matplotlib unavailable")
+    ok = (len(plot) == 1 and ("->" in plot[0] if has_mpl else "skipped" in plot[0])
+          and len(video) == 1 and want_video in video[0])
+    print(f"evaluate -c --video on this machine (matplotlib "
+          f"{'installed' if has_mpl else 'not installed'}, ffmpeg "
+          f"{'installed' if shutil.which('ffmpeg') else 'not installed'}): {plot} {video} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"evaluate -c --video: plot lines {plot}, video lines {video}, "
+                         f"want the video line to say {want_video!r}")
+
+
+# The served forecast against `evaluate -c`'s of the same checkpoint:
+# max|diff| over max|forecast| per variable, de-normalised, fp32.  Both
+# run the same kernels in the same order, from the artifact's graph and
+# from the eager model.
+SERVE_TOL = 1e-5
+
+
+def serve_and_compare(label: str, art: str, run_dir: str, cfg, eval_data: dict,
+                      eval_rate: float, card: str):
+    """`python -m dlwpbench_tpu_torch.serve -a ART -c RUN_DIR` on the card:
+    every launch counter set to 0 just before and read just after, the
+    launches the routing rule wants over the served batches (flash
+    launches > 0), the served forecast within SERVE_TOL of `eval_data`'s
+    (evaluate -c's outputs.nc) on the samples and leads both hold, and the
+    serving rate beside evaluate's."""
+    import numpy as np
+
+    from dlwpbench_tpu_torch import serve
+    from dlwpbench_tpu_torch.utils import netcdf3
+
+    out_dir = os.path.join(run_dir, f"serving_{label.replace(' ', '_')}")
+    counters = counters_of()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    res = serve.main(["-a", art, "-c", run_dir, "--out-dir", out_dir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    data, _ = netcdf3.read_dataset(os.path.join(out_dir, "outputs.nc"))
+    names = res["variables"]
+    n, T = data[names[0]].shape[:2]
+    errs = {v: float(np.abs(data[v] - eval_data[v][:n, :T]).max()
+                     / np.abs(eval_data[v][:n, :T]).max()) for v in names}
+    B = 32
+    want = expected_launches(build_for(cfg), counters, [(B, T, 1)] * (n // B))
+    print(f"{label}: serve {n // B} batches of {B} x {T} steps, {wall:.1f} s wall (artifact "
+          f"load, data, serving, files); steady {1e3 * res['steady_s_per_batch']:.1f} ms a batch, "
+          f"{res['gridpoints_per_s']:.1f} grid-points/s (median batch) against evaluate -c's "
+          f"{eval_rate:.1f} (mean over its batches after the first) [{card}]")
+    print(f"{label}: served forecast against evaluate -c's, max|diff| / max|forecast| per "
+          f"variable over {n} samples x {T} leads: "
+          + ", ".join(f"{v} {e:.3e}" for v, e in errs.items()) + f" (tol {SERVE_TOL:.0e})")
+    print(f"{label} launches {launches} (the routing rule wants {want})")
+    if launches != want or not launches["flash_window_attention"]:
+        raise SystemExit(f"{label}: launches {launches}, want {want}")
+    fused = check_fused(label, counters, launches)
+    if not max(errs.values()) <= SERVE_TOL:
+        raise SystemExit(f"{label}: the served forecast leaves evaluate -c's by {errs}")
+    return dict(launches=launches, fused=fused, gridpoints_per_s=res["gridpoints_per_s"],
+                steady_s=res["steady_s_per_batch"], max_rel_err=max(errs.values()))
+
+
+def run_serve_paths(run_dir: str, cfg, eval_res: dict, card: str):
+    """The serving paths of the zarr run (after its `evaluate -c`): export
+    the run with `python -m dlwpbench_tpu_torch.export_model` traced on the
+    card (4 steps) and, a second artifact, traced on the CPU (2 steps): the
+    autoregressive leads are those of evaluate's 16-step rollout, and the
+    export's seconds (trace, save, load) grow with the steps; serve each on
+    the card (`serve_and_compare`: the flash kernel launches for both, so
+    the CPU trace baked no plain version in); round-trip the checkpoint
+    through a module archive on the card."""
+    import numpy as np
+    import torch
+
+    from dlwpbench_tpu_torch import export_model
+    from dlwpbench_tpu_torch.evaluate import restore_run
+    from dlwpbench_tpu_torch.models import registry
+    from dlwpbench_tpu_torch.training.module_checkpoint import (
+        load_module_checkpoint,
+        save_module_checkpoint,
+    )
+    from dlwpbench_tpu_torch.utils import netcdf3
+    from dlwpbench_tpu_torch.utils.export import read_artifact
+
+    clock = Clock("serving", card)
+    eval_data, _ = netcdf3.read_dataset(os.path.join(run_dir, "evaluation", "outputs.nc"))
+    out = {}
+    for label, device, seq in (("swin serve", "cuda", 5), ("swin serve cpu export", "cpu", 3)):
+        art = os.path.join(run_dir, f"swin_{device}.pt2")
+        t0 = time.perf_counter()
+        export_model.main(["-c", run_dir, "-o", art, "--batch-size", "32", "--sequence-length",
+                           str(seq), "--device", device])
+        export_s = time.perf_counter() - t0
+        trace_s = read_artifact(art)[0]["trace_seconds"]
+        print(f"{label}: torch.export traced the {seq - 1}-step rollout at batch 32 on {device} "
+              f"in {trace_s:.2f} s, the CLI took {export_s:.2f} s (restore and save "
+              f"included), {os.path.getsize(art) / 2**20:.1f} MiB [{card}]")
+        out[label] = serve_and_compare(label, art, run_dir, cfg, eval_data,
+                                       eval_res["gridpoints_per_s"], card)
+        out[label].update(export_s=export_s, trace_s=trace_s)
+        clock(f"{label}: export on {device}, serve on the card")
+
+    _, model, _ = restore_run(run_dir, "cuda", ema=False)
+    path = os.path.join(run_dir, "swin.mdlus.zip")
+    save_module_checkpoint(path, model, cfg.model)
+    loaded, _ = load_module_checkpoint(path, device="cuda",
+                                       grid_shape=registry.data_grid_shape(cfg.data))
+    a, b = model.state_dict(), loaded.state_dict()
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"module archive: {os.path.getsize(path) / 2**20:.2f} MiB, {len(a)} tensors, the "
+          f"port's msgpack codec, saved and loaded on the card: every parameter equal bit "
+          f"for bit {same} [{card}]")
+    if not same or next(loaded.parameters()).device.type != "cuda":
+        raise SystemExit("the module archive did not round-trip on the card")
+    del model, loaded
+    torch.cuda.empty_cache()
+    clock("module archive")
+    return out
+
+
+def serve_pangu(run_dir: str, cfg, train_ds, card: str):
+    """The Pangu training run's best checkpoint exported on the card and
+    served one batch: the 5D window kernel launches (as the routing rule
+    wants, counted), and the output matches the eager rollout of the same
+    weights on the same batch."""
+    import torch
+
+    from dlwpbench_tpu_torch import export_model
+    from dlwpbench_tpu_torch.evaluate import restore_run
+    from dlwpbench_tpu_torch.utils.export import load_exported
+
+    bs = int(cfg.training.batch_size)
+    ctx = int(cfg.model.context_size)
+    T = ctx + 1  # one step of the 16 blocks: the trace's seconds grow with its steps
+    const, pres, prog, _ = next(train_ds.batches(bs))
+    pres, prog = pres[:, :T], prog[:, :T]
+    art = os.path.join(run_dir, "pangu.pt2")
+    t0 = time.perf_counter()
+    export_model.main(["-c", run_dir, "-o", art, "--batch-size", str(bs), "--sequence-length",
+                       str(T), "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    run, meta = load_exported(art, device="cuda")
+    counters = counters_of()
+    reset_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(const, pres, prog)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    fused = check_fused("pangu serve", counters, launches)  # before the eager reference's
+    _, model, _ = restore_run(run_dir, "cuda", ema=False)
+    with torch.no_grad():
+        ref = model.eval()(*tensors_of(const, pres, prog, device="cuda"))
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    want = expected_launches(model, counters, [(bs, T - ctx, 1)])
+    print(f"pangu serve: export on the card {export_s:.2f} s ({T - ctx}-step rollout at batch "
+          f"{bs}; torch.export {meta['trace_seconds']:.2f} s, restore and save the rest); one "
+          f"served batch {1e3 * serve_s:.1f} ms (its first call); "
+          f"max|diff| / max|out| against the eager rollout {err:.3e} (tol {SERVE_TOL:.0e}); "
+          f"launches {launches} (the routing rule wants {want}) [{card}]")
+    if launches != want or not launches["window_attention_qkv5d"] or not err <= SERVE_TOL:
+        raise SystemExit(f"pangu serve: launches {launches} (want {want}), error {err:.3e}")
+    del model, got, ref
+    torch.cuda.empty_cache()
+    return dict(launches=launches, fused=fused, export_s=export_s,
+                trace_s=meta["trace_seconds"], max_rel_err=err)
 
 
 # ---------------------------------------------------------------- the HEALPix paths
@@ -2426,12 +2633,12 @@ def drive_hpx_unet_rollout(card: str):
     profile with each of them under a `record_function` range; no
     attention launch; card against CPU on 2 samples x 2 steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from dlwpbench_tpu_torch import train as cli
     from dlwpbench_tpu_torch.data.sources import build_datasets
     from dlwpbench_tpu_torch.ops import conv as conv_mod
     from dlwpbench_tpu_torch.training.config import load_config
+    from dlwpbench_tpu_torch.utils import profiling
 
     cfg = load_config(cli.CONFIG_DIR, overrides=HPX_UNET32)
     cfg.training["sequence_length"] = 17
@@ -2450,13 +2657,13 @@ def drive_hpx_unet_rollout(card: str):
 
     def in_range(name, fn):
         def ranged(*a, **k):
-            with record_function(name):
+            with profiling.annotate(name):
                 return fn(*a, **k)
         return ranged
 
     def profiled():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.trace() as prof:
             t0 = time.perf_counter()
             model(*args)
             torch.cuda.synchronize()
@@ -2575,8 +2782,8 @@ def profile_step_split(cfg, train_ds, card: str, groups=STEP_GROUPS):
     concatenations) and the rest (the layout copies around GroupNorm, GELU,
     AdamW, ... by name)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from dlwpbench_tpu_torch.utils import profiling
 
     batch = next(train_ds.batches(int(cfg.training.batch_size)))
     model = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed)).cuda()
@@ -2585,7 +2792,7 @@ def profile_step_split(cfg, train_ds, card: str, groups=STEP_GROUPS):
     tensors = trainer._to_device(batch)
     trainer.train_step(state, tensors, 1e-3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         t0 = time.perf_counter()
         trainer.train_step(state, tensors, 1e-3)
         torch.cuda.synchronize()
@@ -2626,7 +2833,6 @@ def run_modern_unet_paths(card: str):
         _, paths["munet_evaluate"], cfg, _ = run_eval_path("modernunet evaluate", MUNET_EVAL_ARGV,
                                                            out_dir, card)
     clock("evaluate CLI")
-    cfg.data["n_time"] = HELPER_N_TIME
     helper = helper_test_split(cfg)
     profile_rollout(cfg, card, test_ds=helper)
     weights = perturbed_state(cfg)
@@ -2824,16 +3030,16 @@ def profile_solver(n: int, batch: int, card: str):
     those of 10, over 10: the tables and cuFFT's plans exist already) and
     its busy share over 200 steps (device time over the wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dlwpbench_tpu_torch.data import ns2d
+    from dlwpbench_tpu_torch.utils import profiling
 
     w0 = ns2d.initial_field(0, n, batch).cuda()
     ns2d.simulate(w0, n=n, record_steps=1, inner_steps=2)
     kernels, device_us, wall_us = [], 0.0, 0.0
     for steps in (10, 20, 200):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(host=False) as prof:
             t0 = time.perf_counter()
             ns2d.simulate(w0, n=n, record_steps=1, inner_steps=steps)
             torch.cuda.synchronize()
@@ -3474,6 +3680,52 @@ def run_packed_path(card: str):
     return launches, check_fused("packed path", counters, launches)
 
 
+def memoise_synthetic_generator():
+    """The synthetic generator's arrays kept for this script's run: the
+    entry points rebuild their data on each call (splits, statistics,
+    normalisation), but the evaluate paths of the Swin, Pangu and the
+    ModernUNet draw the same 9,060 frames, and the user paths the same
+    frames for train, build_baselines and evaluate; the generator is
+    deterministic in its arguments, so each set is drawn once (about 1.7
+    ms of host a frame) and handed out read-only."""
+    import functools
+
+    from dlwpbench_tpu_torch.data import sources
+
+    draw = sources.synthetic_weatherbench
+
+    @functools.lru_cache(maxsize=16)
+    def memo(**kwargs):
+        arrays = draw(**kwargs)
+        for a in arrays:
+            if a is not None:
+                a.flags.writeable = False
+        return arrays
+
+    sources.synthetic_weatherbench = memo
+
+
+def draw_while_building(argvs):
+    """A thread that draws the synthetic data of the configs `argvs` (each
+    a CLI's overrides) into the memo while nvcc builds the kernels; the
+    caller joins it before the first of those paths."""
+    import threading
+
+    from dlwpbench_tpu_torch import evaluate as cli
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    def draw():
+        for argv in argvs:
+            cfg = load_config(cli.CONFIG_DIR, overrides=[a for a in argv if "=" in a])
+            build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
+                           int(cfg.model.context_size))
+
+    thread = threading.Thread(target=draw, name="synthetic draws")
+    thread.start()
+    return thread
+
+
 def main() -> int:
     try:
         import torch
@@ -3493,6 +3745,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    memoise_synthetic_generator()
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3502,6 +3755,7 @@ def main() -> int:
     import importlib.util  # the evaluator's plots need it (ROADMAP item 6)
     print(f"card machine: matplotlib "
           f"{'installed' if importlib.util.find_spec('matplotlib') else 'not installed'}")
+    drawing = draw_while_building([MAIN_ARGV, TRAIN_ARGV])
     build_all()
     clock("build")
     flash = check_flash(card)
@@ -3509,13 +3763,13 @@ def main() -> int:
     window = check_window(card)
     packed = check_packed(card)
     check_packed_vs_5d(card)
+    drawing.join()
     clock("kernel checks")
 
     paths, fused_by_path = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
         _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
             "main path", MAIN_ARGV, out_dir, card)
-    cfg.data["n_time"] = HELPER_N_TIME
     helper = helper_test_split(cfg)
     check_rollout_vs_cpu(cfg, test_ds=helper)
     profile_rollout(cfg, card, test_ds=helper)
@@ -3535,14 +3789,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_eval_") as out_dir:
         _, paths["pangu_evaluate"], pcfg, fused_by_path["pangu_evaluate"] = run_eval_path(
             "pangu evaluate", PANGU_EVAL_ARGV, out_dir, card)
-    pcfg.data["n_time"] = HELPER_N_TIME
-    profile_rollout(pcfg, card)
+    profile_rollout(pcfg, card, test_ds=helper)  # the Swin's: the same data config
     clock("Pangu evaluate")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
         ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card,
                                                   datasets=syn_splits)
+        pserve = serve_pangu(run_dir, ptcfg, ptrain_ds, card)
     paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
+    paths["pangu_serve"], fused_by_path["pangu_serve"] = pserve["launches"], pserve["fused"]
     # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64);
     # the three routes share one CPU reference
     pangu_ref = {}
@@ -3619,7 +3874,10 @@ def main() -> int:
     train_runs["zarr_train"] = zarr["train"]
     paths["zarr_train"], fused_by_path["zarr_train"] = zarr["train"]["launches"], zarr["train"]["fused"]
     paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = zarr["eval_launches"], zarr["eval_fused"]
-    clock("zarr path")
+    for label, run in zarr["serving"].items():
+        key = label.replace(" ", "_")
+        paths[key], fused_by_path[key] = run["launches"], run["fused"]
+    clock("zarr path and serving")
 
     # the HEALPix paths: the U-Net's train, baselines and evaluate -c; the
     # Swin at the shipped width (flash) and with 8x8 windows at nside 32

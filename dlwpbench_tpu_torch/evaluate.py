@@ -2,11 +2,11 @@
 two modes:
 
     python -m dlwpbench_tpu_torch.evaluate -c RUN_DIR [RUN_DIR ...] \
-        [--batch-size 8] [--sequence-length 17] [--device cuda]
+        [--batch-size 8] [--sequence-length 17] [--video] [--device cuda]
 
     python -m dlwpbench_tpu_torch.evaluate model=swintransformer data=synthetic \
         [key=value ...] [--weights W.npz] [--batch-size 8] [--sequence-length 17] \
-        [--out-dir D] [--device cuda]
+        [--out-dir D] [--video] [--device cuda]
 
 With `-c`, each run directory that `python -m dlwpbench_tpu_torch.train`
 wrote is evaluated: its saved `config.yaml` builds the model and the data,
@@ -29,14 +29,20 @@ and `metrics.json` are written on the lat-lon grid; ACC
 directory and fits the forecast.  Prints the first variable's RMSE per lead
 and the rollout's steady-state grid-points/s (batches after the first,
 host copies included; the points of the grid the model runs on, HEALPix
-pixels on HEALPix).  The JAX CLI's RMSE comparison plot and `--video`
-are not ported yet (ROADMAP queue A, item 6).
+pixels on HEALPix).  With `--video`, the first sample's forecast of the
+first variable is rendered to `forecast.mp4` beside the files (with its
+targets; skipped with a message where ffmpeg is not installed).  After
+`-c`, the runs' RMSE curves are overlaid in `outputs/rmse_over_time.png`.
+Where matplotlib is not installed (the card's machine) the plot and the
+video are skipped with a message that says so, and the results are
+returned all the same (the JAX CLI raises ImportError there).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -79,7 +85,45 @@ def _no_tf32():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: str) -> dict:
+def _matplotlib_missing() -> str | None:
+    """Why matplotlib does not import here, or None when it does."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        return str(e)
+    return None
+
+
+def _video(out_dir: str, outputs, targets, var_names) -> None:
+    """`forecast.mp4` of the first sample's first variable, or a message
+    saying why it was skipped."""
+    missing = _matplotlib_missing()
+    if missing is not None and shutil.which("ffmpeg") is not None:
+        print(f"video: matplotlib unavailable ({missing}), skipped")
+        return
+    ok = E.generate_mp4(outputs[0, :, 0], os.path.join(out_dir, "forecast.mp4"),
+                        targets=targets[0, :, 0], var_name=var_names[0])
+    print("video:", "written" if ok else "ffmpeg unavailable, skipped")
+
+
+def comparison_plot(all_results: dict) -> str | None:
+    """The runs' RMSE over lead time in `outputs/rmse_over_time.png`;
+    returns its path, or None (with a message) where matplotlib is
+    missing."""
+    missing = _matplotlib_missing()
+    if missing is not None:
+        print(f"Comparison plot skipped: matplotlib unavailable ({missing})")
+        return None
+    var_names = all_results[next(iter(all_results))]["variables"]
+    out = os.path.join("outputs", "rmse_over_time.png")
+    os.makedirs("outputs", exist_ok=True)
+    E.plot_rmse_over_time(all_results, var_names, out)
+    print(f"Comparison plot -> {out}")
+    return out
+
+
+def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: str,
+                    video: bool = False) -> dict:
     """Roll `model` (on its device) over the test split of `cfg`,
     de-normalise, write the forecast files and the metrics under out_dir;
     returns the metrics dict plus `gridpoints_per_s` (None with a single
@@ -121,6 +165,8 @@ def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: 
     )
     print("RMSE (first var, per lead time):",
           np.round(results["rmse"][var_names[0]], 4).tolist())
+    if video:
+        _video(out_dir, outputs, targets, var_names)
 
     steady = timings[1:]  # the first batch carries the kernel build and warm-up
     rate = (
@@ -135,7 +181,7 @@ def _evaluate_model(cfg, model, batch_size: int, sequence_length: int, out_dir: 
 
 def evaluate(overrides: list[str], weights: str | None = None, batch_size: int = 8,
              sequence_length: int = 17, out_dir: str | None = None,
-             device: str = "cuda") -> dict:
+             device: str = "cuda", video: bool = False) -> dict:
     """Evaluate a model composed from `configs/` and overrides; returns
     what `_evaluate_model` returns."""
     dev = resolve_device(device)
@@ -146,16 +192,15 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
     if weights:
         W.load_flax_params(model, W.load_npz(weights))
     return _evaluate_model(cfg, model.to(dev), batch_size, sequence_length,
-                           out_dir or os.path.join(cfg.run_dir, "evaluation"))
+                           out_dir or os.path.join(cfg.run_dir, "evaluation"), video)
 
 
-def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
-                 device: str = "cuda") -> dict:
-    """Evaluate the best checkpoint of a training run (a diffusion run's
-    EMA weights) into `run_dir/evaluation`; returns what `_evaluate_model`
-    returns."""
+def restore_run(run_dir: str, device: str = "cuda", ema: bool = True):
+    """(config, model on `device`, the restored TrainState) of a training
+    run's best checkpoint; with `ema`, a diffusion run's model holds the
+    EMA of its parameters (what the evaluator rolls out), else the raw
+    parameters (what the exporter serves, as JAX's `state.params`)."""
     dev = resolve_device(device)
-    _no_tf32()
     cfg = load_saved_config(run_dir)
     model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)),
                                  grid_shape=registry.data_grid_shape(cfg.data)).to(dev)
@@ -163,23 +208,31 @@ def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
     # load_checkpoint can restore into them
     trainer = Trainer(model, training_type=str(cfg.training.get("type", "regular")))
     state = load_checkpoint(run_dir, cfg.model.name, trainer.init(), kind="best")
-    if state.ema is not None:  # a diffusion run is evaluated on its EMA weights
+    if ema and state.ema is not None:
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(state.ema[n])
+    return cfg, model, state
+
+
+def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
+                 device: str = "cuda", video: bool = False) -> dict:
+    """Evaluate the best checkpoint of a training run (a diffusion run's
+    EMA weights) into `run_dir/evaluation`; returns what `_evaluate_model`
+    returns."""
+    _no_tf32()
+    cfg, model, state = restore_run(run_dir, device)
     which = "raw" if state.ema is None else "EMA"
     print(f"Restored {cfg.model.name} (epoch {state.epoch}, {which} weights)")
     return _evaluate_model(cfg, model, batch_size, sequence_length,
-                           os.path.join(run_dir, "evaluation"))
+                           os.path.join(run_dir, "evaluation"), video)
 
 
 def main(argv=None) -> dict:
     """With `-c`, returns {run name: results} (the run directory's base
     name); else the results of the composed config."""
     ap = argparse.ArgumentParser(prog="python -m dlwpbench_tpu_torch.evaluate",
-                                 description=__doc__.split("\n\n")[0],
-                                 epilog="The JAX CLI's RMSE-over-time comparison plot and "
-                                        "--video are not ported yet (ROADMAP queue A, item 6).")
+                                 description=__doc__.split("\n\n")[0])
     ap.add_argument("overrides", nargs="*",
                     help="config overrides: group=name or a.b.c=value (without -c)")
     ap.add_argument("-c", "--configuration-dir-list", nargs="+", default=None,
@@ -191,19 +244,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--sequence-length", type=int, default=17)
     ap.add_argument("--out-dir", default=None, help="without -c (default <run_dir>/evaluation)")
+    ap.add_argument("--video", action="store_true",
+                    help="render the first sample's forecast to forecast.mp4 (needs ffmpeg)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.configuration_dir_list is None:
         return evaluate(args.overrides, args.weights, args.batch_size,
-                        args.sequence_length, args.out_dir, args.device)
+                        args.sequence_length, args.out_dir, args.device, args.video)
     if args.overrides or args.weights or args.out_dir:
         ap.error("-c takes its config and weights from each run directory: "
                  "no overrides, --weights or --out-dir")
-    return {
+    all_results = {
         os.path.basename(os.path.normpath(run_dir)): evaluate_run(
-            run_dir, args.batch_size, args.sequence_length, args.device)
+            run_dir, args.batch_size, args.sequence_length, args.device, args.video)
         for run_dir in args.configuration_dir_list
     }
+    comparison_plot(all_results)
+    return all_results
 
 
 if __name__ == "__main__":

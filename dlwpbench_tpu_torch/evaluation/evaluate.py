@@ -4,15 +4,20 @@
   moved to the model's device;
 - de-normalisation with the dataset statistics;
 - `inits/outputs/targets.nc` and metrics (`metrics.json`, `rmses.nc`, and
-  `accs.nc` / `rmses_climatology.nc` when a climatology is given).
-
-Plots and mp4 rendering are not ported.
+  `accs.nc` / `rmses_climatology.nc` when a climatology is given);
+- the RMSE-over-lead-time comparison plot, the forecast's frames as PNGs
+  and their mp4 (`plot_rmse_over_time`, `render_forecast_frames`,
+  `generate_mp4`; matplotlib is imported by each call, ffmpeg is used
+  where it is installed).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import subprocess
+import tempfile
 import time
 from typing import Optional
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from dlwpbench_tpu_torch.evaluation import metrics as M
+from dlwpbench_tpu_torch.evaluation.plots import pyplot
 from dlwpbench_tpu_torch.grids.remap import HEALPixRemap
 from dlwpbench_tpu_torch.utils import netcdf3
 
@@ -164,3 +170,83 @@ def write_forecast_files(out_dir, inits, outputs, targets, var_names, lats, lons
     for fname, arr, tdim in (("inits.nc", inits, False), ("outputs.nc", outputs, True),
                              ("targets.nc", targets, True)):
         netcdf3.write_dataset(os.path.join(out_dir, fname), var_dict(arr, tdim), coords=coords)
+
+
+def plot_rmse_over_time(metric_files: dict[str, dict], var_names, out_path):
+    """Overlay RMSE-over-leadtime curves per model (reference
+    `evaluate.py:714-764`)."""
+    plt = pyplot()
+    n = len(var_names)
+    fig, axes = plt.subplots(1, n, figsize=(4 * n, 3), squeeze=False)
+    for j, v in enumerate(var_names):
+        ax = axes[0, j]
+        for model_name, res in metric_files.items():
+            if v in res.get("rmse", {}):
+                ax.plot(res["rmse"][v], label=model_name)
+        ax.set_title(v)
+        ax.set_xlabel("lead time")
+        ax.set_ylabel("RMSE")
+    axes[0, 0].legend(fontsize=6)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)
+
+
+def render_forecast_frames(outputs: np.ndarray, frames_dir: str,
+                           targets: Optional[np.ndarray] = None, var_name: str = "") -> int:
+    """Write the reference's per-timestep forecast frames as PNGs.
+
+    outputs (and optionally targets): [T, H, W].  With targets, each frame
+    is the reference's 3-panel prediction / ground truth / difference
+    layout (`evaluate.py:442-478`: shared output/target color range,
+    symmetric bwr difference scale); without, a single panel.  Returns the
+    number of frames written.  Needs matplotlib, not ffmpeg."""
+    plt = pyplot()
+    os.makedirs(frames_dir, exist_ok=True)
+    T = outputs.shape[0]
+    if targets is not None:
+        vmin, vmax = float(np.min(targets)), float(np.max(targets))
+        diff = outputs - targets
+        diffmax = float(np.abs(diff).max()) or 1.0
+    else:
+        vmin, vmax = (float(v) for v in np.percentile(outputs, [2, 98]))
+    for t in range(T):
+        if targets is None:
+            fig, ax = plt.subplots(figsize=(4, 2.2))
+            ax.imshow(outputs[t], vmin=vmin, vmax=vmax, cmap="RdBu_r", origin="lower")
+            ax.set_axis_off()
+        else:
+            fig, axes = plt.subplots(1, 3, figsize=(12, 3), sharex=True, sharey=True)
+            ext = [-180, 180, -90, 90]
+            axes[0].imshow(outputs[t], origin="lower", vmin=vmin, vmax=vmax, extent=ext)
+            axes[0].set_title(r"Prediction ($\hat{y}$)")
+            im1 = axes[1].imshow(targets[t], origin="lower", vmin=vmin, vmax=vmax, extent=ext)
+            axes[1].set_title(r"Ground truth ($y$)")
+            fig.colorbar(im1, ax=axes[1], fraction=0.025)
+            im2 = axes[2].imshow(diff[t], origin="lower", vmin=-diffmax, vmax=diffmax,
+                                 cmap="bwr", extent=ext)
+            axes[2].set_title(r"Difference ($\hat{y}-y$)")
+            fig.colorbar(im2, ax=axes[2], fraction=0.025)
+            fig.suptitle(f"{var_name}, time step = {t + 1}/{T}")
+            fig.tight_layout()
+        fig.savefig(os.path.join(frames_dir, f"f{t:04d}.png"), dpi=80)
+        plt.close(fig)
+    return T
+
+
+def generate_mp4(fields: np.ndarray, out_path: str, targets: Optional[np.ndarray] = None,
+                 fps: int = 4, var_name: str = "") -> bool:
+    """Render a [T, H, W] forecast to mp4 (reference `evaluate.py:419-500`:
+    matplotlib frames + ffmpeg).  Returns False without writing anything
+    when ffmpeg is not installed."""
+    if shutil.which("ffmpeg") is None:
+        return False
+    with tempfile.TemporaryDirectory() as td:
+        render_forecast_frames(fields, td, targets=targets, var_name=var_name)
+        ret = subprocess.run(
+            ["ffmpeg", "-y", "-loglevel", "quiet", "-framerate", str(fps),
+             "-i", os.path.join(td, "f%04d.png"), "-pix_fmt", "yuv420p",
+             "-vf", "pad=ceil(iw/2)*2:ceil(ih/2)*2", out_path],
+            check=False,
+        )
+    return ret.returncode == 0

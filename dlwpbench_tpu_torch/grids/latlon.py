@@ -34,3 +34,10 @@ class LatLonGrid:
     @property
     def lons(self) -> np.ndarray:
         return np.linspace(0, 360, self.nlon, endpoint=False)
+
+
+def weatherbench_grid(resolution_deg: float = 5.625) -> LatLonGrid:
+    """Standard WeatherBench grids: 5.625 deg -> 32x64, 2.8125 -> 64x128, ..."""
+    nlat = int(round(180.0 / resolution_deg))
+    nlon = int(round(360.0 / resolution_deg))
+    return LatLonGrid(nlat, nlon)

@@ -13,31 +13,54 @@ frames, the rest is closed-loop.  The JAX package scans the steps with
 `lax.scan`; here they are a Python loop (PyTorch runs eagerly).
 With `remat`, each step runs under `torch.utils.checkpoint` (the per-step
 counterpart of `wrap_remat`, `:59-78`): its activations are recomputed in
-the backward pass instead of kept.  `remat_step` is that per-step
-checkpoint, shared with the recurrent models that run their own loop
-(ConvLSTM, DISTANA), whose carry (the previous output and every LSTM
+the backward pass instead of kept, all of them under `remat_policy`
+"full", all but the products' outputs under "dots" and "dots_no_batch"
+(selective checkpointing, `REMAT_SAVED_OPS`).  `remat_step` is that
+per-step checkpoint, shared with the recurrent models that run their own
+loop (ConvLSTM, DISTANA), whose carry (the previous output and every LSTM
 state) passes through it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-REMAT_POLICIES = ("full",)
+_aten = torch.ops.aten
+# The ATen ops whose outputs each policy keeps for the backward pass; every
+# other op of the step (the registered attention kernels too, as JAX
+# recomputes its Pallas calls) is recomputed.  JAX 0.9's rules:
+# `dots_saveable` keeps every `dot_general` and `conv_general_dilated`
+# output, `dots_with_no_batch_dims_saveable` only the dots without batch
+# dimensions.  A Linear (on any leading dims) dispatches to mm or addmm, a
+# batched product (einsum, matmul of two batched operands) to bmm or
+# baddbmm, a convolution to convolution.
+REMAT_SAVED_OPS = {
+    "full": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default, _aten.convolution.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+REMAT_POLICIES = tuple(REMAT_SAVED_OPS)
 
 
-def remat_step(step, remat: bool, *args):
+def remat_step(step, remat: bool, *args, policy: str = "full"):
     """`step(*args)`, under a per-step checkpoint when `remat` holds and
     gradients are on: the step's activations are recomputed in the
     backward pass from `args` (the step's input and carry) instead of
-    kept."""
-    if remat and torch.is_grad_enabled():
+    kept, but for the outputs of `policy`'s ops (`REMAT_SAVED_OPS`)."""
+    if not (remat and torch.is_grad_enabled()):
+        return step(*args)
+    saved = REMAT_SAVED_OPS[policy]
+    if not saved:
         return checkpoint(step, *args, use_reentrant=False)
-    return step(*args)
+    return checkpoint(step, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   list(saved)))
 
 
 def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -63,19 +86,17 @@ class RolloutModel(nn.Module):
     stateless nets); `init_state` gives the state a rollout starts from.
 
     `remat=True` rematerialises each rollout step in the backward pass;
-    `remat_policy` "full" saves nothing of the step.  The JAX package's
-    "dots" policies keep matmul outputs and are not ported (ROADMAP
-    queue A, item 3).
+    `remat_policy` "full" saves nothing of the step, "dots" keeps the
+    outputs of its matrix products and convolutions, "dots_no_batch" only
+    those of its products without batch dimensions (`REMAT_SAVED_OPS`).
     """
 
     def __init__(self, context_size: int = 1, remat: bool = False,
                  remat_policy: str = "full"):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported to PyTorch; only "
-                f"{REMAT_POLICIES} (ROADMAP queue A, item 3)"
-            )
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; expected one of "
+                             f"{sorted(REMAT_POLICIES)}")
         self.context_size = context_size
         self.remat = bool(remat)
         self.remat_policy = remat_policy
@@ -129,7 +150,8 @@ class RolloutModel(nn.Module):
                 parts.append(_flatten_window(pres[:, t : t + ctx]))
             parts.append(_flatten_window(window))
             x_t = torch.cat(parts, dim=-1)
-            delta, state = remat_step(self._step, self.remat, x_t, state, aux)
+            delta, state = remat_step(self._step, self.remat, x_t, state, aux,
+                                      policy=self.remat_policy)
             out = window[:, -1] + delta  # residual prediction
             window = torch.cat([window[:, 1:], out[:, None]], dim=1)
             outs.append(out)
@@ -177,7 +199,8 @@ class RecurrentModel(RolloutModel):
         for t in range(prog.shape[1]):
             in_t = prog[:, t] if t < ctx else out
             out, state = remat_step(self._body, self.remat, in_t, state, const,
-                                    None if pres is None else pres[:, t])
+                                    None if pres is None else pres[:, t],
+                                    policy=self.remat_policy)
             if t >= ctx:
                 outs.append(out)
         # [B, T-ctx, (F), H, W, C] -> [B, T-ctx, C, (F), H, W]

@@ -18,7 +18,8 @@ variant:
   (`PanguWeather.precompute`) into the key-major [tow, nh, Nk, Nq].
 
 Attention routes, in the JAX order with "on the TPU" read as "on a CUDA
-device": the 5D route (the qkv Dense on the padded field, the kernel
+device, or in a program being exported" (`utils.device.on_card`): the 5D
+route (the qkv Dense on the padded field, the kernel
 reading each window in place: `use_flash_attention: "packed5d"`, or
 None / "packed" on the card when N < 1024, hd % 8 == 0 and
 B*nLon*nW >= 64), the token-major route on partitioned windows ("packed",
@@ -50,7 +51,7 @@ from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import (
     partition_windows_5d, reverse_windows_5d, window_attention_qkv, window_attention_qkv5d,
 )
-from dlwpbench_tpu_torch.utils.device import device_constant
+from dlwpbench_tpu_torch.utils.device import device_constant, on_card
 
 
 # ---------------------------------------------------------------- static helpers (numpy)
@@ -166,7 +167,7 @@ class EarthAttention3D(nn.Module):
         hd = C // nh
         qkv = self.Dense_0(x)
         uf = self.use_flash
-        if uf == "packed" or (uf is None and x.is_cuda and N < 1024 and hd % 8 == 0
+        if uf == "packed" or (uf is None and on_card(x) and N < 1024 and hd % 8 == 0
                               and B_ * nW >= 64):
             L = 1 if mask is None else mask.shape[0]
             out = window_attention_qkv(qkv.reshape(B_ // L, L, nW, N, 3 * C), bias, mask, nh)
@@ -243,7 +244,7 @@ class EarthSpecificBlock(nn.Module):
         B_win = B * (pad_res[2] // win[2])
         uf = self.use_flash
         use5d = uf == "packed5d" or (
-            uf in (None, "packed") and x.is_cuda and N < 1024
+            uf in (None, "packed") and on_card(x) and N < 1024
             and (C // self.num_heads) % 8 == 0 and B_win * nW_all >= 64
         )
         if use5d:

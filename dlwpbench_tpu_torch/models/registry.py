@@ -44,3 +44,9 @@ def data_grid_shape(data_cfg) -> tuple[int, int]:
     """(height, width) of a data config: the grid a lat-lon model runs on."""
     return int(data_cfg["height"]), int(data_cfg["width"])
 
+
+
+def registered_models() -> list[str]:
+    """The registered model types, sorted (import `dlwpbench_tpu_torch.models`
+    first to fill the registry)."""
+    return sorted(_REGISTRY)

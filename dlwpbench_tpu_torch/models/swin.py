@@ -5,7 +5,8 @@ of `dlwpbench_tpu/models/swin.py:41-499`).
   PRECOMPUTED once per rollout (relative-position bias expanded from its
   table, plus the -100 shift mask on shifted blocks), output Dense.  Three
   routes, chosen as the JAX package chooses them with "on the TPU" read
-  as "on a CUDA device": the token-major route (`use_flash_attention:
+  as "on a CUDA device, or in a program being exported"
+  (`utils.device.on_card`): the token-major route (`use_flash_attention:
   "packed"`, or auto on the card for many small windows) through the
   hand-written CUDA kernels of `ops/window_attention.py`; the flash route
   (`true`, or auto for N >= 1024) through those of
@@ -50,7 +51,7 @@ from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import window_attention_qkv
-from dlwpbench_tpu_torch.utils.device import device_constant
+from dlwpbench_tpu_torch.utils.device import device_constant, on_card
 
 
 def window_partition(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
@@ -101,9 +102,9 @@ class WindowAttention(nn.Module):
     """Window attention on a precomputed bias: [nh, N, N] (shared) or
     [G, nh, N, N] selected as window = b % G.
 
-    `use_flash`: None = auto (token-major kernel on the card when
-    N < 1024, hd % 8 == 0 and B_ >= 64; flash for N >= 1024; einsum
-    otherwise), True / False force flash / einsum, "packed" forces the
+    `use_flash`: None = auto (token-major kernel on the card or under
+    export, `on_card`, when N < 1024, hd % 8 == 0 and B_ >= 64; flash for
+    N >= 1024; einsum otherwise), True / False force flash / einsum, "packed" forces the
     token-major route."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -125,7 +126,7 @@ class WindowAttention(nn.Module):
         hd = C // nh
         qkv_raw = self.Dense_0(x)
         packed = self.use_flash == "packed" or (
-            self.use_flash is None and x.is_cuda and N < 1024 and hd % 8 == 0 and B_ >= 64
+            self.use_flash is None and on_card(x) and N < 1024 and hd % 8 == 0 and B_ >= 64
         )
         if packed:
             # the kernel reads the Dense output as is; the bias arrives

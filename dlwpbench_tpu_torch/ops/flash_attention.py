@@ -15,7 +15,12 @@ pre-scale.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/flash_window_attention.cu` forward, `csrc/flash_window_attention_bwd.cu`
 backward, built at first use) or raises: on an unsupported dtype, head
-dim, layout, a failed build or a failed launch.  Each has two designs,
+dim, layout, a failed build or a failed launch.  The forward and backward
+launchers are registered operators
+(`torch.ops.dlwpbench_torch.flash_window_attention_fwd` and `_bwd`,
+`torch.library.custom_op`) with fake implementations that give the output
+shapes, so `torch.export` keeps each call as one node whatever device it
+traces on; the wrappers call them.  Each has two designs,
 chosen from the head dim by `fwd_route` and `bwd_route`: on the tensor
 cores (3xTF32 `mma.sync`; the forward in one pass, the backward in three)
 for D <= 64, every model path, and on the fp32 CUDA cores (one row of
@@ -178,27 +183,47 @@ def _launch_fwd(q, k, v, bias, route=None):
 def flash_window_attention_fwd(q, k, v, bias):
     """(out, lse): out [B,H,N,D] in q's dtype, lse [B,H,1,N] fp32.
 
-    CPU tensors take the plain version; CUDA tensors the kernel of
+    Calls the registered operator `dlwpbench_torch::flash_window_attention_fwd`
+    (so `torch.export` keeps the call, not its body): CPU tensors take the
+    plain version; CUDA tensors the kernel of
     `csrc/flash_window_attention.cu` in the design `fwd_route` names, its
     launches counted in `flash_window_attention_fwd.launches` and those of
     the "mma" design in `flash_window_attention_fwd.mma_launches`.  Not
     differentiable on CUDA tensors: use `flash_window_attention` or
-    `flash_window_attention_lse` for gradients."""
+    `flash_window_attention_lse` for gradients (on CPU tensors that need
+    them it is the plain version, differentiated by autograd)."""
     _check_shapes(q, k, v, bias)
-    if _device_of((q, k, v, bias)).type == "cpu":
-        return flash_window_attention_plain(q, k, v, bias)
-    _check_cuda("flash_window_attention_fwd", (q, k, v, bias))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        if _device_of((q, k, v, bias)).type == "cpu":
+            return flash_window_attention_plain(q, k, v, bias)
         raise NotImplementedError(
             "flash_window_attention_fwd is not differentiable; call "
             "flash_window_attention (or flash_window_attention_lse), whose "
             "backward launches the CUDA backward kernels"
         )
+    return torch.ops.dlwpbench_torch.flash_window_attention_fwd(q, k, v, bias)
+
+
+@torch.library.custom_op("dlwpbench_torch::flash_window_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered forward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
+    if _device_of((q, k, v, bias)).type == "cpu":
+        return flash_window_attention_plain(q, k, v, bias)
+    _check_shapes(q, k, v, bias)
+    _check_cuda("flash_window_attention_fwd", (q, k, v, bias))
     out, lse, route = _launch_fwd(q, k, v, bias)
     flash_window_attention_fwd.launches += 1
     flash_window_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     flash_window_attention_fwd.mma_launches += route == "mma"
     return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, bias):
+    B, H, N, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, 1, N), dtype=torch.float32)
 
 
 flash_window_attention_fwd.launches = 0
@@ -248,6 +273,7 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     """(dq, dk, dv, dbias) of `flash_window_attention_fwd`; see
     `flash_window_attention_bwd_plain` for the arguments.
 
+    Calls the registered operator `dlwpbench_torch::flash_window_attention_bwd`:
     CPU tensors take the plain version; CUDA tensors the kernels of
     `csrc/flash_window_attention_bwd.cu` in the design `bwd_route` names:
     one counted launch in `flash_window_attention_bwd.launches` runs all its
@@ -260,6 +286,15 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     for name, t in (("lse", lse), ("drow", drow)):
         if tuple(t.shape) != (B, H, 1, N):
             raise ValueError(f"{name} must be [B,H,1,N] = {(B, H, 1, N)}, got {tuple(t.shape)}")
+    return torch.ops.dlwpbench_torch.flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow)
+
+
+@torch.library.custom_op("dlwpbench_torch::flash_window_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, drow: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The registered backward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
     if _device_of((q, k, v, bias, do, lse, drow)).type == "cpu":
         return flash_window_attention_bwd_plain(q, k, v, bias, out, lse, do, drow)
     _check_cuda("flash_window_attention_bwd", (q, k, v, bias, do))
@@ -271,6 +306,12 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     flash_window_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
     flash_window_attention_bwd.mma_launches += route == "mma"
     return dq, dk, dv, dbias
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, bias, out, lse, do, drow):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(bias))
 
 
 flash_window_attention_bwd.launches = 0

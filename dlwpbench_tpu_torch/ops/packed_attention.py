@@ -20,7 +20,9 @@ so the port raises instead.
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/packed_window_attention.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
-Forward and backward have the window kernels' two designs, chosen from
+Both launchers are registered operators
+(`torch.ops.dlwpbench_torch.packed_window_attention_fwd` and `_bwd`) with
+fake implementations, as the other kernels' are.  Forward and backward have the window kernels' two designs, chosen from
 (N, D) by `window_attention.fwd_route` and `bwd_route`: the fused
 tensor-core kernels for N <= 144 and D <= 48 (every Pangu shape), the row
 kernels (the backward's in four passes) for the rest.  The
@@ -33,6 +35,8 @@ the bf16 instance in `.bf16_launches`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -142,26 +146,45 @@ def _launch_fwd(q, k, v, bias, mask, route=None):
 def packed_window_attention_fwd(q, k, v, bias, mask):
     """(out [BW,nh,N,D], lse [BW,nh,1,N] fp32).
 
-    CPU tensors take the plain version; CUDA tensors the kernel of
-    `fwd_route`'s design, whose launches are counted in
-    `packed_window_attention_fwd.launches`, and those of the fused route in
-    `.fused_launches` too.  Not differentiable on CUDA tensors: use
-    `packed_window_attention`."""
+    Calls the registered operator `dlwpbench_torch::packed_window_attention_fwd`
+    (so `torch.export` keeps the call, not its body): CPU tensors take the
+    plain version; CUDA tensors the kernel of `fwd_route`'s design, whose
+    launches are counted in `packed_window_attention_fwd.launches`, and
+    those of the fused route in `.fused_launches` too.  Not differentiable
+    on CUDA tensors: use `packed_window_attention` (on CPU tensors that need
+    gradients it is the plain version, differentiated by autograd)."""
+    _check_shapes(q, k, v, bias, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        if _device_of((q, k, v, bias) + (() if mask is None else (mask,))).type == "cpu":
+            return packed_window_attention_plain(q, k, v, bias, mask)
+        raise NotImplementedError(
+            "packed_window_attention_fwd is not differentiable; call "
+            "packed_window_attention, whose backward launches the CUDA backward kernels")
+    return torch.ops.dlwpbench_torch.packed_window_attention_fwd(q, k, v, bias, mask)
+
+
+@torch.library.custom_op("dlwpbench_torch::packed_window_attention_fwd", mutates_args=())
+def _packed_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered forward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
     _check_shapes(q, k, v, bias, mask)
     if _device_of((q, k, v, bias) + (() if mask is None else (mask,))).type == "cpu":
         return packed_window_attention_plain(q, k, v, bias, mask)
     N, D = q.shape[2:]
     mask = _zero_mask(N, q) if mask is None else mask
     _check_cuda("packed_window_attention_fwd", (q, k, v, bias, mask), D, N)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "packed_window_attention_fwd is not differentiable; call "
-            "packed_window_attention, whose backward launches the CUDA backward kernels")
     out, lse, route = _launch_fwd(q, k, v, bias, mask)
     packed_window_attention_fwd.launches += 1
     packed_window_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     packed_window_attention_fwd.fused_launches += route == "fused"
     return out, lse
+
+
+@_packed_fwd_op.register_fake
+def _(q, k, v, bias, mask):
+    BW, nh, N, _ = q.shape
+    return torch.empty_like(q), q.new_empty((BW, nh, 1, N), dtype=torch.float32)
 
 
 packed_window_attention_fwd.launches = 0
@@ -207,9 +230,10 @@ def _launch_bwd(q, k, v, bias, mask, out, lse, do, route=None):
 
 def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
     """(dq, dk, dv, dbias) of `packed_window_attention_fwd`; see
-    `packed_window_attention_bwd_plain`.  CUDA tensors take the kernels of
-    `bwd_route`'s design: one counted launch in
-    `packed_window_attention_bwd.launches` runs all its passes, and
+    `packed_window_attention_bwd_plain`.  Calls the registered operator
+    `dlwpbench_torch::packed_window_attention_bwd`: CUDA tensors take the
+    kernels of `bwd_route`'s design, one counted launch in
+    `packed_window_attention_bwd.launches` running all its passes, and
     `packed_window_attention_bwd.fused_launches` counts those of the fused
     route."""
     _check_shapes(q, k, v, bias, mask)
@@ -219,11 +243,23 @@ def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
                          f"{tuple(q.shape)}")
     if tuple(lse.shape) != (BW, nh, 1, N):
         raise ValueError(f"lse must be [BW,nh,1,N] = {(BW, nh, 1, N)}, got {tuple(lse.shape)}")
+    return torch.ops.dlwpbench_torch.packed_window_attention_bwd(q, k, v, bias, mask, out, lse,
+                                                                 do)
+
+
+@torch.library.custom_op("dlwpbench_torch::packed_window_attention_bwd", mutates_args=())
+def _packed_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor], out: torch.Tensor, lse: torch.Tensor,
+                   do: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The registered backward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
     tensors = (q, k, v, bias, out, lse, do) + (() if mask is None else (mask,))
     if _device_of(tensors).type == "cpu":
         return packed_window_attention_bwd_plain(q, k, v, bias, mask, out, lse, do)
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
+    N, D = q.shape[2:]
     mask = _zero_mask(N, q) if mask is None else mask
     _check_cuda("packed_window_attention_bwd", (q, k, v, bias, mask, out, do), D, N)
     dq, dk, dv, dbias, route = _launch_bwd(q, k, v, bias, mask, out, lse.contiguous(), do)
@@ -231,6 +267,12 @@ def packed_window_attention_bwd(q, k, v, bias, mask, out, lse, do):
     packed_window_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
     packed_window_attention_bwd.fused_launches += route == "fused"
     return dq, dk, dv, dbias
+
+
+@_packed_bwd_op.register_fake
+def _(q, k, v, bias, mask, out, lse, do):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(bias))
 
 
 packed_window_attention_bwd.launches = 0

@@ -25,6 +25,10 @@ mask, symmetric in its last two dims, or None.  Layouts:
 For a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/window_attention_qkv.cu`, built at first use) or raises: on an
 unsupported dtype, head dim, N, layout, a failed build or a failed launch.
+The four launchers are registered operators
+(`torch.ops.dlwpbench_torch.window_attention_qkv_fwd`, `_qkv_bwd`,
+`_qkv5d_fwd`, `_qkv5d_bwd`) with fake implementations, so `torch.export`
+keeps each call as one node; the wrappers call them.
 Forward and backward each have two designs, chosen from (N, hd) by
 `fwd_route` and `bwd_route`: fused tensor-core kernels for windows up to
 144 tokens at head dims up to 48 (every model path), the row kernels for
@@ -38,6 +42,8 @@ counts its launches in `.launches`, those of the fused design in
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -319,14 +325,36 @@ def _launch_bwd(name, layout, x, bias, mask, out, lse, dout, win):
     return dqkv, dbias, route
 
 
+def _cpu_grad(tensors, mask) -> bool:
+    """Whether a forward wrapper's call needs gradients on CPU tensors: the
+    plain version then runs outside the registered operator, so autograd
+    differentiates it (on CUDA tensors `_no_grad_guard` raises instead)."""
+    needs = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if needs and _device_of(tensors if mask is None else (*tensors, mask)).type != "cpu":
+        _no_grad_guard("window attention's forward wrappers", tensors)
+    return needs
+
+
 def window_attention_qkv_fwd(qkv, bias, mask, nh):
     """(out [B,L,nW,N,C], lse [B,L,nW,nh,N] fp32) on the token-major layout.
 
-    CPU tensors take the plain version; CUDA tensors the kernel of
-    `fwd_route`'s design, whose launches are counted in
-    `window_attention_qkv_fwd.launches`, and those of the fused route in
-    `.fused_launches` too.  Not differentiable on CUDA tensors: use
-    `window_attention_qkv`."""
+    Calls the registered operator `dlwpbench_torch::window_attention_qkv_fwd`
+    (so `torch.export` keeps the call, not its body): CPU tensors take the
+    plain version; CUDA tensors the kernel of `fwd_route`'s design, whose
+    launches are counted in `window_attention_qkv_fwd.launches`, and those
+    of the fused route in `.fused_launches` too.  Not differentiable on CUDA
+    tensors: use `window_attention_qkv`."""
+    _check_token_major(qkv, bias, mask, nh)
+    if _cpu_grad((qkv, bias), mask):
+        return window_attention_qkv_plain(qkv, bias, mask, nh)
+    return torch.ops.dlwpbench_torch.window_attention_qkv_fwd(qkv, bias, mask, nh)
+
+
+@torch.library.custom_op("dlwpbench_torch::window_attention_qkv_fwd", mutates_args=())
+def _qkv_fwd_op(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                nh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered token-major forward: the plain version on CPU
+    tensors, the counted kernel launch on CUDA ones."""
     B, L, nW, N, C = _check_token_major(qkv, bias, mask, nh)
     if _device_of((qkv, bias) if mask is None else (qkv, bias, mask)).type == "cpu":
         return window_attention_qkv_plain(qkv, bias, mask, nh)
@@ -339,6 +367,13 @@ def window_attention_qkv_fwd(qkv, bias, mask, nh):
     return out, lse
 
 
+@_qkv_fwd_op.register_fake
+def _(qkv, bias, mask, nh):
+    B, L, nW, N, C3 = qkv.shape
+    return (qkv.new_empty((B, L, nW, N, C3 // 3)),
+            qkv.new_empty((B, L, nW, nh, N), dtype=torch.float32))
+
+
 window_attention_qkv_fwd.launches = 0
 window_attention_qkv_fwd.bf16_launches = 0
 window_attention_qkv_fwd.fused_launches = 0
@@ -346,13 +381,22 @@ window_attention_qkv_fwd.fused_launches = 0
 
 def window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout):
     """(dqkv, dbias) of `window_attention_qkv_fwd`; see
-    `window_attention_qkv_bwd_plain`.  CUDA tensors take the kernels of
-    `bwd_route`'s design: one counted launch in
-    `window_attention_qkv_bwd.launches` runs all its passes, and
+    `window_attention_qkv_bwd_plain`.  Calls the registered operator
+    `dlwpbench_torch::window_attention_qkv_bwd`: CUDA tensors take the
+    kernels of `bwd_route`'s design, one counted launch in
+    `window_attention_qkv_bwd.launches` running all its passes, and
     `window_attention_qkv_bwd.fused_launches` counts those of the fused
     route."""
-    nh = lse.shape[3]
-    _check_token_major(qkv, bias, mask, nh)
+    _check_token_major(qkv, bias, mask, lse.shape[3])
+    return torch.ops.dlwpbench_torch.window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout)
+
+
+@torch.library.custom_op("dlwpbench_torch::window_attention_qkv_bwd", mutates_args=())
+def _qkv_bwd_op(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered token-major backward: the plain version on CPU
+    tensors, the counted kernel launch on CUDA ones."""
     tensors = (qkv, bias, out, lse, dout) + (() if mask is None else (mask,))
     if _device_of(tensors).type == "cpu":
         return window_attention_qkv_bwd_plain(qkv, bias, mask, out, lse, dout)
@@ -365,6 +409,11 @@ def window_attention_qkv_bwd(qkv, bias, mask, out, lse, dout):
     return dqkv, dbias
 
 
+@_qkv_bwd_op.register_fake
+def _(qkv, bias, mask, out, lse, dout):
+    return torch.empty_like(qkv), torch.empty_like(bias)
+
+
 window_attention_qkv_bwd.launches = 0
 window_attention_qkv_bwd.bf16_launches = 0
 window_attention_qkv_bwd.fused_launches = 0
@@ -373,11 +422,24 @@ window_attention_qkv_bwd.fused_launches = 0
 def window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win):
     """(out [B,Pl,Lat,Lon,C], lse [B,nLon,nW,nh,N] fp32) on the 5D field.
 
+    Calls the registered operator `dlwpbench_torch::window_attention_qkv5d_fwd`:
     CPU tensors take the plain version; CUDA tensors the kernel of
     `fwd_route`'s design, counted in `window_attention_qkv5d_fwd.launches`
     (and in `.fused_launches` too on the fused route).  Not differentiable
     on CUDA tensors: use `window_attention_qkv5d`."""
-    win = tuple(int(w) for w in win)
+    win = [int(w) for w in win]
+    _window_dims(qkv5, bias, mask, nh, win)
+    if _cpu_grad((qkv5, bias), mask):
+        return window_attention_qkv5d_plain(qkv5, bias, mask, nh, tuple(win))
+    return torch.ops.dlwpbench_torch.window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win)
+
+
+@torch.library.custom_op("dlwpbench_torch::window_attention_qkv5d_fwd", mutates_args=())
+def _qkv5d_fwd_op(qkv5: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                  nh: int, win: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered 5D forward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
+    win = tuple(win)
     nLon, nW, N = _window_dims(qkv5, bias, mask, nh, win)
     B, C3 = qkv5.shape[0], qkv5.shape[-1]
     if _device_of((qkv5, bias) if mask is None else (qkv5, bias, mask)).type == "cpu":
@@ -392,17 +454,39 @@ def window_attention_qkv5d_fwd(qkv5, bias, mask, nh, win):
     return out, lse
 
 
+@_qkv5d_fwd_op.register_fake
+def _(qkv5, bias, mask, nh, win):
+    B, Pl, Lat, Lon, C3 = qkv5.shape
+    N = win[0] * win[1] * win[2]
+    nW = (Pl // win[0]) * (Lat // win[1])
+    return (qkv5.new_empty((B, Pl, Lat, Lon, C3 // 3)),
+            qkv5.new_empty((B, Lon // win[2], nW, nh, N), dtype=torch.float32))
+
+
 window_attention_qkv5d_fwd.launches = 0
 window_attention_qkv5d_fwd.bf16_launches = 0
 window_attention_qkv5d_fwd.fused_launches = 0
 
 
 def window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse, dout5, win):
-    """(dqkv5, dbias) of `window_attention_qkv5d_fwd`; CUDA tensors take the
-    kernels of `bwd_route`'s design (one counted launch in
+    """(dqkv5, dbias) of `window_attention_qkv5d_fwd`, through the registered
+    operator `dlwpbench_torch::window_attention_qkv5d_bwd`; CUDA tensors take
+    the kernels of `bwd_route`'s design (one counted launch in
     `window_attention_qkv5d_bwd.launches`, and in `.fused_launches` too on
     the fused route)."""
-    win = tuple(int(w) for w in win)
+    win = [int(w) for w in win]
+    _window_dims(qkv5, bias, mask, lse.shape[3], win)
+    return torch.ops.dlwpbench_torch.window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse,
+                                                                dout5, win)
+
+
+@torch.library.custom_op("dlwpbench_torch::window_attention_qkv5d_bwd", mutates_args=())
+def _qkv5d_bwd_op(qkv5: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                  out5: torch.Tensor, lse: torch.Tensor, dout5: torch.Tensor, win: list[int]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered 5D backward: the plain version on CPU tensors, the
+    counted kernel launch on CUDA ones."""
+    win = tuple(win)
     _, _, N = _window_dims(qkv5, bias, mask, lse.shape[3], win)
     tensors = (qkv5, bias, out5, lse, dout5) + (() if mask is None else (mask,))
     if _device_of(tensors).type == "cpu":
@@ -414,6 +498,11 @@ def window_attention_qkv5d_bwd(qkv5, bias, mask, out5, lse, dout5, win):
     window_attention_qkv5d_bwd.bf16_launches += qkv5.dtype == torch.bfloat16
     window_attention_qkv5d_bwd.fused_launches += route == "fused"
     return dqkv, dbias
+
+
+@_qkv5d_bwd_op.register_fake
+def _(qkv5, bias, mask, out5, lse, dout5, win):
+    return torch.empty_like(qkv5), torch.empty_like(bias)
 
 
 window_attention_qkv5d_bwd.launches = 0

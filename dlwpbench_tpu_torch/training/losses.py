@@ -4,6 +4,8 @@
 - `mse_loss`: the reference `CustomMSELoss` (`losses.py:155-188`): plain
   MSE, optionally multiplied by per-gridpoint latitude weights before the
   mean.
+- `cell_area_weighted_loss`: the GraphCast-lineage MSE, weighted by cell
+  area after the (time, channel) mean.
 - `latitude_weights`: cos(lat) / mean(cos(lat)) (WeatherBench eq. 2).
 - `zonal_power_spectrum`: zonal power per latitude ring, scaled by the
   ring's circumference, on `torch.fft.rfft(..., norm="forward")`.
@@ -27,6 +29,17 @@ def mse_loss(prediction: torch.Tensor, target: torch.Tensor,
     if weights is not None:
         d = d * weights
     return d.mean()
+
+
+def cell_area_weighted_loss(prediction: torch.Tensor, target: torch.Tensor,
+                            area: torch.Tensor) -> torch.Tensor:
+    """Cell-area-weighted MSE (JAX `losses.py:36-48`; reference
+    `models/graphcast/utils/loss.py:26-56`): the squared error is averaged
+    over the leading (time, channel) axes first, then weighted by the
+    per-cell `area` [H, W] and averaged spatially, which differs from
+    `mse_loss` when `area` is not normalised to mean 1."""
+    loss = torch.mean((prediction - target) ** 2, dim=(0, 1))
+    return torch.mean(loss * area)
 
 
 def latitude_weights(lats_deg: np.ndarray) -> np.ndarray:

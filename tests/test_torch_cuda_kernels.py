@@ -1139,3 +1139,98 @@ def test_graph_epoch_on_card_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(loss)
+
+
+# ---------------------------------------------------------------- registered operators
+def _op_cases(cuda):
+    """(name, op, CUDA args, the plain version's outputs on the CPU) for each
+    registered forward and backward at a small model shape."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g)
+
+    ops = torch.ops.dlwpbench_torch
+    q, k, v, do = (rnd(4, 2, 64, 16) for _ in range(4))
+    bias = rnd(2, 2, 64, 64)
+    out, lse = fa.flash_window_attention_plain(q.cpu(), k.cpu(), v.cpu(), bias.cpu())
+    drow = (do.cpu() * out).sum(-1)[:, :, None, :]
+    flash_bwd = (q, k, v, bias, out.to(cuda), lse.to(cuda), do, drow.to(cuda))
+    qkv, tbias, mask = rnd(2, 1, 4, 36, 48), rnd(4, 2, 36, 36), rnd(1, 4, 36, 36)
+    tout, tlse = wa.window_attention_qkv_plain(qkv.cpu(), tbias.cpu(), mask.cpu(), 2)
+    win = [2, 3, 6]
+    qkv5, bias5 = rnd(2, 4, 6, 12, 48), rnd(4, 2, 36, 36)
+    out5, lse5 = wa.window_attention_qkv5d_plain(qkv5.cpu(), bias5.cpu(), None, 2, tuple(win))
+    pbias, pmask = rnd(4, 2, 36, 36), rnd(2, 4, 36, 36)
+    pq, pk_, pv, pdo = (rnd(16, 2, 36, 16) for _ in range(4))
+    pout, plse = pk.packed_window_attention_plain(pq.cpu(), pk_.cpu(), pv.cpu(), pbias.cpu(),
+                                                  pmask.cpu())
+    tdo, do5 = rnd(*tout.shape), rnd(*out5.shape)
+    return [
+        ("flash_window_attention_fwd", ops.flash_window_attention_fwd, (q, k, v, bias)),
+        ("flash_window_attention_bwd", ops.flash_window_attention_bwd, flash_bwd),
+        ("window_attention_qkv_fwd", ops.window_attention_qkv_fwd, (qkv, tbias, mask, 2)),
+        ("window_attention_qkv_bwd", ops.window_attention_qkv_bwd,
+         (qkv, tbias, mask, tout.to(cuda), tlse.to(cuda), tdo)),
+        ("window_attention_qkv5d_fwd", ops.window_attention_qkv5d_fwd, (qkv5, bias5, None, 2, win)),
+        ("window_attention_qkv5d_bwd", ops.window_attention_qkv5d_bwd,
+         (qkv5, bias5, None, out5.to(cuda), lse5.to(cuda), do5, win)),
+        ("packed_window_attention_fwd", ops.packed_window_attention_fwd,
+         (pq, pk_, pv, pbias, pmask)),
+        ("packed_window_attention_bwd", ops.packed_window_attention_bwd,
+         (pq, pk_, pv, pbias, pmask, pout.to(cuda), plse.to(cuda), pdo)),
+    ]
+
+
+@pytest.mark.cuda
+def test_registered_ops_launch_the_kernels_and_match_the_plain_versions(cuda):
+    """Each registered operator's CUDA implementation launches its kernel
+    (one counted launch) and equals the same operator on CPU copies of its
+    inputs, which runs the plain version."""
+    counters = {"flash_window_attention_fwd": fa.flash_window_attention_fwd,
+                "flash_window_attention_bwd": fa.flash_window_attention_bwd,
+                "window_attention_qkv_fwd": wa.window_attention_qkv_fwd,
+                "window_attention_qkv_bwd": wa.window_attention_qkv_bwd,
+                "window_attention_qkv5d_fwd": wa.window_attention_qkv5d_fwd,
+                "window_attention_qkv5d_bwd": wa.window_attention_qkv5d_bwd,
+                "packed_window_attention_fwd": pk.packed_window_attention_fwd,
+                "packed_window_attention_bwd": pk.packed_window_attention_bwd}
+    for name, op, args in _op_cases(cuda):
+        before = counters[name].launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert counters[name].launches == before + 1, name
+        want = op(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        for a, b in zip(got, want):
+            assert a.is_cuda and a.shape == b.shape, name
+            scale = max(1.0, b.abs().max().item())
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-5 * scale, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace_on", ["cpu", "cuda"])
+def test_exported_swin_served_on_card_launches_the_kernel(cuda, trace_on, tmp_path):
+    """A Swin exported with `utils.export` (traced on the CPU or on the
+    card) and served on the card launches the flash kernel on every block
+    of every step, and matches the eager model on the card."""
+    from dlwpbench_tpu_torch.models.swin import SwinTransformer
+    from dlwpbench_tpu_torch.utils import export as X
+
+    model = SwinTransformer(img_height=8, img_width=16, constant_channels=2,
+                            prescribed_channels=1, prognostic_channels=3, embed_dim=16,
+                            depths=(2, 2), num_heads=(2, 2), use_flash_attention=True)
+    g = torch.Generator().manual_seed(3)
+    args = [torch.randn(2, 1, 2, 8, 16, generator=g), torch.randn(2, 3, 1, 8, 16, generator=g),
+            torch.randn(2, 3, 3, 8, 16, generator=g)]
+    ep = X.export_rollout(model, *(a.shape for a in args), device=trace_on)
+    path = str(tmp_path / "swin.pt2")
+    X.save_exported(path, ep)
+    run, meta = X.load_exported(path, device="cuda")
+    assert meta["device"].startswith(trace_on)
+    before = fa.flash_window_attention_fwd.launches
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert fa.flash_window_attention_fwd.launches - before == 2 * 4  # 2 steps x 4 blocks
+    with torch.no_grad():
+        want = model.to(cuda).eval()(*(a.to(cuda) for a in args))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())

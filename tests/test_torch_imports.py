@@ -1,11 +1,13 @@
-"""The port imports neither JAX, flax, the JAX package nor pandas.
+"""The port imports neither JAX, flax, the JAX package, pandas nor msgpack,
+and matplotlib only inside functions.
 
 `dlwpbench_tpu_torch` starts with `dlwpbench_tpu`: only the `_torch`
-package itself is allowed.  pandas is not on the card's machine.  The
-check reads every import statement (and every `importlib.import_module` /
-`__import__` of a literal name) in the port and in `chip_smoke.py`, then
-imports the port's modules in a fresh interpreter in which `jax`, `flax`,
-`dlwpbench_tpu` and `pandas` cannot be imported.
+package itself is allowed.  pandas, msgpack and matplotlib are not on the
+card's machine.  The check reads every import statement (and every
+`importlib.import_module` / `__import__` of a literal name) in the port
+and in `chip_smoke.py`, then imports the port's modules in a fresh
+interpreter in which `jax`, `flax`, `dlwpbench_tpu`, `pandas`, `msgpack`
+and `matplotlib` cannot be imported.
 """
 
 import ast
@@ -18,7 +20,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "dlwpbench_tpu_torch")
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|pandas|dlwpbench_tpu(?!_torch))(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|pandas|msgpack|dlwpbench_tpu(?!_torch))(\.|$)")
+MODULE_LEVEL_FORBIDDEN = re.compile(r"^matplotlib(\.|$)")
 
 
 def _port_files():
@@ -49,8 +52,20 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_matplotlib_only_inside_functions(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top = [a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names]
+    top += [node.module for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.level == 0]
+    bad = [name for name in top if MODULE_LEVEL_FORBIDDEN.match(name)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad} at module level"
+
+
 def test_forbidden_pattern():
     assert FORBIDDEN.match("jax.numpy") and FORBIDDEN.match("flax")
+    assert FORBIDDEN.match("msgpack") and not FORBIDDEN.match("msgpack_lite")
     assert FORBIDDEN.match("dlwpbench_tpu") and FORBIDDEN.match("dlwpbench_tpu.models")
     assert FORBIDDEN.match("pandas") and FORBIDDEN.match("pandas.core")
     assert not FORBIDDEN.match("dlwpbench_tpu_torch.models")
@@ -64,7 +79,7 @@ def test_port_loads_without_jax():
     )
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu', 'pandas'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'dlwpbench_tpu', 'pandas', 'msgpack', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, chip_smoke, dlwpbench_tpu_torch.evaluate\n"
         f"for m in {modules!r}:\n"

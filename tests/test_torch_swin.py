@@ -200,8 +200,9 @@ def test_registry_keeps_remat():
     cfg = dict(type="SwinTransformer", name="swin", remat=True, **SMALL)
     model = registry.build_model(cfg)
     assert model.remat is True and model.remat_policy == "full"
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        registry.build_model({**cfg, "remat_policy": "dots"})
+    assert registry.build_model({**cfg, "remat_policy": "dots"}).remat_policy == "dots"
+    with pytest.raises(ValueError, match="remat_policy"):
+        registry.build_model({**cfg, "remat_policy": "everything"})
 
 
 def test_to_flax_tree_inverts_the_loader():
