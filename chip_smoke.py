@@ -42,7 +42,7 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      samples, a profiler breakdown of one rollout batch;
    - Swin train: `python -m dlwpbench_tpu_torch.train
      model=swintransformer data=synthetic data.n_time=1536
-     training.epochs=2` (batch 32, 2-step rollouts, remat, AdamW;
+     training.epochs=1` (batch 32, 2-step rollouts, remat, AdamW;
      validation at batch 15 over 14-step rollouts); finite losses,
      checkpoints, card-vs-CPU loss and gradients, a profiler breakdown of
      one training step;
@@ -190,7 +190,26 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      GraphCast's epoch in bf16 compute; one GraphCast processor layer at
      the shipped shapes on the gather and the onehot movement, against
      each other and timed;
-5. the run's seconds, the card line, the `kernels` line and, last,
+   - the distributed phase (`run_distributed_paths`): 2 ranks, each a
+     process of this script (`dist_rank`) on cuda:0, joined over gloo
+     (CUDA tensors staged through pinned host memory; NCCL refuses two
+     ranks on one card): the Swin's train path (`TRAIN_ARGV`, its data,
+     seed and epochs) with `training.data_parallel=2`, its per-step losses
+     and final parameters against the single-rank train path above, the
+     two ranks' parameters equal bit for bit, and each rank's flash
+     launches those of the single-rank path, all mma; ring attention on
+     the flash kernels at the Swin's stage 0 (q[32,4,2048,24], its shifted
+     bias) and Pangu's flash route at stage 1 (q[1152,6,144,32], the
+     grouped bias with the mask), forward and backward against one kernel
+     call on the same inputs, 2 forward and 2 backward launches a rank,
+     with one round's kv exchange timed; one forward of the shipped Swin
+     with `spmd_mesh` against one without; the halo on [4,64,32,64], the
+     sharded HEALPix pad at nside 32 and one partitioned GraphCast forward
+     at `graphcast.yaml`'s width against the single-device results; then
+     a one-rank NCCL group's all-reduce, all-to-all and self send/receive
+     on CUDA tensors (two-card NCCL needs two cards);
+5. the run's seconds, the card line, the `kernels` line (the flash rows'
+   `launches_by_path` with the distributed paths, per rank) and, last,
    `{"ok": true, ...}`.
 
 Every time printed stands beside the card's name and power limit.
@@ -1352,10 +1371,12 @@ def profile_rollout(cfg, card: str, test_ds=None):
 # ---------------------------------------------------------------- training paths
 # The shipped model and training config; data.n_time is raised from 384
 # only so that an epoch holds 11 full batches of 32 (357 training windows)
-# and the validation split one batch of 14 windows.
+# and the validation split one batch of 14 windows.  One epoch each (2
+# until the distributed phase, which trains the Swin path again on 2
+# ranks, needed the time).
 TRAIN_TAIL = ["data=synthetic", "data.n_time=1536"]
-TRAIN_ARGV = ["model=swintransformer", *TRAIN_TAIL, "training.epochs=2"]
-PANGU_TRAIN_ARGV = ["model=panguweather", *TRAIN_TAIL, "training.epochs=2"]
+TRAIN_ARGV = ["model=swintransformer", *TRAIN_TAIL, "training.epochs=1"]
+PANGU_TRAIN_ARGV = ["model=panguweather", *TRAIN_TAIL, "training.epochs=1"]
 # the swin_win8 configuration: fixed 8x8 windows, auto routing
 SWIN8_TRAIN_ARGV = ["model=swintransformer", "model.window_size=[8,8]",
                     "model.use_flash_attention=null", *TRAIN_TAIL, "training.epochs=1"]
@@ -1380,10 +1401,12 @@ def train_splits(argv: list):
                           int(cfg.model.context_size))[:2]
 
 
-def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=None):
+def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=None,
+                   keep_params: bool = False):
     """The train CLI on `argv`; `datasets` (train, val), when given, are
     the splits the CLI builds, already built (the expected launches are
-    counted from them)."""
+    counted from them).  `keep_params`: the result carries the final
+    parameters (CPU copies) and every step's loss."""
     import numpy as np
     import torch
 
@@ -1457,7 +1480,10 @@ def run_train_path(label: str, argv: list, run_dir: str, card: str, datasets=Non
     return dict(launches=launches, fused=fused, bf16=bf16, seconds_per_step=per_step,
                 samples_per_s=samples_s,
                 gridpoints_per_s=samples_s * points, peak_gib=peak, wall_s=wall,
-                train_loss=res["train_loss"], val_loss=res["val_loss"]), cfg, train_ds
+                train_loss=res["train_loss"], val_loss=res["val_loss"],
+                **({"step_losses": res["step_losses"], "params": {
+                    n: p.detach().cpu() for n, p in res["state"].model.named_parameters()}}
+                   if keep_params else {})), cfg, train_ds
 
 
 def perturbed_state(cfg, scale: float = 0.01):
@@ -2742,17 +2768,17 @@ def run_hpx_swin_paths(card: str):
 # evaluate paths' 96 test inits and the training paths' 11 batches.  The
 # reference's HEALPix ModernUNet (`modernunet_inverted_hpx.yaml`, hidden
 # 136, 68, 34) and the HEALPix diffusion model on the training paths' 1,536
-# frames (11 training batches, 16 test inits: one evaluate batch); the
-# lat-lon diffusion model (`diffusion_modernunet.yaml`, 80,678,024
-# parameters, `training=diffusion`) on 3,000 frames: 22 training batches,
-# 2 validation batches, 31 test inits, evaluate batches of 16 and 15 (75
-# denoiser calls each: 15 leads x 5 refinements).
+# frames (11 training batches, 16 test inits: one evaluate batch of 16, 75
+# denoiser calls: 15 leads x 5 refinements), and so the lat-lon diffusion
+# model (`diffusion_modernunet.yaml`, 80,678,024 parameters,
+# `training=diffusion`; on 3,000 frames, 22 training batches and two
+# evaluate batches, until the distributed phase needed the time).
 MUNET_EVAL_ARGV = ["model=modernunet", *EVAL_TAIL]
 MUNET_TRAIN_ARGV = ["model=modernunet", *TRAIN_TAIL, "training.epochs=1"]
 MUNET_HPX_ARGV = ["model=modernunet_inverted_hpx", "data=synthetic_hpx8", "data.n_time=1536",
                   "training.epochs=1"]
 DIFF_ARGV = ["model=diffusion_modernunet", "training=diffusion", "data=synthetic",
-             "data.n_time=3000", "training.epochs=1"]
+             "data.n_time=1536", "training.epochs=1"]
 DIFF_HPX_ARGV = ["model=diffusion_modernunet", "model.type=DiffMUNetHPX", "model.mesh=healpix",
                  "training=diffusion", "data=synthetic_hpx8", "data.n_time=1536",
                  "training.epochs=1"]
@@ -3288,8 +3314,11 @@ FFT_TOL = 1e-4  # matmul against fft: max|diff| / max|value|, fp32 (DFT sums vs 
 # 8.3e-4 of that gradient's max at 2 samples in 2 of 12 batches (fp32
 # against fp64 on one CPU), at most 2.9e-4 at 8 samples over 12 batches:
 # FourCastNet's check takes 8, so that one such term stays well inside the
-# tolerance (1e-3); the smooth models take 2, as every earlier path.
-GRAD_SAMPLES = {"fourcastnet": 8}
+# tolerance (1e-3); the smooth models take 2, as every earlier path, but
+# the ModernUNet with its Fourier block 1, as GraphCast (its CPU side, 89 M
+# parameters, dominated the path; 2 until the distributed phase needed the
+# time).
+GRAD_SAMPLES = {"fourcastnet": 8, "munet_fourier": 1}
 
 
 def compare_fft_impls(card: str, train_ds):
@@ -3680,6 +3709,400 @@ def run_packed_path(card: str):
     return launches, check_fused("packed path", counters, launches)
 
 
+# ---------------------------------------------------------------- the distributed phase
+# Two ranks, one process each, share the one card through gloo (NCCL
+# refuses two ranks on one device); the collectives move CUDA tensors
+# through pinned host memory (`parallel/launch.py`).  The parent built the
+# kernels; each rank loads them from build/cuda/.
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600  # a rank that hangs fails the phase
+# ring attention on the card: the Swin's stage 0 (its global window, the
+# shifted bias) and Pangu's flash route at stage 1 (the grouped bias with
+# the shift mask, one group per (lon, window))
+RING_CASES = [("swin stage0 shifted", EVAL_BATCH, 4, 2048, 24, 1, "swin-shift"),
+              # the shifted mask keeps each rank's queries on its own keys
+              # (the other chunk's weights underflow), so the unshifted
+              # bias is what exercises the merge at this shape
+              ("swin stage0 unshifted", EVAL_BATCH, 4, 2048, 24, 0, "random"),
+              ("pangu stage1 flash G=36", EVAL_BATCH * 36, 6, 144, 32, 36, "pangu-shift")]
+# the ring against one kernel call on the same inputs, fp32, relative to
+# each tensor's max: the chunked log-sum-exp merge sums in another order
+# (FLASH_TOL's 5e-5 for the output, FLASH_BWD_TOL's 1e-4 for gradients)
+RING_TOL = {"out": 5e-5, "grad": 1e-4}
+# the sharded model forwards (the Swin with spmd_mesh, the partitioned
+# GraphCast, the halo and the HEALPix pad) against the single-device ones
+# on the card, relative to the output's max: the same ops on other row
+# splits (cuBLAS picks kernels by shape; the graph sums are atomics)
+SHARDED_TOL = 1e-4
+# the data-parallel training against the single-rank train path, as
+# `tests/test_torch_trainer.py` holds the port's trainer against JAX's:
+# per-step losses rtol 1e-5, final parameters within lr / 100 (Adam moves
+# each parameter by about lr a step, so a wrong update to any tensor fails)
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_ATOL = 1e-3 / 100  # training.learning_rate / 100
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(work: str, n: int = DIST_RANKS) -> list:
+    """Run `n` ranks (`dist_rank`) on the card, print their output, and
+    return each rank's results; a rank that fails or hangs fails the
+    script."""
+    import pickle
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(n))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank(sys.argv[1]))"
+    procs = [subprocess.Popen([sys.executable, "-c", code, work], cwd=REPO,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"[rank {r}] {line}")
+        if p.returncode != 0:
+            raise SystemExit(f"distributed phase: rank {r} exited {p.returncode}")
+    results = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def dist_rank(work: str) -> int:
+    """One rank of the distributed phase: joins the gloo group from the
+    torch-style variables, runs `dp_suite` and `exchanges_suite` on
+    cuda:0 (one process start for both), writes its results to
+    `work/rank<r>.pkl`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dlwpbench_tpu_torch.parallel import launch
+
+    if not launch.initialize(backend="gloo"):
+        raise SystemExit("no distributed job in the environment")
+    rank, world = launch.host_info()
+    t0 = time.perf_counter()
+    res = {"dp": dp_suite(rank, world, work)}
+    t1 = time.perf_counter()
+    res["exchanges"] = exchanges_suite(rank, world, work)
+    res["seconds"] = {"dp": t1 - t0, "exchanges": time.perf_counter() - t1}
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _launches(counters) -> dict:
+    return {n: fn.launches for n, fn in counters.items()}
+
+
+def dp_suite(rank: int, world: int, work: str) -> dict:
+    """The shipped Swin's train path (TRAIN_ARGV: its data, seed and
+    epochs) with `training.data_parallel=2`: each rank its half of every
+    global batch, the gradients summed over the ranks."""
+    from dlwpbench_tpu_torch import train as cli
+
+    counters = counters_of()
+    reset_counters(counters)
+    run_dir = os.path.join(work, "dp_run")
+    t0 = time.perf_counter()
+    res = cli.main([*TRAIN_ARGV, "training.data_parallel=2", f"run_dir={run_dir}",
+                    "--device", "cuda:0"])
+    wall = time.perf_counter() - t0
+    return dict(wall_s=wall, launches=_launches(counters), fused=new_design_launches(counters),
+                step_losses=res["step_losses"], step_seconds=res["step_seconds"],
+                train_loss=res["train_loss"], val_loss=res["val_loss"], rank=res["rank"],
+                params={n: p.detach().cpu() for n, p in res["state"].model.named_parameters()})
+
+
+def _rel(a, b) -> float:
+    """max|a - b| / max|b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    """Wall ms of `fn` after one warm-up, the card synchronised around it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def exchanges_suite(rank: int, world: int, work: str) -> dict:
+    """Ring attention at the Swin's and Pangu's shapes, a Swin forward with
+    `spmd_mesh`, the halo, the sharded HEALPix pad at nside 32 and a
+    partitioned GraphCast forward at its shipped width, each against the
+    single-device result on the card; the launches of each ring path."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.ops import flash_attention as fa
+    from dlwpbench_tpu_torch.ops.padding import cylinder_pad, healpix_pad_channels_last
+    from dlwpbench_tpu_torch.parallel import halo, healpix_sharded, launch, ring_attention
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    mesh = launch.global_mesh(data=1, x=world)
+    group = mesh.get_group("x")
+    counters = counters_of()
+    res = {"ring": []}
+    for label, B, H, N, D, G, kind in RING_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(7)  # the same inputs on every rank
+        q, k, v, bias = _flash_inputs(B, H, N, D, G, kind, torch.float32, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        reset_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention.ring_attention_sharded(*leaves, mesh, axis="x")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.backward(do)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, fused = _launches(counters), new_design_launches(counters)
+        # one kernel call each way on the same inputs (not counted)
+        ref = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        ref_out = fa.flash_window_attention(*ref)
+        ref_out.backward(do)
+        errs = {"out": _rel(out, ref_out)}
+        errs.update({f"d{n}": _rel(a.grad, b.grad) for n, a, b in zip("qkvb", leaves, ref)})
+        # one round's exchange alone: this rank's kv chunk on to the next
+        kc, vc = (t[:, :, : N // world].contiguous() for t in (k, v))
+        ko, vo = torch.empty_like(kc), torch.empty_like(vc)
+        nxt, prv = (rank + 1) % world, (rank - 1) % world
+        exch_ms = _host_ms(lambda: launch.Exchange([(kc, nxt), (vc, nxt)],
+                                                   [(ko, prv), (vo, prv)], group).wait())
+        res["ring"].append(dict(case=label, B=B, H=H, N=N, D=D, bias=list(bias.shape),
+                                fwd_s=t1 - t0, bwd_s=t2 - t1, launches=launches, fused=fused,
+                                errors=errs, exchange_ms=exch_ms,
+                                chunk_mb=2 * kc.numel() * 4 / 1e6))
+        del q, k, v, bias, do, leaves, out, ref, ref_out, kc, vc, ko, vo
+        torch.cuda.empty_cache()
+
+    # the shipped Swin, one forward (4 samples, 1 step) with and without spmd_mesh
+    cfg = load_config(cli.CONFIG_DIR, overrides=["model=swintransformer", "data=synthetic"])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d = cfg.data
+    inputs = [torch.randn(4, t, c, d.height, d.width, device="cuda", generator=gen)
+              for t, c in ((1, d.constant_channels), (2, d.prescribed_channels),
+                           (2, d.prognostic_channels))]
+    with torch.no_grad():
+        single = build_for(cfg, seed=int(cfg.seed)).cuda().eval()
+        want = single(*inputs)
+        ring_model = build_for(cfg, seed=int(cfg.seed), spmd_mesh=mesh).cuda().eval()
+        reset_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ring_model(*inputs)
+        torch.cuda.synchronize()
+        res["swin"] = dict(seconds=time.perf_counter() - t0, launches=_launches(counters),
+                           fused=new_design_launches(counters), err=_rel(got, want),
+                           blocks=sum(single.depths))
+        del single, ring_model, want, got
+
+    # the halo: rows of [4, 64, 32, 64] split over the ranks, d(sum of a
+    # valid 3x3 conv squared) against the single-device cylinder pad
+    x = torch.randn(4, 64, 32, 64, device="cuda", generator=gen)
+    kern = torch.randn(1, 1, 3, 3, device="cuda", generator=gen)
+    conv = lambda y: F.conv2d(y.reshape(-1, 1, *y.shape[-2:]), kern)  # noqa: E731
+    hl = x.shape[-2] // world
+    xl = x[..., rank * hl:(rank + 1) * hl, :].contiguous().requires_grad_()
+    got = halo.sharded_cylinder_pad(xl, 1)
+    (conv(got) ** 2).sum().backward()
+    xs = x.clone().requires_grad_()
+    want = cylinder_pad(xs, 1)
+    (conv(want) ** 2).sum().backward()
+    res["halo"] = dict(err=_rel(got, want[..., rank * hl: rank * hl + hl + 2, :]),
+                       grad_err=_rel(xl.grad, xs.grad[..., rank * hl:(rank + 1) * hl, :]),
+                       ms=_host_ms(lambda: halo.sharded_cylinder_pad(xl.detach(), 1)),
+                       shape=list(x.shape))
+
+    # the sharded HEALPix pad at nside 32, 64 channels, and its gradient
+    x = torch.randn(12, 32, 32, 64, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(12, 34, 34, 64, device="cuda", generator=gen)
+    pad = healpix_sharded.make_sharded_healpix_pad(mesh, 32, 1)
+    got = pad(x)
+    (got * w).sum().backward()
+    g_sharded = x.grad.clone()
+    x.grad = None
+    want = healpix_pad_channels_last(x[None], 1)[0]
+    (want * w).sum().backward()
+    res["hpx_pad"] = dict(err=_rel(got, want), grad_err=_rel(g_sharded, x.grad),
+                          ms=_host_ms(lambda: pad(x.detach())), shape=list(x.shape))
+    del x, w, got, want
+
+    # the partitioned GraphCast at graphcast.yaml's width, one forward at batch 1
+    gcfg = load_config(cli.CONFIG_DIR, overrides=["model=graphcast", "data=synthetic"])
+    inputs = [t[:1] for t in inputs]
+    with torch.no_grad():
+        single = build_for(gcfg, seed=int(gcfg.seed)).cuda().eval()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = single(*inputs)
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        part = build_for(gcfg, seed=int(gcfg.seed), spmd_mesh=mesh).cuda().eval()
+        part(*inputs)  # the first call builds the plans' device tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = part(*inputs)
+        torch.cuda.synchronize()
+        res["graphcast"] = dict(err=_rel(got, want), seconds=time.perf_counter() - t0,
+                                single_seconds=t_single)
+    return res
+
+
+def check_nccl_one_rank(card: str) -> dict:
+    """A one-rank NCCL group on cuda:0: the collectives the port uses
+    (all-reduce, all_to_all_single, and point-to-point to itself through
+    `batch_isend_irecv`) on CUDA tensors.  Two ranks of NCCL need two
+    cards, which this machine lacks."""
+    import torch
+    import torch.distributed as dist
+
+    from dlwpbench_tpu_torch.parallel import launch
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda:0"))
+    try:
+        x = torch.arange(4096, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        launch.all_reduce_([y])
+        z = launch.all_to_all_single(x.view(1, -1))
+        p2p = torch.empty_like(x)
+        launch.Exchange([(x, 0)], [(p2p, 0)]).wait()
+        torch.cuda.synchronize()
+        ran = {"all_reduce": torch.equal(x, y), "all_to_all_single": torch.equal(x, z[0]),
+               "p2p_self": torch.equal(x, p2p), "backend": dist.get_backend()}
+    finally:
+        dist.destroy_process_group()
+    print(f"NCCL, one rank on cuda:0: {ran} [{card}]")
+    if not all(v for k, v in ran.items() if k != "backend"):
+        raise SystemExit(f"NCCL one-rank collectives disagree: {ran}")
+    return ran
+
+
+def run_distributed_paths(card: str, train_ref: dict) -> dict:
+    """The phase "distributed": the data-parallel Swin training on 2 ranks
+    against the single-rank train path `train_ref` (its per-step losses
+    and final parameters; the two ranks' parameters equal bit for bit;
+    the flash launches per rank those of the single-rank path), the ring
+    attention and sharded paths on 2 ranks against the single-device
+    results, and the one-rank NCCL collectives.  Returns the launch
+    counts of each path, by kernel."""
+    import numpy as np
+    import torch
+
+    clock = Clock("distributed", card)
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as work:
+        ranks = spawn_ranks(work)
+        # rank 0 alone writes; its writer has finished once its process has
+        checkpoint = os.path.exists(os.path.join(work, "dp_run", "checkpoints", "swin_last.ckpt"))
+    clock("2 ranks, data-parallel training, ring attention and the sharded paths "
+          f"(in the ranks: {ranks[0]['seconds']['dp']:.1f} s and "
+          f"{ranks[0]['seconds']['exchanges']:.1f} s)")
+    ref_losses = np.asarray(train_ref["step_losses"])
+    for r, res in enumerate(rank["dp"] for rank in ranks):
+        losses = np.asarray(res["step_losses"])
+        loss_err = float(np.abs(losses - ref_losses).max() / np.abs(ref_losses).max())
+        param_err = max((res["params"][n] - p).abs().max().item()
+                        for n, p in train_ref["params"].items())
+        same = all(torch.equal(res["params"][n], ranks[0]["dp"]["params"][n])
+                   for n in res["params"])
+        full = [s for n, s in res["step_seconds"] if n == 32][1:]
+        per_step = sum(full) / len(full)
+        print(f"data-parallel rank {r}: {len(losses)} steps, per-step losses within "
+              f"{loss_err:.3e} of the single-rank path's (rtol {DP_LOSS_RTOL:.0e}), final "
+              f"parameters within {param_err:.3e} (atol {DP_PARAM_ATOL:.0e}), equal to rank 0's "
+              f"{'bit for bit' if same else 'NOT bit for bit'}; launches {res['launches']} "
+              f"(the single-rank path's {train_ref['launches']}), mma {res['fused']}; "
+              f"{per_step:.4f} s per step against the single rank's "
+              f"{train_ref['seconds_per_step']:.4f} at the global batch 32; {res['wall_s']:.1f} s "
+              f"wall; the run's checkpoint {'written' if checkpoint else 'MISSING'} [{card}]")
+        bad = (len(losses) != len(ref_losses) or loss_err > DP_LOSS_RTOL
+               or param_err > DP_PARAM_ATOL or not same or not checkpoint
+               or res["launches"] != train_ref["launches"]
+               or any(res["fused"][n] != res["launches"][n] for n in res["fused"]))
+        if bad:
+            raise SystemExit(f"data-parallel rank {r} disagrees with the single-rank path")
+        paths[f"dp_train_rank{r}"] = res["launches"]
+
+    for r, res in enumerate(rank["exchanges"] for rank in ranks):
+        for c in res["ring"]:
+            ok = (c["errors"]["out"] <= RING_TOL["out"]
+                  and all(e <= RING_TOL["grad"] for n, e in c["errors"].items() if n != "out")
+                  and c["launches"]["flash_window_attention"] == DIST_RANKS
+                  and c["launches"]["flash_window_attention_bwd"] == DIST_RANKS
+                  and all(c["fused"][n] == c["launches"][n] for n in c["fused"]))
+            print(f"ring attention rank {r}, {c['case']} q[{c['B']},{c['H']},{c['N']},{c['D']}] "
+                  f"bias{c['bias']}: against one kernel call "
+                  + " ".join(f"{n} {e:.3e}" for n, e in c["errors"].items())
+                  + f" (tol {RING_TOL['out']:.0e} out, {RING_TOL['grad']:.0e} gradients, x max); "
+                  f"forward {c['fwd_s'] * 1e3:.1f} ms, backward {c['bwd_s'] * 1e3:.1f} ms "
+                  f"(first calls, host clock); one round's kv exchange ({c['chunk_mb']:.1f} MB) "
+                  f"{c['exchange_ms']:.2f} ms; launches {c['launches']} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise SystemExit(f"ring attention rank {r} {c['case']} disagrees")
+            paths[f"ring {c['case'].split(' G=')[0]} rank{r}".replace(" ", "_")] = c["launches"]
+        s = res["swin"]
+        ok = (s["err"] <= SHARDED_TOL
+              and s["launches"]["flash_window_attention"] == s["blocks"] * DIST_RANKS
+              and all(s["fused"][n] == s["launches"][n] for n in s["fused"]))
+        print(f"Swin forward with spmd_mesh, rank {r}: within {s['err']:.3e} of the single-device "
+              f"forward (tol {SHARDED_TOL:.0e} x max), {s['seconds']:.3f} s, launches "
+              f"{s['launches']} ({s['blocks']} blocks x {DIST_RANKS} rounds) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise SystemExit(f"Swin with spmd_mesh rank {r} disagrees")
+        paths[f"ring_swin_model_rank{r}"] = s["launches"]
+        for key, what in (("halo", "halo (sharded_cylinder_pad)"),
+                          ("hpx_pad", "sharded HEALPix pad, nside 32")):
+            h = res[key]
+            ok = h["err"] <= SHARDED_TOL and h["grad_err"] <= SHARDED_TOL
+            print(f"{what} rank {r} on {h['shape']}: within {h['err']:.3e}, gradient "
+                  f"{h['grad_err']:.3e} (tol {SHARDED_TOL:.0e} x max); {h['ms']:.2f} ms a call "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise SystemExit(f"{what} rank {r} disagrees")
+        g = res["graphcast"]
+        print(f"partitioned GraphCast (graphcast.yaml, batch 1) rank {r}: within {g['err']:.3e} "
+              f"of the single-device forward (tol {SHARDED_TOL:.0e} x max); {g['seconds']:.3f} s "
+              f"against {g['single_seconds']:.3f} s single [{card}]")
+        if g["err"] > SHARDED_TOL:
+            raise SystemExit(f"partitioned GraphCast rank {r} disagrees")
+    check_nccl_one_rank(card)
+    clock("NCCL one rank")
+    return paths
+
+
 def memoise_synthetic_generator():
     """The synthetic generator's arrays kept for this script's run: the
     entry points rebuild their data on each call (splits, statistics,
@@ -3780,7 +4203,7 @@ def main() -> int:
         # ones below share one build of TRAIN_TAIL's splits (context 1)
         syn_splits = train_splits(TRAIN_ARGV)
         train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card,
-                                               datasets=syn_splits)
+                                               datasets=syn_splits, keep_params=True)
     paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
     check_train_grads(tcfg, train_ds, card)
     profile_train_step(tcfg, train_ds, card)
@@ -3938,6 +4361,12 @@ def main() -> int:
     graph_paths, graph_runs, _ = run_graph_paths(card)
     paths.update(graph_paths)
     train_runs.update(graph_runs)
+
+    # the distributed phase: the Swin's train path with data_parallel=2
+    # against the one above, ring attention, the halo, the sharded HEALPix
+    # pad and the partitioned GraphCast on 2 ranks sharing the card (gloo),
+    # the one-rank NCCL collectives
+    paths.update(run_distributed_paths(card, train))
     bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
 
     # Each kernel's times at its path's largest case in fp32 (the paths'

@@ -13,8 +13,9 @@ Entry points run on CUDA unless the caller asks for the CPU.
 
 def resolve_device(device: str | None = "cuda"):
     """The torch device an entry point runs on: CUDA unless the caller asks
-    for the CPU.  Raises when CUDA is asked for and absent; never falls
-    back."""
+    for the CPU (in a joined job of several ranks, `cuda` is the rank's
+    card, `parallel.launch.rank_device`).  Raises when CUDA is asked for
+    and absent; never falls back."""
     import torch
 
     dev = torch.device(device or "cuda")
@@ -25,4 +26,8 @@ def resolve_device(device: str | None = "cuda"):
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
+    if dev.type == "cuda":  # in a job of several ranks: this rank's card
+        from dlwpbench_tpu_torch.parallel.launch import rank_device
+
+        dev = rank_device(dev)
     return dev

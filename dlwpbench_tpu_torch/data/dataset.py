@@ -152,18 +152,41 @@ class WindowedWeatherDataset:
             }
         return out
 
-    def batches(self, batch_size: int, shuffle: bool = False) -> Iterator[tuple]:
+    def batches(self, batch_size: int, shuffle: bool = False, drop_last: bool = False,
+                host_id: int = 0, n_hosts: int = 1, epoch: int | None = None) -> Iterator[tuple]:
         """Yield (constants, prescribed, prognostic, target) numpy arrays
-        with a leading batch dim (the last batch may be short).
+        with a leading batch dim (the last batch may be short unless
+        `drop_last`).
 
         `shuffle` permutes the windows with the dataset's own generator
         (`np.random.default_rng(seed)`); each native batch with noise then
         draws its noise seed from the same generator, so epoch after epoch
-        the order and the noise match the JAX package's."""
+        the order and the noise match the JAX package's.
+
+        Multi-host sharding (JAX `dataset.py:176-227`): with `n_hosts > 1`
+        every host builds the SAME epoch permutation, seeded by (seed,
+        epoch) alone (so `epoch` is required when shuffling), and host h
+        takes the strided slice order[h::n_hosts], truncated so that all
+        hosts yield equally many windows.  The union of the hosts' windows
+        is the single-host epoch; the shards are disjoint."""
         order = np.arange(len(self))
         if shuffle:
-            self._rng.shuffle(order)
-        for i in range(0, len(order), batch_size):
+            if n_hosts > 1:
+                if epoch is None:
+                    raise ValueError(
+                        "multi-host shuffling needs `epoch` so every host "
+                        "derives the same permutation"
+                    )
+                np.random.default_rng((self.seed, int(epoch))).shuffle(order)
+            else:
+                self._rng.shuffle(order)
+        if n_hosts > 1:
+            if not 0 <= host_id < n_hosts:
+                raise ValueError(f"host_id {host_id} not in [0, {n_hosts})")
+            usable = len(order) - len(order) % n_hosts  # hosts in lockstep
+            order = order[host_id:usable:n_hosts]
+        stop = len(order) - len(order) % batch_size if drop_last else len(order)
+        for i in range(0, stop, batch_size):
             idxs = order[i : i + batch_size]
             starts = np.asarray([self.window_start(j) for j in idxs], np.int64)
             if (starts + self.sequence_length + 1 > self.prognostic.shape[0]).any():

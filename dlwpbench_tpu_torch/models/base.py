@@ -91,6 +91,11 @@ class RolloutModel(nn.Module):
     those of its products without batch dimensions (`REMAT_SAVED_OPS`).
     """
 
+    # the process group a partitioned model splits its nodes over (None:
+    # not partitioned); its parameters are replicated there, so each
+    # rank's gradients are its nodes' share, which the trainer sums
+    partition_group = None
+
     def __init__(self, context_size: int = 1, remat: bool = False,
                  remat_policy: str = "full"):
         super().__init__()

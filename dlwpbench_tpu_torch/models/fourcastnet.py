@@ -19,7 +19,7 @@ Submodules carry flax's auto-names (`Conv_0`, `pos_embed`, `AFNOBlock_i.
 {LayerNorm_0, AFNO2DFilter_0 | SphericalConv_0 | FNOCore_0, LayerNorm_1,
 Mlp_0}`, `Dense_0`), so `weights.load_flax_params` maps a JAX tree onto
 them name for name.  Not ported: the filters over a device mesh
-(`spmd_mesh`, ROADMAP queue A, item 16) raise."""
+(`spmd_mesh`, ROADMAP queue A, item 27) raise."""
 
 from __future__ import annotations
 

@@ -33,8 +33,21 @@ Submodules carry flax's auto-names in creation order: `MeshGraphMLP_0..3`
 the embedders, `_4` to `_6` the g2m encoder, `MeshEdgeBlock_i` /
 `MeshNodeBlock_i` for the processor, `MeshGraphMLP_7..9` the m2g decoder
 and `_10` the head, so `weights.load_flax_params` maps a JAX tree onto
-them name for name.  Not ported: the partitioned processor over a device
-mesh (`spmd_mesh`, ROADMAP queue A, item 16) raises.
+them name for name.
+
+`spmd_mesh` (a `DeviceMesh`, `parallel/launch.py::global_mesh`) runs the
+whole step partitioned over its dim `dist_axis`, as JAX's partitioned
+branch (`:102-181`): grid nodes in row-major H*W chunks, mesh nodes in id
+chunks, each rank's owned edges in the plan's order (`plan.e_perm`), the
+MLPs rowwise on the local rows, one all-to-all of boundary features per
+edge-end gather (`parallel/graphcast_dist.py`).  The input enters the
+partition through `launch.scatter_to_ranks` and the output leaves it
+through `launch.gather_from_ranks`, so the rollout around the step is the
+same on every rank; the parameters are replicated and the nodes sharded,
+so after the backward each rank's parameter gradients are its nodes'
+share, and their sum over `partition_group` (which the trainer takes in
+one flat all-reduce) is the gradient of the global loss.  Same module order as the single-device branch: one
+checkpoint runs either way.  `aggregation="sum"` only, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlwpbench_tpu_torch.grids.mesh_graph import build_graphcast_graphs
 from dlwpbench_tpu_torch.models.base import RolloutModel
@@ -55,8 +69,10 @@ from dlwpbench_tpu_torch.ops.graph_ops import (
     MeshNodeBlock,
     check_aggregation,
 )
-from dlwpbench_tpu_torch.ops.spectral import no_mesh
+from dlwpbench_tpu_torch.parallel import graphcast_dist, launch
+from dlwpbench_tpu_torch.parallel.graph_partition import rank_table
 from dlwpbench_tpu_torch.utils.device import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _movements(graph: tuple, impl: str) -> tuple[EdgeMovement, EdgeMovement, EdgeMovement]:
@@ -98,14 +114,16 @@ class GraphCastNet(RolloutModel):
         grid_convention: str = "cell_centers",
         node_feat_unit: str = "rad",
         spmd_mesh: Any = None,
+        dist_axis: str = "x",
         movement_impl: str = "auto",
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,
     ):
         super().__init__(context_size, remat, remat_policy)
-        no_mesh(spmd_mesh, "GraphCast's processor")
         check_aggregation(aggregation)
+        if spmd_mesh is not None and aggregation != "sum":
+            raise NotImplementedError("partitioned GraphCast supports aggregation='sum' only")
         self.mesh = mesh
         self.grid_shape = (int(input_height), int(input_width))
         self.graph = (*self.grid_shape, int(mesh_level), grid_convention, node_feat_unit)
@@ -131,6 +149,17 @@ class GraphCastNet(RolloutModel):
         self.MeshGraphMLP_10 = MeshGraphMLP(D, self.prognostic_channels, D, hl, norm=False)
         self.aggregation = aggregation
         init_like_flax_(self, torch.Generator().manual_seed(int(seed)))
+        self.partition = None
+        if spmd_mesh is not None:  # (group, g2m, multimesh, m2g ops)
+            V, N = mesh_nfeat.shape[0], g2m.n_src
+            self.partition = (
+                launch.axis(spmd_mesh, dist_axis)[0],
+                graphcast_dist.make_graph_ops(spmd_mesh, g2m.src, g2m.dst, V, dist_axis, n_src=N),
+                graphcast_dist.make_graph_ops(spmd_mesh, mesh_g.src, mesh_g.dst, V, dist_axis,
+                                              n_src=V),
+                graphcast_dist.make_graph_ops(spmd_mesh, m2g.src, m2g.dst, N, dist_axis, n_src=V),
+            )
+            self.partition_group = self.partition[0]
 
     def _feat(self, name: str, B: int, like: torch.Tensor) -> torch.Tensor:
         """A static feature table on the input's device, in its dtype,
@@ -144,6 +173,8 @@ class GraphCastNet(RolloutModel):
             raise ValueError(f"GraphCastNet was built for the {self.grid_shape[0]} x "
                              f"{self.grid_shape[1]} grid (input_height, input_width), "
                              f"got {H} x {W}")
+        if self.partition is not None:
+            return self._step_partitioned(x), state
         g2m_mv, proc_mv, m2g_mv = self.movements
         agg = self.aggregation
         grid = x.reshape(B, H * W, Cin)
@@ -178,3 +209,57 @@ class GraphCastNet(RolloutModel):
         # the final MLP, no norm (`graph_cast_net.py:363-371`)
         out = self.MeshGraphMLP_10(grid)
         return out.reshape(B, H, W, self.prognostic_channels), state
+
+    def _local_static(self, name: str, B: int, like: torch.Tensor, ops, edges: bool):
+        """This rank's rows of a static table: its mesh-node chunk (zero
+        rows past the end) or its owned edges in the plan's order."""
+        t = self._feat(name, B, like)
+        group = self.partition[0]
+        r, p = dist.get_rank(group), dist.get_world_size(group)
+        plan = ops.plan
+        if edges:
+            e_ids = rank_table(plan.part, "edge_ids", r, like.device)  # row r of plan.e_perm
+            return t.index_select(1, e_ids)
+        chunk = plan.n_nodes_padded // p
+        t = torch.cat([t, t.new_zeros(B, plan.n_nodes_padded - t.shape[1], t.shape[2])], 1)
+        return t[:, r * chunk:(r + 1) * chunk]
+
+    def _step_partitioned(self, x: torch.Tensor) -> torch.Tensor:
+        """The step on this rank's nodes and edges (JAX `:102-172`)."""
+        B, H, W, Cin = x.shape
+        group, g2m_ops, proc_ops, m2g_ops = self.partition
+        N = H * W
+        grid = graphcast_dist.local_rows(x.reshape(B, N, Cin), m2g_ops.plan.n_nodes_padded,
+                                         group)
+        mesh_nf = self._local_static("mesh_nfeat", B, x, proc_ops, edges=False)
+        g2m_e = self._local_static("g2m", B, x, g2m_ops, edges=True)
+        mesh_e = self._local_static("mesh", B, x, proc_ops, edges=True)
+        m2g_e = self._local_static("m2g", B, x, m2g_ops, edges=True)
+
+        # the encoder embedder, rowwise on the local rows
+        grid = self.MeshGraphMLP_0(grid)
+        mesh_nf = self.MeshGraphMLP_1(mesh_nf)
+        g2m_e = self.MeshGraphMLP_2(g2m_e)
+        mesh_e = self.MeshGraphMLP_3(mesh_e)
+
+        # the g2m encoder: one all-to-all moves the boundary grid features
+        src_f, dst_f = g2m_ops.edge_ends(grid, mesh_nf)
+        g2m_e = self.MeshGraphMLP_4(torch.cat([g2m_e, src_f, dst_f], dim=-1))
+        mesh_nf = mesh_nf + self.MeshGraphMLP_5(
+            torch.cat([g2m_ops.aggregate(g2m_e), mesh_nf], dim=-1))
+        grid = grid + self.MeshGraphMLP_6(grid)
+
+        # the processor over the sharded multimesh
+        for i in range(self.processor_layers):
+            src_f, dst_f = proc_ops.edge_ends(mesh_nf, mesh_nf)
+            mesh_e = getattr(self, f"MeshEdgeBlock_{i}")(mesh_e, src_f, dst_f, pregathered=True)
+            mesh_nf = getattr(self, f"MeshNodeBlock_{i}")(proc_ops.aggregate(mesh_e), mesh_nf,
+                                                           preaggregated=True)
+
+        # the m2g decoder: the output grid features land on their ranks
+        m2g_e = self.MeshGraphMLP_7(m2g_e)
+        src_f, dst_f = m2g_ops.edge_ends(mesh_nf, grid)
+        m2g_e = self.MeshGraphMLP_8(torch.cat([m2g_e, src_f, dst_f], dim=-1))
+        grid = grid + self.MeshGraphMLP_9(torch.cat([m2g_ops.aggregate(m2g_e), grid], dim=-1))
+        out = launch.gather_from_ranks(self.MeshGraphMLP_10(grid), 1, group)[:, :N]
+        return out.reshape(B, H, W, self.prognostic_channels)

@@ -26,7 +26,11 @@ B*nLon*nW >= 64), the token-major route on partitioned windows ("packed",
 or None on the card under the same test), flash (True, or None for
 N >= 1024) and einsum.  The first two go through the hand-written CUDA
 kernels of `ops/window_attention.py`, flash through those of
-`ops/flash_attention.py`; on the CPU each takes its plain version.
+`ops/flash_attention.py`; on the CPU each takes its plain version.  With
+`spmd_mesh` (a `DeviceMesh`), the flash route runs as ring attention over
+its dim `dist_axis` where N splits over it (`parallel/ring_attention.py`,
+JAX `:222-252`), on the grouped bias [nLon*nW, nh, N, N] with the shift
+mask folded in.
 
 The forward roll is the self-consistent (-shift_pl, -shift_lat,
 -shift_lon); `reference_roll_quirk=True` rolls longitude by shift_lat as
@@ -48,6 +52,8 @@ from torch import nn
 from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
+from dlwpbench_tpu_torch.parallel import launch
+from dlwpbench_tpu_torch.parallel.ring_attention import ring_attention_sharded
 from dlwpbench_tpu_torch.ops.window_attention import (
     partition_windows_5d, reverse_windows_5d, window_attention_qkv, window_attention_qkv5d,
 )
@@ -148,11 +154,13 @@ class EarthAttention3D(nn.Module):
     [tow, nh, Nk, Nq].  Takes the padded 5D field [B, Pl, Lat, Lon, C] (the
     5D route) or partitioned windows [B*nLon, nW, N, C]."""
 
-    def __init__(self, dim: int, window_size, num_heads: int, use_flash: Any = None):
+    def __init__(self, dim: int, window_size, num_heads: int, use_flash: Any = None,
+                 spmd_mesh: Any = None, dist_axis: str = "x"):
         super().__init__()
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.spmd_mesh, self.dist_axis = spmd_mesh, dist_axis
         self.Dense_0 = nn.Linear(dim, 3 * dim)
         self.Dense_1 = nn.Linear(dim, dim)
 
@@ -183,7 +191,13 @@ class EarthAttention3D(nn.Module):
             gb = bias.transpose(-1, -2)  # key-major -> [nW, nh, Nq, Nk]
             if mask is not None:
                 gb = (gb[None] + mask[:, :, None]).reshape(-1, nh, N, N)
-            out = flash_window_attention(q, k, v, gb.contiguous())
+            if (self.spmd_mesh is not None
+                    and N % launch.axis(self.spmd_mesh, self.dist_axis)[2] == 0):
+                # ring attention over the mesh dim (JAX `:237-246`), the
+                # grouped bias [nLon*nW, nh, N, N] with the mask folded in
+                out = ring_attention_sharded(q, k, v, gb, self.spmd_mesh, axis=self.dist_axis)
+            else:
+                out = flash_window_attention(q, k, v, gb.contiguous())
             out = out.reshape(B_, nW, nh, N, hd).transpose(1, 2)
         else:
             attn = torch.einsum("bhwnd,bhwmd->bhwnm", q * hd**-0.5, k)
@@ -200,7 +214,7 @@ class EarthSpecificBlock(nn.Module):
     def __init__(self, dim: int, input_resolution, num_heads: int,
                  window_size=(2, 6, 12), shift: bool = False, mlp_ratio: float = 4.0,
                  reference_roll_quirk: bool = False, use_flash: Any = None,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, spmd_mesh: Any = None, dist_axis: str = "x"):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         self.num_heads = num_heads
@@ -210,7 +224,8 @@ class EarthSpecificBlock(nn.Module):
         self.use_flash = use_flash
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
         self.EarthAttention3D_0 = EarthAttention3D(dim, window_size, num_heads,
-                                                   use_flash=use_flash)
+                                                   use_flash=use_flash, spmd_mesh=spmd_mesh,
+                                                   dist_axis=dist_axis)
         self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
         self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, approximate=not exact_gelu)
 
@@ -334,13 +349,9 @@ class PanguWeather(RolloutModel):
         remat_policy: str = "full",
         seed: int = 0,
         spmd_mesh: Any = None,
+        dist_axis: str = "x",
     ):
         super().__init__(context_size, remat, remat_policy)
-        if spmd_mesh is not None:
-            raise NotImplementedError(
-                "ring attention over a mesh (spmd_mesh) is not ported to PyTorch yet "
-                "(ROADMAP queue A, item 16)"
-            )
         _check_route(use_flash_attention)
         self.embed_dim = D = int(embed_dim)
         self.num_heads = [int(h) for h in num_heads]
@@ -364,6 +375,7 @@ class PanguWeather(RolloutModel):
                 blk["dim"], blk["res"], blk["heads"], self.window_size, shift=blk["shift"],
                 reference_roll_quirk=bool(reference_roll_quirk),
                 use_flash=use_flash_attention, exact_gelu=bool(exact_gelu),
+                spmd_mesh=spmd_mesh, dist_axis=dist_axis,
             ))
         res1, res2 = plan[0]["res"], plan[2]["res"]
         self.DownSample_0 = DownSample(D, res1)

@@ -17,7 +17,7 @@ layers, then the decoder's two), so `weights.load_flax_params` maps a JAX
 tree onto them name for name.
 
 Not ported: the SHTs over a device mesh (`spmd_mesh`) and the fused
-distributed schedule (`dist_schedule="fused"`), ROADMAP queue A, item 16;
+distributed schedule (`dist_schedule="fused"`), ROADMAP queue A, item 27;
 both raise.
 """
 
@@ -125,7 +125,7 @@ class SFNO2DModule(RolloutModel):
         if dist_schedule == "fused":
             raise NotImplementedError(
                 "SFNO's fused distributed schedule (dist_schedule='fused') is not ported to "
-                "PyTorch yet (ROADMAP queue A, item 16)")
+                "PyTorch yet (ROADMAP queue A, item 27)")
         self.mesh = mesh
         self.height, self.width = H, W = int(height), int(width)
         D = int(embed_dim)

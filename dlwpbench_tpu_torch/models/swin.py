@@ -33,8 +33,12 @@ Submodules and parameters carry the flax auto-names of the JAX model
 `weights.load_flax_params` maps a flax tree onto them name for name.
 Tokens are [B, H*W, C], H-major, channels-last inside the model.
 
-Not ported yet: ring attention over a device mesh (`spmd_mesh`, ROADMAP
-queue A item 16) and meshes other than these two; both raise.
+`spmd_mesh` (a `DeviceMesh`, `parallel/launch.py::global_mesh`): every
+window attention off the token-major route whose head dim is a multiple
+of 8 and whose token count splits over the mesh dim `dist_axis` runs as
+ring attention over that dim (`parallel/ring_attention.py`, JAX
+`:171-186`), on the flash kernels; the rest of the model runs the same on
+every rank.  Meshes other than these two raise.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import Mlp, init_like_flax_
 from dlwpbench_tpu_torch.ops.flash_attention import flash_window_attention
 from dlwpbench_tpu_torch.ops.window_attention import window_attention_qkv
+from dlwpbench_tpu_torch.parallel import launch
+from dlwpbench_tpu_torch.parallel.ring_attention import ring_attention_sharded
 from dlwpbench_tpu_torch.utils.device import device_constant, on_card
 
 
@@ -105,15 +111,18 @@ class WindowAttention(nn.Module):
     `use_flash`: None = auto (token-major kernel on the card or under
     export, `on_card`, when N < 1024, hd % 8 == 0 and B_ >= 64; flash for
     N >= 1024; einsum otherwise), True / False force flash / einsum, "packed" forces the
-    token-major route."""
+    token-major route.  With `spmd_mesh`, ring attention over its dim
+    `dist_axis` where hd % 8 == 0 and N splits over it (off the
+    token-major route)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 use_flash: Any = None):
+                 use_flash: Any = None, spmd_mesh: Any = None, dist_axis: str = "x"):
         super().__init__()
         if use_flash not in (None, True, False, "packed"):
             raise ValueError(f"use_flash={use_flash!r}: take None, True, False or 'packed'")
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.spmd_mesh, self.dist_axis = spmd_mesh, dist_axis
         self.Dense_0 = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.Dense_1 = nn.Linear(dim, dim)
 
@@ -140,6 +149,11 @@ class WindowAttention(nn.Module):
             return self.Dense_1(out.reshape(B_, N, C))
         qkv = qkv_raw.reshape(B_, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # [B_, nh, N, hd]
+        if (self.spmd_mesh is not None and hd % 8 == 0
+                and N % launch.axis(self.spmd_mesh, self.dist_axis)[2] == 0):
+            out = ring_attention_sharded(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                                         self.spmd_mesh, axis=self.dist_axis)
+            return self.Dense_1(out.transpose(1, 2).reshape(B_, N, C))
         flash = self.use_flash is True or (self.use_flash is None and N >= 1024)
         if flash and hd % 8 == 0:
             out = flash_window_attention(
@@ -160,13 +174,15 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: tuple[int, int],
                  shift: tuple[int, int], mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_flash: Any = None,
-                 exact_gelu: bool = False, mesh: str = "equirectangular"):
+                 exact_gelu: bool = False, mesh: str = "equirectangular",
+                 spmd_mesh: Any = None, dist_axis: str = "x"):
         super().__init__()
         self.mesh = mesh
         self.window = tuple(window)
         self.shift = tuple(shift)
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
-        self.WindowAttention_0 = WindowAttention(dim, num_heads, qkv_bias, use_flash)
+        self.WindowAttention_0 = WindowAttention(dim, num_heads, qkv_bias, use_flash,
+                                                 spmd_mesh, dist_axis)
         self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
         self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, approximate=not exact_gelu)
 
@@ -256,17 +272,13 @@ class SwinTransformer(RolloutModel):
         remat_policy: str = "full",
         seed: int = 0,
         spmd_mesh: Any = None,
+        dist_axis: str = "x",
     ):
         super().__init__(context_size, remat, remat_policy)
         if mesh not in ("equirectangular", "healpix"):
             raise NotImplementedError(
                 f"Swin mesh {mesh!r} is not ported to PyTorch: only 'equirectangular' and "
                 "'healpix'"
-            )
-        if spmd_mesh is not None:
-            raise NotImplementedError(
-                "ring attention over a mesh (spmd_mesh) is not ported to PyTorch yet "
-                "(ROADMAP queue A, item 16)"
             )
         self.mesh = mesh
         self.window_size = None if window_size is None else tuple(int(w) for w in window_size)
@@ -303,7 +315,7 @@ class SwinTransformer(RolloutModel):
                 shift = (0, 0) if d % 2 == 0 else st["shift"]
                 setattr(self, f"SwinBlock_{blk}", SwinBlock(
                     dim, self.num_heads[i], (st["wh"], st["ww"]), shift,
-                    mlp_ratio, qkv_bias, uf, exact_gelu, mesh,
+                    mlp_ratio, qkv_bias, uf, exact_gelu, mesh, spmd_mesh, dist_axis,
                 ))
                 blk += 1
                 table = torch.zeros((2 * st["wh"] - 1) * (2 * st["ww"] - 1), self.num_heads[i])

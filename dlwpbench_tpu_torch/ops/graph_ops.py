@@ -41,9 +41,9 @@ Blocks (exact wiring from the reference):
 Submodules carry flax's auto-names (`Dense_i`, `LayerNorm_0`,
 `MeshGraphMLP_0`), so `weights.load_flax_params` maps a JAX tree onto them
 name for name.  flax sizes each Dense from its first input; the port takes
-the in-features at construction.  Not ported: JAX's `pregathered` and
-`preaggregated` arguments, which serve only the partitioned GraphCast
-(`parallel/graphcast_dist.py`, ROADMAP queue A, item 16).
+the in-features at construction.  `pregathered` and `preaggregated`
+(JAX's) take per-edge end features and per-node sums that the
+partitioned GraphCast computed itself (`parallel/graphcast_dist.py`).
 """
 
 from __future__ import annotations
@@ -248,9 +248,12 @@ class MeshEdgeBlock(nn.Module):
         self.MeshGraphMLP_0 = MeshGraphMLP(in_features, output_dim, hidden_dim, hidden_layers,
                                            activation=activation)
 
-    def forward(self, efeat, src_nfeat, dst_nfeat, movement):
-        cat = torch.cat([efeat, movement.gather_src(src_nfeat),
-                         movement.gather_dst(dst_nfeat)], dim=-1)
+    def forward(self, efeat, src_nfeat, dst_nfeat, movement=None, pregathered: bool = False):
+        """`pregathered`: {src,dst}_nfeat are already per-edge [..., E, Fn]
+        and `movement` is not used."""
+        if not pregathered:
+            src_nfeat, dst_nfeat = movement.gather_src(src_nfeat), movement.gather_dst(dst_nfeat)
+        cat = torch.cat([efeat, src_nfeat, dst_nfeat], dim=-1)
         return self.MeshGraphMLP_0(cat) + efeat
 
 
@@ -266,6 +269,8 @@ class MeshNodeBlock(nn.Module):
         self.MeshGraphMLP_0 = MeshGraphMLP(in_features, output_dim, hidden_dim, hidden_layers,
                                            activation=activation)
 
-    def forward(self, efeat, nfeat, movement):
-        cat = torch.cat([movement.aggregate(efeat, self.aggregation), nfeat], dim=-1)
-        return self.MeshGraphMLP_0(cat) + nfeat
+    def forward(self, efeat, nfeat, movement=None, preaggregated: bool = False):
+        """`preaggregated`: `efeat` is already the per-node aggregation
+        [..., N, Fe] and `movement` is not used."""
+        agg = efeat if preaggregated else movement.aggregate(efeat, self.aggregation)
+        return self.MeshGraphMLP_0(torch.cat([agg, nfeat], dim=-1)) + nfeat

@@ -32,7 +32,7 @@ torch's products refuse mixed dtypes, so the port casts them, exactly),
 and the result is cast back to the field's dtype.
 
 Not ported: the filter over a device mesh (`spmd_mesh`, ROADMAP queue A,
-item 16) raises.
+item 27) raises.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def no_mesh(spmd_mesh, what: str) -> None:
     if spmd_mesh is not None:
         raise NotImplementedError(
             f"{what} over a device mesh (spmd_mesh) is not ported to PyTorch yet "
-            "(ROADMAP queue A, item 16)")
+            "(ROADMAP queue A, item 27)")
 
 
 # ---------------------------------------------------------------------------

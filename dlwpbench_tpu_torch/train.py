@@ -17,6 +17,17 @@ parameters, checkpointed beside them.  Writes `config.yaml`, `metrics.jsonl` and
 with `training.save_model`, best/last checkpoints under `run_dir`;
 `training.continue_training` resumes from the last checkpoint.  Prints the
 JAX CLI's line per epoch.
+
+Several ranks, one process each (`parallel/launch.py`):
+
+    torchrun --nproc_per_node N -m dlwpbench_tpu_torch.train \
+        training.data_parallel=N ...
+
+splits each global batch over the N ranks (NCCL on CUDA, gloo on the
+CPU); `training.multihost=true` joins whatever job the environment
+describes (torch-style variables, SLURM, OpenMPI) and gives each rank its
+own shard of every epoch, the global batch being ranks x batch_size.
+Gradients are averaged over the ranks; only rank 0 writes to `run_dir`.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from dlwpbench_tpu_torch import resolve_device
 from dlwpbench_tpu_torch.data.sources import build_datasets
 from dlwpbench_tpu_torch.models import registry
+from dlwpbench_tpu_torch.parallel import launch
 from dlwpbench_tpu_torch.training.config import load_config, save_config
 from dlwpbench_tpu_torch.training.losses import latitude_weights
 from dlwpbench_tpu_torch.training.trainer import Trainer, load_checkpoint
@@ -39,32 +51,46 @@ CONFIG_DIR = os.path.join(
 )
 
 
-def _check_scope(cfg) -> None:
-    """Raise on training features this port does not have yet."""
-    if int(cfg.training.get("data_parallel", 0) or 0) > 1:
+def _join_job(cfg, device: str):
+    """(data group, host_id, n_hosts) of `training.data_parallel` and
+    `training.multihost` (JAX `scripts/train.py:18-28`, `:75-110`); (None,
+    0, 1) for a single-process run."""
+    if int(cfg.training.get("model_parallel", 1) or 1) > 1:
         raise NotImplementedError(
-            "training.data_parallel > 1 is not ported to PyTorch yet "
-            "(ROADMAP queue A, item 16)"
-        )
+            "training.model_parallel > 1: the trainer splits batches over the ranks only; "
+            "a model splits over the mesh's 'x' dim through its own spmd_mesh")
+    kind = torch.device(device).type
     if bool(cfg.training.get("multihost", False)):
-        raise NotImplementedError(
-            "training.multihost is not ported to PyTorch yet (ROADMAP queue A, item 16)"
-        )
+        launch.initialize(device=kind)
+        host_id, n_hosts = launch.host_info()
+        group = launch.global_mesh().get_group("data") if n_hosts > 1 else None
+        if cfg.verbose:
+            print(f"multihost: process {host_id}/{n_hosts}", flush=True)
+        return group, host_id, n_hosts
+    n = int(cfg.training.get("data_parallel", 0) or 0)
+    if n <= 1:
+        return None, 0, 1
+    if not launch.initialize(device=kind) or launch.host_info()[1] != n:
+        raise ValueError(
+            f"training.data_parallel={n} needs a job of {n} ranks, one device each (this "
+            f"process sees {launch.host_info()[1]}); launch with `torchrun --nproc_per_node "
+            f"{n} -m dlwpbench_tpu_torch.train training.data_parallel={n} ...`")
+    return launch.global_mesh(data=n).get_group("data"), 0, 1
 
 
 def train(overrides: list[str], device: str = "cuda") -> dict:
     """Run the training; returns the final `state`, per-epoch `train_loss`
     and `val_loss`, the per-step `step_seconds` [(samples, seconds)] and
-    the `device`."""
+    `step_losses`, the `device` and this process's `rank`."""
+    cfg = load_config(CONFIG_DIR, overrides=overrides)
+    if not int(cfg.training.sequence_length) > int(cfg.model.context_size):
+        raise ValueError("No time steps to predict, increase the prediction window.")
+    data_group, host_id, n_hosts = _join_job(cfg, device)
     dev = resolve_device(device)
     # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = load_config(CONFIG_DIR, overrides=overrides)
-    if not int(cfg.training.sequence_length) > int(cfg.model.context_size):
-        raise ValueError("No time steps to predict, increase the prediction window.")
-    _check_scope(cfg)
     # rematerialise rollout steps in training (activation memory O(step)
     # instead of O(rollout)); override with model.remat=false
     if "remat" not in cfg.model:
@@ -100,6 +126,9 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
         num_refinement_steps=int(cfg.training.get("num_refinement_steps", 5)),
         min_noise_std=float(cfg.training.get("min_noise_std", 4e-4)),
         ema_decay=float(cfg.training.get("ema_decay", 0.995)),
+        data_group=data_group,
+        host_id=host_id,
+        n_hosts=n_hosts,
     )
     state = trainer.init()
     if cfg.verbose:
@@ -108,8 +137,11 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
 
     run_dir = cfg.get("run_dir") or os.path.join("outputs", cfg.model.name)
     os.makedirs(run_dir, exist_ok=True)
-    save_config(cfg, os.path.join(run_dir, "config.yaml"))
+    if launch.host_info()[0] == 0:
+        save_config(cfg, os.path.join(run_dir, "config.yaml"))
     if cfg.training.continue_training:
+        if launch.host_info()[1] > 1:  # rank 0's checkpoint is complete before any rank reads it
+            torch.distributed.barrier()
         state = load_checkpoint(run_dir, cfg.model.name, state, kind="last")
         print(f"Restored epoch {state.epoch}")
 
@@ -132,7 +164,8 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
         checkpoint_every=int(cfg.training.get("checkpoint_every", 1)),
     )
     return {**history, "state": state, "step_seconds": trainer.timings,
-            "run_dir": run_dir, "device": str(dev)}
+            "step_losses": trainer.step_losses,
+            "run_dir": run_dir, "device": str(dev), "rank": launch.host_info()[0]}
 
 
 def main(argv=None) -> dict:

@@ -43,9 +43,28 @@ The port's counterpart of `dlwpbench_tpu/training/trainer.py:36-456,
   (`:258`).
 
 PyTorch runs eagerly: a train step is the model's forward, `backward()`
-and `optimizer.step()`, which updates the parameters in place.  Data
-parallelism is not ported (the train CLI raises and names its ROADMAP
-item).
+and `optimizer.step()`, which updates the parameters in place.
+
+Data parallelism (JAX `:76-99`, `:271-298`, `:430-436`; one process per
+rank, `parallel/launch.py`): with a `data_group` of N ranks every rank
+holds the same parameters and optimizer state.
+- `data_parallel` (`n_hosts == 1`): every rank reads the same global
+  batch and takes, of each micro-batch, its contiguous block of rows
+  (JAX's `PartitionSpec("data")` on dim 0); a micro-batch whose rows do
+  not split evenly is computed whole on every rank, as JAX replicates it;
+- `multihost` (`n_hosts > 1`): each rank reads its own shard of the epoch
+  (`dataset.batches(host_id=..., n_hosts=..., epoch=...)`), so the global
+  batch is `n_hosts x batch_size` rows.
+After the last micro-batch the gradients (and the step's loss) are
+summed over the group in one flat all-reduce per dtype, each rank's
+micro-batch weighted by its rows' share of the global batch, so clipping
+and AdamW see the global-batch gradient on every rank.  A partitioned
+model (`partition_group`, GraphCast with `spmd_mesh`) has its gradients
+summed over its partition the same way, one flat all-reduce per dtype.
+The diffusion branch draws the global batch's k and noise on every rank
+from the same generators and keeps its own rows.  Validation runs the
+whole split on every rank, as JAX validates it on every host; only rank
+0 writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -65,6 +84,7 @@ from torch import nn
 
 from dlwpbench_tpu_torch import weights as W
 from dlwpbench_tpu_torch.ops import ddpm
+from dlwpbench_tpu_torch.parallel import launch
 from dlwpbench_tpu_torch.training.losses import mse_loss
 
 TRAINING_TYPES = ("regular", "diffusion")
@@ -120,6 +140,9 @@ class Trainer:
         num_refinement_steps: int = 5,
         min_noise_std: float = 4e-4,
         ema_decay: float = 0.995,
+        data_group=None,
+        host_id: int = 0,
+        n_hosts: int = 1,
     ):
         if training_type not in TRAINING_TYPES:
             raise ValueError(f"training.type {training_type!r}: expected one of {TRAINING_TYPES}")
@@ -138,6 +161,15 @@ class Trainer:
             raise ValueError("gradient_accumulation_steps must be >= 1")
         self.model = model
         self.device = next(model.parameters()).device
+        # data parallelism over `data_group`: split each global batch
+        # (data_parallel) or read this host's shard of the epoch (multihost)
+        self.data_group = data_group
+        self.host_id, self.n_hosts = int(host_id), int(n_hosts)
+        self.dp_rank, self.dp_size = (
+            (0, 1) if data_group is None
+            else (torch.distributed.get_rank(data_group),
+                  torch.distributed.get_world_size(data_group)))
+        self.split_batch = self.dp_size > 1 and self.n_hosts == 1
         self.ema_decay = float(ema_decay)
         if self.diffusion:
             self.sched = ddpm.make_refiner_schedule(num_refinement_steps, min_noise_std,
@@ -158,6 +190,7 @@ class Trainer:
         # step (the wait for the batch's copy included), on the CPU the
         # host clock
         self.timings: list[tuple[int, float]] = []
+        self.step_losses: list[float] = []  # every optimizer step's loss, in order
 
     # ------------------------------------------------------------------
     def init(self, params: Optional[Mapping[str, Any]] = None) -> TrainState:
@@ -248,6 +281,19 @@ class Trainer:
     def _draw_noise(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self._noise_gen, device=self.device)
 
+    def _my_rows(self, n: int) -> tuple[slice, int]:
+        """(this rank's rows of a micro-batch of n local rows, the global
+        micro-batch's rows).  Under data_parallel the rank's contiguous
+        block when the rows split evenly, else all of them (JAX replicates
+        such a chunk); under multihost the local rows are the rank's block
+        of n_hosts x n."""
+        if self.split_batch and n % self.dp_size == 0:
+            m = n // self.dp_size
+            return slice(self.dp_rank * m, (self.dp_rank + 1) * m), n
+        if self.n_hosts > 1:
+            return slice(self.host_id * n, (self.host_id + 1) * n), n * self.n_hosts
+        return slice(0, n), n
+
     def train_step(self, state: TrainState, batch, lr: float, k: Optional[int] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step over `accum` micro-batches (+ remainder);
@@ -272,17 +318,23 @@ class Trainer:
         noises = {} if noise is None else {tuple(noise.shape): noise}
         total = torch.zeros((), device=self.device)
         for lo, hi in chunks:
+            # the chunk's share of the batch; each rank's gradient is
+            # summed over the group (a chunk computed whole on every rank
+            # counts 1 / dp_size on each)
+            w = (hi - lo) / B / self.dp_size
+            rows, n_global = self._my_rows(hi - lo)
+            if self.split_batch:
+                lo, hi = lo + rows.start, lo + rows.stop
             part = [None if x is None else x[lo:hi] for x in batch]
-            w = (hi - lo) / B  # 1.0 for a single chunk
-            if self.diffusion:
-                shape = tuple(part[3].shape)
+            if self.diffusion:  # the global micro-batch's noise, this rank's rows
+                shape = (n_global, *part[3].shape[1:])
                 if shape not in noises:
                     if noise is not None:
                         raise ValueError(f"noise of shape {tuple(noise.shape)} for a micro-batch "
                                          f"target of {shape}")
                     noises[shape] = self._draw_noise(shape)
             with self._compute_params(state.model):
-                loss = (self._diffusion_loss(*part, k, noises[shape]) if self.diffusion
+                loss = (self._diffusion_loss(*part, k, noises[shape][rows]) if self.diffusion
                         else self._loss(*part))
                 (w * loss).backward()
             total = total + w * loss.detach()
@@ -290,6 +342,11 @@ class Trainer:
         for p in params:  # optax decays every parameter, gradient or not
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp_size > 1:  # the global batch's gradient and loss on every rank
+            launch.all_reduce_([*(p.grad for p in params), total], self.data_group)
+        partition = getattr(state.model, "partition_group", None)
+        if partition is not None:  # each rank's nodes' share of every gradient
+            launch.all_reduce_([p.grad for p in params], partition)
         if self.clip_gradients:
             clip_grads_to([p.grad for p in params], lr)
         state.optimizer.step()
@@ -310,8 +367,10 @@ class Trainer:
             return event
 
         marks = [mark()]
-        for batch in prefetch_to_device(dataset.batches(batch_size, shuffle=shuffle),
-                                        self.device):
+        shard = dataset.batches(batch_size, shuffle=shuffle, host_id=self.host_id,
+                                n_hosts=self.n_hosts,
+                                epoch=state.epoch if self.n_hosts > 1 else None)
+        for batch in prefetch_to_device(shard, self.device):
             losses.append(self.train_step(state, batch, lr))
             if state.ema is not None:
                 self._update_ema(state)
@@ -329,9 +388,13 @@ class Trainer:
                              [params[n].detach() for n in state.ema], 1.0 - self.ema_decay)
 
     def _close_epoch(self, losses, samples, marks) -> float:
-        """The epoch's one read from the card: its mean loss, then each
-        step's seconds from the marks into `timings`."""
-        mean = float(torch.stack(losses).mean()) if losses else float("nan")
+        """The epoch's one read from the card: its steps' losses (into
+        `step_losses`) and their mean, then each step's seconds from the
+        marks into `timings`."""
+        if losses:
+            stacked = torch.stack(losses)
+            self.step_losses.extend(stacked.tolist())
+        mean = float(stacked.mean()) if losses else float("nan")
         if self.device.type == "cuda":
             seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
         else:
@@ -376,8 +439,11 @@ class Trainer:
         checkpoint_every: int = 1,
     ) -> TrainState:
         val_batch_size = val_batch_size or batch_size
+        # in a job of several ranks only rank 0 writes to the run directory
+        # (every rank holds the same state; JAX gates on process 0)
+        writer = launch.host_info()[0] == 0
         logger = None
-        if run_dir:
+        if run_dir and writer:
             from dlwpbench_tpu_torch.utils.logging import RunLogger
 
             logger = RunLogger(run_dir)
@@ -415,7 +481,7 @@ class Trainer:
                         state.epoch % max(1, checkpoint_every) == 0
                         or state.epoch >= self.epochs
                     )
-                    if at_interval:
+                    if at_interval and writer:
                         if best_dirty:
                             ckpt_writer.submit(run_dir, model_name, state, kind="best")
                             best_dirty = False

@@ -195,7 +195,7 @@ def test_seeded_init_follows_jax_distributions():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         tfcn.FourCastNet(embed_dim=16, depth=1, num_blocks=4, spmd_mesh=object())
     with pytest.raises(ValueError, match="unknown filter"):
         tfcn.FourCastNet(embed_dim=16, depth=1, num_blocks=4, filter="GNO")

@@ -78,8 +78,9 @@ def test_shipped_config_builds_jax_tree():
 
 
 def test_mesh_and_grid_mismatch_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tgc.GraphCastNet(**{k: v for k, v in SMALL.items() if k != "type"}, spmd_mesh=object())
+    with pytest.raises(NotImplementedError, match="aggregation='sum' only"):
+        tgc.GraphCastNet(**{k: v for k, v in SMALL.items() if k not in ("type", "aggregation")},
+                         aggregation="mean", spmd_mesh=object())
     model = registry.build_model(dict(SMALL))
     args = [torch.zeros(1, t, c, 16, 32) for t, c in ((1, 2), (2, 1), (2, 2))]
     with pytest.raises(ValueError, match="8 x 16"):

@@ -4,8 +4,9 @@ and matplotlib only inside functions.
 `dlwpbench_tpu_torch` starts with `dlwpbench_tpu`: only the `_torch`
 package itself is allowed.  pandas, msgpack and matplotlib are not on the
 card's machine.  The check reads every import statement (and every
-`importlib.import_module` / `__import__` of a literal name) in the port
-and in `chip_smoke.py`, then imports the port's modules in a fresh
+`importlib.import_module` / `__import__` of a literal name) in the port,
+in `chip_smoke.py` and in the ranks of the multi-process tests
+(`tests/_torch_dist_child.py`), then imports the port's modules in a fresh
 interpreter in which `jax`, `flax`, `dlwpbench_tpu`, `pandas`, `msgpack`
 and `matplotlib` cannot be imported.
 """
@@ -25,7 +26,8 @@ MODULE_LEVEL_FORBIDDEN = re.compile(r"^matplotlib(\.|$)")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "_torch_dist_child.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -75,7 +77,7 @@ def test_forbidden_pattern():
 def test_port_loads_without_jax():
     modules = sorted(
         "dlwpbench_tpu_torch." + os.path.relpath(p, PORT)[:-3].replace(os.sep, ".")
-        for p in _port_files()[1:]
+        for p in _port_files() if p.startswith(PORT + os.sep)
     )
     code = (
         "import sys\n"

@@ -204,7 +204,12 @@ def test_registry_builds_the_shipped_config():
 
 
 def test_out_of_scope_options_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpangu.PanguWeather(**SMALL, spmd_mesh=object())
+    # a device mesh is in scope (ring attention, `tests/test_torch_ring_attention.py`):
+    # every block's attention gets it
+    mesh = object()
+    model = tpangu.PanguWeather(**SMALL, spmd_mesh=mesh, dist_axis="h")
+    for b in range(model.n_blocks):
+        attn = getattr(model, f"EarthSpecificBlock_{b}").EarthAttention3D_0
+        assert attn.spmd_mesh is mesh and attn.dist_axis == "h"
     with pytest.raises(ValueError, match="use_flash_attention"):
         tpangu.PanguWeather(**SMALL, use_flash_attention="ring")

@@ -188,13 +188,13 @@ def test_branches_agree():
 
 
 def test_unported_and_unknown_schedules_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         tsfno.SFNO2DModule(embed_dim=8, num_layers=1, spmd_mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         tsfno.SFNO2DModule(embed_dim=8, num_layers=1, dist_schedule="fused")
     with pytest.raises(ValueError, match="dist_schedule"):
         tsfno.SFNO2DModule(embed_dim=8, num_layers=1, dist_schedule="pipelined")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         tsfno.SphericalConv(4, 4, 8, 16, spmd_mesh=object())
     model = tsfno.SFNO2DModule(embed_dim=8, num_layers=1, height=8, width=16,
                                constant_channels=0, prescribed_channels=0,

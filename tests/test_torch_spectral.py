@@ -264,7 +264,7 @@ def test_afno_branches_agree_and_band_quirk():
 
 
 def test_afno_raises():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         tsp.AFNO2DFilter(8, 2, spmd_mesh=object())
     with pytest.raises(ValueError, match="blocks"):
         tsp.AFNO2DFilter(8, 3)

@@ -276,7 +276,7 @@ def test_per_stage_route_reaches_the_token_major_wrapper(monkeypatch):
 
 
 def test_out_of_scope_options_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tswin.SwinTransformer(**SMALL, spmd_mesh=object())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tswin.SwinTransformer(**SMALL, mesh="icosahedral")
     with pytest.raises(ValueError, match="use_flash"):
         tswin.SwinTransformer(**{**SMALL, "use_flash_attention": "ring"})

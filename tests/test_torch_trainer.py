@@ -248,7 +248,8 @@ def test_cli_honours_remat_and_refuses_what_is_not_ported(tmp_path, monkeypatch)
     train.main([*TINY, f"run_dir={tmp_path}", "model.remat=false", "training.save_model=false",
                 "--device", "cpu"])
     assert built[-1].remat is False
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # data_parallel needs a job of that many ranks (`tests/test_torch_parallel.py`)
+    with pytest.raises(ValueError, match="torchrun"):
         train.main([*TINY, f"run_dir={tmp_path}", "training.data_parallel=2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
