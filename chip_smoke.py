@@ -5,7 +5,18 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases; any failure raises and exits non-zero, and nothing is caught:
+Phases; any failure raises and exits non-zero, and nothing is caught.
+They run in this order: the card (1); the build (2) in a thread while
+this process drives the U-Net's paths of 4, which launch no attention
+kernel; the attention paths of 4; then, once the second process has
+ended, the kernel checks (3), the distributed phase and the profile
+entry.  A second process of this script (`SideProcess`), started before
+the build, runs the kernel-free phases of 4 (the graph families, the
+ModernUNet family, Navier-Stokes, the spectral families) beside the
+build and the attention paths: the card waits on the host for most of
+each path, so the two overlap.  The paths' seconds, busy shares and
+rates are taken while the two processes share the card and the host;
+the kernel checks and the distributed phase run alone.
 
 1. the card: CUDA must be available; prints its name and power limit;
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
@@ -74,8 +85,8 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      0 of every other kernel);
    - U-Net evaluate at `bench.py`'s shape: `python -m
      dlwpbench_tpu_torch.evaluate model=unet
-     model.hidden_channels=[64,128,256] data=synthetic data.n_time=6000
-     --batch-size 32` (two batches of 16-step rollouts, fp32, 0
+     model.hidden_channels=[64,128,256] data=synthetic data.n_time=9060
+     --batch-size 32` (three batches of 16-step rollouts, fp32, 0
      attention launches), the rollout at batch 128 in fp32 and in bf16 (parameters
      and inputs cast as `bench.py` casts them) with and without the host
      copies, and the card against the CPU on 2 samples x 2 steps;
@@ -205,9 +216,21 @@ Phases; any failure raises and exits non-zero, and nothing is caught:
      with one round's kv exchange timed; one forward of the shipped Swin
      with `spmd_mesh` against one without; the halo on [4,64,32,64], the
      sharded HEALPix pad at nside 32 and one partitioned GraphCast forward
-     at `graphcast.yaml`'s width against the single-device results; then
-     a one-rank NCCL group's all-reduce, all-to-all and self send/receive
-     on CUDA tensors (two-card NCCL needs two cards);
+     at `graphcast.yaml`'s width against the single-device results; the
+     spectral models with `spmd_mesh` at their shipped widths (SFNO under
+     `dist_schedule` "per_conv" and "fused", FourCastNet, FourCastNetv2)
+     against the single rank on the same weights, forward and every
+     parameter gradient summed over the ranks, SFNO in bf16 compute with
+     bf16 exchanges too, 0 attention launches; the distributed SHT and
+     rFFT2 pairs on [4,256,32,64] against the single-device transforms,
+     timed, and one all-to-all's bytes and ms; then a one-rank NCCL
+     group's all-reduce, all-to-all and self send/receive on CUDA tensors
+     (two-card NCCL needs two cards);
+   - the profile entry (`run_profile_paths`): `python -m
+     dlwpbench_tpu_torch.profile_model --model unet` (the rollout) and
+     `--model swin --train` (the trainer's step, the flash kernels), each
+     `profile.json` with its steps, median seconds, FLOPs a step and
+     achieved rate, the Swin's count holding every block's attention;
 5. the run's seconds, the card line, the `kernels` line (the flash rows'
    `launches_by_path` with the distributed paths, per rank) and, last,
    `{"ok": true, ...}`.
@@ -271,8 +294,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_all():
-    """One nvcc per source under ops/csrc, all at once; raises on a failure."""
+def build_all(log=print):
+    """One nvcc per source under ops/csrc, all at once; raises on a failure.
+    Its report goes line by line to `log` (the caller prints it once the
+    build is joined when it runs beside other phases)."""
     from dlwpbench_tpu_torch.ops import _build
 
     names = sorted(os.path.basename(p)[:-3] for p in glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
@@ -280,8 +305,8 @@ def build_all():
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
     for name, path in libs.items():
-        print(f"built {name} -> {os.path.relpath(path, REPO)}")
-    print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
+        log(f"built {name} -> {os.path.relpath(path, REPO)}")
+    log(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     fused = [row for lib in ("window_attention_qkv", "packed_window_attention",
                              "flash_window_attention", "flash_window_attention_bwd")
              for row in fused_ptxas(libs[lib][:-3] + ".log")]
@@ -290,12 +315,12 @@ def build_all():
                  "flash backward mma dkv"):
         rows = [r for r in fused if r[0] == kind]
         spilled = [f"{k}: {s} B" for _, k, _, s in rows if s]
-        print(f"ptxas -v, the {len(rows)} {kind} instances (dtype, hd, tiles, layout: "
+        log(f"ptxas -v, the {len(rows)} {kind} instances (dtype, hd, tiles, layout: "
               f"registers): {'; '.join(f'{k}: {r}' for _, k, r, _ in rows)}; spill stores "
               f"{', '.join(spilled) if spilled else 'none'}")
     for inst in ("flash_fwd_mma_kernelIfLi24E", "flash_fwd_mma_kernelIfLi48E"):
         counts = sass_loop_counts(libs["flash_window_attention"], inst)
-        print(f"sass, {inst}: " + (
+        log(f"sass, {inst}: " + (
             f"its innermost loop with mma issues {counts[0]} instructions for {counts[1]} mma "
             f"({counts[0] / counts[1]:.2f} an mma)" if counts else
             "cuobjdump not found or no loop with mma in its SASS; not measured"))
@@ -314,7 +339,7 @@ def sass_loop_counts(lib_path: str, instance: str):
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+                          timeout=300, cwd=REPO).stdout
     body = sass[sass.index(instance):]
     body = body[:body.index("Function :", 1)] if "Function :" in body[1:] else body
     insts = {}  # address -> (opcode text, branch target address or None)
@@ -1509,13 +1534,16 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
     plain versions).  Every launch of a kernel with two designs must take
     the new one; a model without attention (`kernels=False`) must launch
     none.  `weights` (a state dict) replaces the seeded init on both
-    sides.  `reference`, a dict, keeps the CPU's result for the next call
-    on the same model, batch and weights (another card route): the first
-    call fills it, later ones reuse it."""
+    sides.  `reference`, a dict, keeps the batch and the CPU's result for
+    the next call on the same model and weights (another card route, or
+    `check_train_grads_bf16`'s fp32 scale): the first call fills it, later
+    ones reuse it."""
     import torch
 
-
-    const, pres, prog, target = tensors_of(*next(train_ds.batches(samples)))
+    if reference:
+        const, pres, prog, target = reference["batch"]
+    else:
+        const, pres, prog, target = tensors_of(*next(train_ds.batches(samples)))
     cpu = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
@@ -1537,7 +1565,7 @@ def check_train_grads(cfg, train_ds, card: str, card_route=None, kernels: bool =
         loss.backward()
         results[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     if reference is not None:
-        reference["cpu"] = results["cpu"]
+        reference["cpu"], reference["batch"] = results["cpu"], (const, pres, prog, target)
     used = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches != before[n]}
     after_fused = new_design_launches(counters)
     new = {n: after_fused[n] - before_fused[n] for n in before_fused if n in used}
@@ -1619,18 +1647,23 @@ def _grad_distance(got: dict, ref: dict) -> float:
 
 
 def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: bool = True,
-                           weights=None):
+                           weights=None, reference=None):
     """The port's bf16 training step (`Trainer._compute_params` and
     `_loss`: bf16 copies of the parameters and inputs, the loss in fp32)
     on the full-width model, 2 samples x 2 steps: the card's loss and fp32
     master gradients against the CPU's, every card launch on the kernels'
     bf16 instances and new designs.  The CPU's fp32 gradients give the
-    scale of bf16 rounding itself."""
+    scale of bf16 rounding itself; `reference`, filled by
+    `check_train_grads` on the same model, weights and 2 samples, gives
+    the batch and those fp32 gradients (the same MSE, computed once)."""
     import torch
 
     from dlwpbench_tpu_torch.training.trainer import Trainer
 
-    const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
+    if reference:
+        const, pres, prog, target = reference["batch"]
+    else:
+        const, pres, prog, target = tensors_of(*next(train_ds.batches(2)))
     cpu = build_for(cfg, {**cfg.model, "remat": True}, seed=int(cfg.seed))
     if weights is not None:
         cpu.load_state_dict(weights)
@@ -1648,7 +1681,7 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
             loss.backward()
         return loss.item(), {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
 
-    l32, g32 = grads(cpu, "cpu", None)
+    l32, g32 = reference["cpu"] if reference else grads(cpu, "cpu", None)
     l16, g16 = grads(cpu, "cpu", "bfloat16")
     counters = counters_of()
     before = {n: (fn.launches, fn.bf16_launches) for n, fn in counters.items()}
@@ -1676,18 +1709,20 @@ def check_train_grads_bf16(cfg, train_ds, card: str, card_route=None, kernels: b
 # `bench.py`'s flagship: hidden (64, 128, 256), batch 128, 16-step rollouts
 # of the 32x64 synthetic grid (4 constant + 1 prescribed + 8 prognostic
 # channels).  The rollout with its inputs on the card takes one batch of
-# 128 windows of 17 frames from the training split of 3,200 frames (131
-# windows); 6000 frames hold 64 test inits, two batches of 32 through the
-# evaluate CLI (24,000 frames and two batches of 128 until the
-# Navier-Stokes phase needed the time: their data set-up took 54 s; 12,100
-# frames and two batches of 64 until the graph phase did; the rollout's
-# batch from 12,100 frames' 128 test inits until the serving phase did:
-# the synthetic generator takes about 1.7 ms of host a frame).
+# 128 windows of 17 frames from the training split; the evaluate CLI
+# takes the 96 test inits of the evaluate paths' 9,060 frames, three
+# batches of 32.  The evaluate CLI draws those frames first (beside the
+# build), and the Swin's and Pangu's evaluate paths and, through the
+# shared draws, the ModernUNet's read them (`memoise_synthetic_generator`):
+# the U-Net's own 6,000 and 3,200 frames took
+# about 15 s of host drawing (about 1.7 ms a frame) until the distributed
+# spectral checks and the profile entry needed the time (24,000 frames
+# and two batches of 128 until the Navier-Stokes phase did; 12,100 frames
+# and two batches of 64 until the graph phase did; the rollout's batch
+# from 12,100 frames' 128 test inits until the serving phase did).
 UNET_EVAL_BATCH = 128
-UNET_DRIVE_N_TIME = 3200
-UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", "data=synthetic",
-                  "data.n_time=6000", "--batch-size", "32",
-                  "--sequence-length", "17", "--device", "cuda"]
+UNET_DRIVE_N_TIME = 9060
+UNET_EVAL_ARGV = ["model=unet", "model.hidden_channels=[64,128,256]", *EVAL_TAIL]
 UNET_TRAIN_ARGV = ["model=unet", *TRAIN_TAIL, "training.epochs=1"]
 
 
@@ -2866,6 +2901,7 @@ def run_modern_unet_paths(card: str):
                          weights_label="seeded, moved by 0.01 N(0, 1)")
     clock("profile, card vs CPU rollout")
     splits = train_splits(MUNET_TRAIN_ARGV)  # both dtypes train on one build
+    munet_ref = {}  # the fp32 check's batch and CPU gradients, for the bf16 one
     for key, argv in (("munet_train", MUNET_TRAIN_ARGV),
                       ("munet_train_bf16", [*MUNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"])):
         label = key.replace("_", " ")
@@ -2876,9 +2912,11 @@ def run_modern_unet_paths(card: str):
         run["step_split"] = profile_step_split(rcfg, rds, card)
         clock(f"{label} busy share, step split")
         if rcfg.training.get("compute_dtype") == "bfloat16":
-            check_train_grads_bf16(rcfg, rds, card, kernels=False, weights=weights)
+            check_train_grads_bf16(rcfg, rds, card, kernels=False, weights=weights,
+                                   reference=munet_ref)
         else:
-            check_train_grads(rcfg, rds, card, kernels=False, weights=weights)
+            check_train_grads(rcfg, rds, card, kernels=False, weights=weights,
+                              reference=munet_ref)
         clock(f"{label} card vs CPU gradients")
         runs[key], paths[key] = run, run["launches"]
     a, b = runs["munet_train"], runs["munet_train_bf16"]
@@ -3734,6 +3772,17 @@ RING_TOL = {"out": 5e-5, "grad": 1e-4}
 # on the card, relative to the output's max: the same ops on other row
 # splits (cuBLAS picks kernels by shape; the graph sums are atomics)
 SHARDED_TOL = 1e-4
+# the spectral models with spmd_mesh against the single rank on the same
+# weights: fp32 exchanges within SHARDED_TOL of each tensor's max (outputs
+# and every parameter gradient summed over the ranks); bf16 compute (and
+# so, under dist_comm_bf16 "auto", bf16 exchanges) within JAX's 3e-2 of
+# the fp32 output's max (`tests/test_parallel.py`'s bf16-comm bound)
+SPECTRAL_BF16_TOL = 3e-2
+SPECTRAL_BATCH = 4
+SPECTRAL_CASES = [("sfno per_conv", "model=sfno", {}),
+                  ("sfno fused", "model=sfno", {"dist_schedule": "fused"}),
+                  ("fourcastnet", "model=fourcastnet", {}),
+                  ("fourcastnetv2", "model=fourcastnetv2", {})]
 # the data-parallel training against the single-rank train path, as
 # `tests/test_torch_trainer.py` holds the port's trainer against JAX's:
 # per-step losses rtol 1e-5, final parameters within lr / 100 (Adam moves
@@ -3786,9 +3835,9 @@ def spawn_ranks(work: str, n: int = DIST_RANKS) -> list:
 
 def dist_rank(work: str) -> int:
     """One rank of the distributed phase: joins the gloo group from the
-    torch-style variables, runs `dp_suite` and `exchanges_suite` on
-    cuda:0 (one process start for both), writes its results to
-    `work/rank<r>.pkl`."""
+    torch-style variables, runs `dp_suite`, `exchanges_suite` and
+    `spectral_suite` on cuda:0 (one process start for all), writes its
+    results to `work/rank<r>.pkl`."""
     import pickle
 
     import torch
@@ -3805,7 +3854,9 @@ def dist_rank(work: str) -> int:
     res = {"dp": dp_suite(rank, world, work)}
     t1 = time.perf_counter()
     res["exchanges"] = exchanges_suite(rank, world, work)
-    res["seconds"] = {"dp": t1 - t0, "exchanges": time.perf_counter() - t1}
+    t2 = time.perf_counter()
+    res["spectral"] = spectral_suite(rank, world)
+    res["seconds"] = {"dp": t1 - t0, "exchanges": t2 - t1, "spectral": time.perf_counter() - t2}
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -3978,6 +4029,140 @@ def exchanges_suite(rank: int, world: int, work: str) -> dict:
     return res
 
 
+def _fused_tree(tree: dict, layers: int) -> dict:
+    """The per-conv SFNO's flax tree as the fused schedule's (JAX
+    `models/sfno.py:_fused_blocks`): per block its spectral weight, the
+    skip Dense and the MLP's two on the root as `blocks_{i}_*`, the
+    encoder and decoder Dense_0, 1 and 2, 3."""
+    out = {k: v for k, v in tree.items() if k in ("Dense_0", "Dense_1", "pos_embed")}
+    for i in range(layers):
+        out[f"blocks_{i}_spec"] = tree[f"SphericalConv_{i}"]["weight"]
+        for name, d in (("skip", 2 + 3 * i), ("mlp1", 3 + 3 * i), ("mlp2", 4 + 3 * i)):
+            out[f"blocks_{i}_{name}_kernel"] = tree[f"Dense_{d}"]["kernel"]
+            out[f"blocks_{i}_{name}_bias"] = tree[f"Dense_{d}"]["bias"]
+    out["Dense_2"], out["Dense_3"] = tree[f"Dense_{2 + 3 * layers}"], tree[f"Dense_{3 + 3 * layers}"]
+    return out
+
+
+def _worst_grad_err(got: dict, want: dict) -> tuple:
+    """(max over tensors of max|got - want| / max|want|, its name); a
+    tensor whose gradient is zero in exact arithmetic (max under 1e-6 of
+    the largest) is held to the largest."""
+    top = max(float(abs(w).max()) for w in want.values())
+    worst = (0.0, None)
+    for name, w in want.items():
+        scale = float(abs(w).max())
+        if scale < 1e-6 * top:
+            scale = top
+        worst = max(worst, (float(abs(got[name] - w).max()) / scale, name))
+    return worst
+
+
+def spectral_suite(rank: int, world: int) -> dict:
+    """The distributed spectral models on the card (`SPECTRAL_CASES` at
+    their shipped widths on the synthetic grid, one batch of
+    `SPECTRAL_BATCH` samples x 1 step): each with `spmd_mesh` against the
+    single rank on the same weights, the forward and every parameter
+    gradient (summed over the ranks, as the trainer does); the SFNO's two
+    schedules in bf16 compute too; the transforms alone on [4, 256, 32,
+    64]; one all-to-all; the attention launches of each meshed run."""
+    import torch
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch import weights
+    from dlwpbench_tpu_torch.ops.sht import isht, sht, sht_tables
+    from dlwpbench_tpu_torch.parallel import fft, launch, sht_dist
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    mesh = launch.global_mesh(data=1, x=world)
+    group = mesh.get_group("x")
+    counters = counters_of()
+    res = {"models": []}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    d = load_config(cli.CONFIG_DIR, overrides=["model=sfno", "data=synthetic"]).data
+    inputs = [torch.randn(SPECTRAL_BATCH, t, c, d.height, d.width, device="cuda", generator=gen)
+              for t, c in ((1, d.constant_channels), (2, d.prescribed_channels),
+                           (2, d.prognostic_channels))]
+
+    def fwd_bwd(model, xs):
+        model.zero_grad(set_to_none=True)
+        out = model(*xs)
+        (out.float() ** 2).mean().backward()
+        return out.detach().float()
+
+    def flax_grads(model):
+        return weights.flatten_tree(weights.to_flax_tree(
+            model, {n: p.grad for n, p in model.named_parameters()}))
+
+    for label, override, kw in SPECTRAL_CASES:
+        cfg = load_config(cli.CONFIG_DIR, overrides=[override, "data=synthetic"])
+        single = build_for(cfg, seed=int(cfg.seed)).cuda()
+        want = fwd_bwd(single, inputs)
+        want_grads = flax_grads(single)
+        single_ms = _host_ms(lambda: fwd_bwd(single, inputs), iters=3)
+        tree = weights.to_flax_tree(single)
+        meshed = build_for(cfg, seed=int(cfg.seed), spmd_mesh=mesh, **kw).cuda()
+        fused = kw.get("dist_schedule") == "fused"
+        weights.load_flax_params(meshed, _fused_tree(tree, meshed.num_layers) if fused else tree)
+        if fused:
+            want_grads = weights.flatten_tree(_fused_tree(weights.unflatten_tree(want_grads),
+                                                          meshed.num_layers))
+        reset_counters(counters)
+        got = fwd_bwd(meshed, inputs)
+        launch.all_reduce_([p.grad for p in meshed.parameters()], meshed.partition_group)
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        grad_err, grad_name = _worst_grad_err(flax_grads(meshed), want_grads)
+        meshed_ms = _host_ms(lambda: fwd_bwd(meshed, inputs), iters=3)
+        case = dict(case=label, err=_rel(got, want), grad_err=grad_err, grad_name=grad_name,
+                    n_grads=len(want_grads), launches=launches, ms=meshed_ms,
+                    single_ms=single_ms, params=sum(p.numel() for p in single.parameters()))
+        if label.startswith("sfno"):  # bf16 compute: "auto" ships bf16 exchanges
+            meshed.to(torch.bfloat16)
+            out16 = fwd_bwd(meshed, [x.to(torch.bfloat16) for x in inputs])
+            case["bf16_err"] = _rel(out16, want)
+        res["models"].append(case)
+        del single, meshed
+        torch.cuda.empty_cache()
+
+    # the transforms alone on [4, 256, 32, 64], this rank's rows
+    x = torch.randn(4, 256, d.height, d.width, device="cuda", generator=gen)
+    t = sht_tables(d.height, d.width)
+    h = d.height // world
+    xl = x[..., rank * h:(rank + 1) * h, :].contiguous()
+    a = sht_dist.dist_sht(xl, t, group)
+    y = sht_dist.dist_isht(a, t, group)
+    a_single = sht(x, t)
+    m_loc = a.shape[-1]
+    lo, hi = rank * m_loc, min((rank + 1) * m_loc, t.mmax)
+    X = fft.dist_rfft2(xl, group)
+    back = fft.dist_irfft2(X, d.width, group)
+    X_single = torch.fft.fft(torch.fft.rfft(x, dim=-1), dim=-2)
+    wf = X.shape[-1]
+    crel = lambda u, v: _rel(torch.view_as_real(u), torch.view_as_real(v))  # noqa: E731
+    res["transforms"] = dict(
+        shape=list(x.shape),
+        sht_err=crel(a[..., : hi - lo], a_single[..., lo:hi]),
+        isht_err=_rel(y, isht(a_single, t)[..., rank * h:(rank + 1) * h, :]),
+        rfft2_err=crel(X[..., : max(0, min(wf, X_single.shape[-1] - rank * wf))],
+                       X_single[..., rank * wf:(rank + 1) * wf]),
+        rfft2_round_trip_err=_rel(back, xl),
+        sht_pair_ms=_host_ms(lambda: sht_dist.dist_isht(sht_dist.dist_sht(xl, t, group), t,
+                                                        group)),
+        sht_pair_single_ms=_host_ms(lambda: isht(sht(x, t), t)),
+        rfft2_pair_ms=_host_ms(lambda: fft.dist_irfft2(fft.dist_rfft2(xl, group), d.width,
+                                                       group)),
+        rfft2_pair_single_ms=_host_ms(lambda: torch.fft.irfft2(torch.fft.rfft2(x), s=x.shape[-2:])))
+    # one all-to-all: the SHT's forward exchange as real pairs
+    pay = torch.view_as_real(torch.zeros(world, 4, 256, h, m_loc, dtype=torch.complex64,
+                                         device="cuda"))
+    res["a2a"] = dict(bytes=pay.numel() * pay.element_size(),
+                      ms=_host_ms(lambda: launch.all_to_all_single(pay, group)))
+    del x, xl, a, y, a_single, X, back, X_single, pay
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_nccl_one_rank(card: str) -> dict:
     """A one-rank NCCL group on cuda:0: the collectives the port uses
     (all-reduce, all_to_all_single, and point-to-point to itself through
@@ -4014,8 +4199,10 @@ def run_distributed_paths(card: str, train_ref: dict) -> dict:
     and final parameters; the two ranks' parameters equal bit for bit;
     the flash launches per rank those of the single-rank path), the ring
     attention and sharded paths on 2 ranks against the single-device
-    results, and the one-rank NCCL collectives.  Returns the launch
-    counts of each path, by kernel."""
+    results, the spectral models with `spmd_mesh` and the distributed
+    transforms (`spectral_suite`, no attention launch wanted), and the
+    one-rank NCCL collectives.  Returns the launch counts of each path,
+    by kernel."""
     import numpy as np
     import torch
 
@@ -4025,9 +4212,9 @@ def run_distributed_paths(card: str, train_ref: dict) -> dict:
         ranks = spawn_ranks(work)
         # rank 0 alone writes; its writer has finished once its process has
         checkpoint = os.path.exists(os.path.join(work, "dp_run", "checkpoints", "swin_last.ckpt"))
-    clock("2 ranks, data-parallel training, ring attention and the sharded paths "
-          f"(in the ranks: {ranks[0]['seconds']['dp']:.1f} s and "
-          f"{ranks[0]['seconds']['exchanges']:.1f} s)")
+    clock("2 ranks, data-parallel training, ring attention, the sharded paths and the "
+          f"spectral models (in the ranks: {ranks[0]['seconds']['dp']:.1f} s, "
+          f"{ranks[0]['seconds']['exchanges']:.1f} s and {ranks[0]['seconds']['spectral']:.1f} s)")
     ref_losses = np.asarray(train_ref["step_losses"])
     for r, res in enumerate(rank["dp"] for rank in ranks):
         losses = np.asarray(res["step_losses"])
@@ -4098,28 +4285,136 @@ def run_distributed_paths(card: str, train_ref: dict) -> dict:
               f"against {g['single_seconds']:.3f} s single [{card}]")
         if g["err"] > SHARDED_TOL:
             raise SystemExit(f"partitioned GraphCast rank {r} disagrees")
+    for r, res in enumerate(rank["spectral"] for rank in ranks):
+        for c in res["models"]:
+            ok = (c["err"] <= SHARDED_TOL and c["grad_err"] <= SHARDED_TOL
+                  and not any(c["launches"].values())
+                  and c.get("bf16_err", 0.0) <= SPECTRAL_BF16_TOL)
+            bf16 = (f"; bf16 compute (bf16 exchanges) within {c['bf16_err']:.3e} of the fp32 "
+                    f"output (tol {SPECTRAL_BF16_TOL:.0e})" if "bf16_err" in c else "")
+            print(f"{c['case']} with spmd_mesh rank {r} ({c['params']:,} parameters, batch "
+                  f"{SPECTRAL_BATCH} x 1 step): forward within {c['err']:.3e} of the single "
+                  f"rank's, the {c['n_grads']} parameter gradients summed over the ranks within "
+                  f"{c['grad_err']:.3e} (worst {c['grad_name']}; tol {SHARDED_TOL:.0e} x max)"
+                  f"{bf16}; forward + backward {c['ms']:.2f} ms against the single rank's "
+                  f"{c['single_ms']:.2f} ms; attention launches {c['launches']} (none wanted) "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise SystemExit(f"{c['case']} with spmd_mesh rank {r} disagrees")
+            paths[f"spectral_{c['case'].replace(' ', '_')}_rank{r}"] = c["launches"]
+        t, a2a = res["transforms"], res["a2a"]
+        ok = all(t[k] <= SHARDED_TOL for k in ("sht_err", "isht_err", "rfft2_err",
+                                                "rfft2_round_trip_err"))
+        print(f"distributed transforms rank {r} on {t['shape']}: SHT within {t['sht_err']:.3e}, "
+              f"inverse {t['isht_err']:.3e}, rFFT2 {t['rfft2_err']:.3e}, its round trip "
+              f"{t['rfft2_round_trip_err']:.3e} (tol {SHARDED_TOL:.0e} x max); one SHT pair "
+              f"{t['sht_pair_ms']:.3f} ms (one rank alone on the whole field "
+              f"{t['sht_pair_single_ms']:.3f} ms), one rFFT2 pair {t['rfft2_pair_ms']:.3f} ms "
+              f"(alone {t['rfft2_pair_single_ms']:.3f} ms); one all-to-all of "
+              f"{a2a['bytes'] / 1e6:.2f} MB {a2a['ms']:.3f} ms "
+              f"({a2a['bytes'] / a2a['ms'] / 1e6:.3f} GB/s) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise SystemExit(f"distributed transforms rank {r} disagree")
     check_nccl_one_rank(card)
     clock("NCCL one rank")
     return paths
 
 
+def run_profile_paths(card: str) -> dict:
+    """The profile entry (`python -m dlwpbench_tpu_torch.profile_model`,
+    called in this process): the U-Net's rollout and the Swin's train step
+    at the zoo's widths, each `profile.json` with its steps, median
+    seconds, a FLOP count over one step and the achieved rate; the Swin's
+    count holds every block's attention (4 B heads N^2 D per block
+    forward, each window; `profile_model.ATTENTION_OPS`' FLOP formulas).
+    Returns each run's launches by kernel."""
+    from dlwpbench_tpu_torch import profile_model
+
+    clock = Clock("profile", card)
+    counters = counters_of()
+    paths = {}
+    B, T = 4, 4
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as work:
+        for label, argv in (("unet", ["--model", "unet", "--steps", "3"]),
+                            ("swin_train", ["--model", "swin", "--train", "--batch", str(B),
+                                            "--seq", str(T), "--steps", "3"])):
+            out_dir = os.path.join(work, label)
+            reset_counters(counters)
+            info = profile_model.main([*argv, "--out-dir", out_dir])
+            paths[f"profile_{label}"] = _launches(counters)
+            with open(os.path.join(out_dir, "profile.json")) as f:
+                saved = json.load(f)
+            trace = any(n.endswith(".pt.trace.json") for n in os.listdir(out_dir))
+            ok = (saved == json.loads(json.dumps(info)) and trace and saved["steps"] == 3
+                  and saved["median_s"] > 0 and saved["flops_per_step"] > 0
+                  and saved["achieved_tflops"] > 0 and "cost_error" not in saved)
+            bound = 0
+            if label == "swin_train":
+                model = profile_model.model_zoo(B, 32, 64)["swin"]()
+                bound = B * (T - model.context_size) * sum(
+                    4 * (st["Hp"] // st["wh"]) * (st["Wp"] // st["ww"])
+                    * (st["wh"] * st["ww"]) ** 2 * model.embed_dim * 2 ** i * depth
+                    for i, (st, depth) in enumerate(zip(model.plan, model.depths)))
+                ok = ok and saved["attention_flops_per_step"] >= bound and all(
+                    paths[f"profile_{label}"][n] > 0
+                    for n in ("flash_window_attention", "flash_window_attention_bwd"))
+            print(f"profile entry {label}: {saved['steps']} steps, median "
+                  f"{saved['median_s']:.4f} s, {saved['flops_per_step']:.4e} FLOP a step "
+                  f"(attention {saved['attention_flops_per_step']:.4e}, the blocks' forwards "
+                  f"alone {bound:.4e}), {saved['achieved_tflops']:.3f} TFLOP/s, peak "
+                  f"{saved['max_memory_allocated_mb']:.1f} MB; trace "
+                  f"{'written' if trace else 'MISSING'}; launches {paths[f'profile_{label}']} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise SystemExit(f"profile entry {label} failed its checks")
+            clock(label)
+    return paths
+
+
+SHARED_DRAWS_ENV = "CHIP_SMOKE_SHARED_DRAWS"
+
+
 def memoise_synthetic_generator():
-    """The synthetic generator's arrays kept for this script's run: the
+    """The synthetic generator's arrays kept for this process's run: the
     entry points rebuild their data on each call (splits, statistics,
-    normalisation), but the evaluate paths of the Swin, Pangu and the
-    ModernUNet draw the same 9,060 frames, and the user paths the same
-    frames for train, build_baselines and evaluate; the generator is
+    normalisation), but the evaluate paths of the U-Net, the Swin, Pangu
+    and the ModernUNet draw the same 9,060 frames, and the user paths the
+    same frames for train, build_baselines and evaluate; the generator is
     deterministic in its arguments, so each set is drawn once (about 1.7
-    ms of host a frame) and handed out read-only."""
+    ms of host a frame) and handed out read-only.  While the directory
+    named by `SHARED_DRAWS_ENV` exists, each draw is also kept there
+    (written whole, then renamed into place) and read back by the other
+    process of the run instead of drawn again."""
     import functools
+    import hashlib
+
+    import numpy as np
 
     from dlwpbench_tpu_torch.data import sources
 
     draw = sources.synthetic_weatherbench
 
+    def shared_path(kwargs):
+        shared = os.environ.get(SHARED_DRAWS_ENV)
+        if not shared or not os.path.isdir(shared):
+            return None
+        key = hashlib.sha256(repr(sorted(kwargs.items())).encode()).hexdigest()[:16]
+        return os.path.join(shared, f"{key}.npz")
+
     @functools.lru_cache(maxsize=16)
     def memo(**kwargs):
-        arrays = draw(**kwargs)
+        path = shared_path(kwargs)
+        if path and os.path.exists(path):
+            with np.load(path) as z:
+                arrays = tuple(z[f"a{i}"] if f"a{i}" in z.files else None
+                               for i in range(int(z["n"])))
+        else:
+            arrays = draw(**kwargs)
+            if path:
+                tmp = f"{path}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, n=len(arrays),
+                         **{f"a{i}": a for i, a in enumerate(arrays) if a is not None})
+                os.replace(tmp, path)
         for a in arrays:
             if a is not None:
                 a.flags.writeable = False
@@ -4128,25 +4423,148 @@ def memoise_synthetic_generator():
     sources.synthetic_weatherbench = memo
 
 
-def draw_while_building(argvs):
-    """A thread that draws the synthetic data of the configs `argvs` (each
-    a CLI's overrides) into the memo while nvcc builds the kernels; the
-    caller joins it before the first of those paths."""
-    import threading
+def kernel_free_phases(card: str):
+    """The phases that launch no attention kernel, each asserting 0
+    launches of every kernel: the graph families first (GraphCast's 47.6
+    GiB peak while the main process runs only the U-Net beside the build),
+    the ModernUNet family and diffusion, Navier-Stokes and the recurrent
+    models, the spectral families.  Returns each path's launch counts and
+    each training run's results, by path."""
+    import torch
 
-    from dlwpbench_tpu_torch import evaluate as cli
-    from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.training.config import load_config
+    paths, runs = {}, {}
+    # GraphCast and MeshGraphNet (its Delaunay edge list and its 8-stencil)
+    # through the CLIs, card vs CPU, and the two movement forms of a
+    # GraphCast processor layer against each other
+    graph_paths, graph_runs, _ = run_graph_paths(card)
+    paths.update(graph_paths)
+    runs.update(graph_runs)
+    torch.cuda.empty_cache()  # GraphCast's blocks back to the card
 
-    def draw():
-        for argv in argvs:
-            cfg = load_config(cli.CONFIG_DIR, overrides=[a for a in argv if "=" in a])
-            build_datasets(cfg.data, cfg.training, cfg.validation, cfg.testing,
-                           int(cfg.model.context_size))
+    # the lat-lon ModernUNet at its shipped width (evaluate, fp32 and bf16
+    # training), the HEALPix one's user path, and both diffusion models'
+    # user paths (v-prediction, EMA, evaluate -c on the EMA weights)
+    phase_s = {}
+    t0 = time.perf_counter()
+    munet_paths, munet_runs = run_modern_unet_paths(card)
+    phase_s["ModernUNet and MUNetHPX"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diff_paths, diff_runs = run_diffusion_paths(card)
+    phase_s["DiffModernUNet and DiffMUNetHPX"] = time.perf_counter() - t0
+    for p, r in ((munet_paths, munet_runs), (diff_paths, diff_runs)):
+        paths.update(p)
+        runs.update(r)
+    print("ModernUNet phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f" [{card}]")
 
-    thread = threading.Thread(target=draw, name="synthetic draws")
-    thread.start()
-    return thread
+    # the solver's dataset on the card, ConvLSTM's and DISTANA's user paths
+    # on it, both on HEALPix faces, the wb_learnable generator
+    ns_paths, ns_runs = run_ns_paths(card)
+    paths.update(ns_paths)
+    runs.update(ns_runs)
+
+    # TFNO, FNO, FourCastNet, FourCastNetv2, SFNO and the ModernUNet's
+    # Fourier block through the CLIs, card vs CPU, and the two fft_impl
+    # branches against each other
+    spectral_paths, spectral_runs, _ = run_spectral_paths(card)
+    paths.update(spectral_paths)
+    runs.update(spectral_runs)
+    return paths, runs
+
+
+def side_threads() -> int:
+    """Host threads for the CPU references of each of the two processes
+    while both run: half of torch's default each, so they do not
+    oversubscribe the cores."""
+    import torch
+
+    return max(1, torch.get_num_threads() // 2)
+
+
+def side_process(out_path: str) -> int:
+    """The second process of the run (`SideProcess`): `kernel_free_phases`
+    on the card, its results written to `out_path` as JSON (each path's
+    launch counts, each training run's bf16-instance launches)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(side_threads())
+    memoise_synthetic_generator()
+    card = card_line()
+    t0 = time.perf_counter()
+    paths, runs = kernel_free_phases(card)
+    print(f"kernel-free phases: {time.perf_counter() - t0:.1f} s in the second process [{card}]")
+    with open(out_path, "w") as f:
+        json.dump({"paths": paths, "bf16": {k: r["bf16"] for k, r in runs.items()}}, f)
+    return 0
+
+
+SIDE_TIMEOUT_S = 1100
+
+
+class SideProcess:
+    """`side_process` in a second process of this script, started before the
+    build: the card waits on the host for most of every path (the busy
+    shares printed), so the kernel-free phases and the build and attention
+    paths of this process overlap.  The paths' seconds, busy shares and
+    rates are taken while the two processes share the card and the host;
+    the kernel checks and the distributed phase run after `join`, alone.
+    Its output is kept in a file and printed at `join`."""
+
+    def __init__(self):
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        self.log_path = os.path.join(self.work, "side.log")
+        self.out_path = os.path.join(self.work, "side.json")
+        os.makedirs(os.path.join(self.work, "draws"))
+        os.environ[SHARED_DRAWS_ENV] = os.path.join(self.work, "draws")
+        code = "import sys, chip_smoke; sys.exit(chip_smoke.side_process(sys.argv[1]))"
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen([sys.executable, "-u", "-c", code, self.out_path],
+                                         cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+
+    def _fail(self, why: str):
+        self.stop(keep_log=True)
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        raise SystemExit(f"the kernel-free phases' process {why}")
+
+    def check(self):
+        """Fails the run at once if the second process has failed."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            self._fail(f"exited {rc}")
+
+    def join(self, card: str) -> dict:
+        t_wait = time.perf_counter()
+        try:
+            self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT_S - (t_wait - self.t0)))
+        except subprocess.TimeoutExpired:
+            self._fail(f"was still running after {SIDE_TIMEOUT_S} s")
+        if self.proc.returncode != 0:
+            self._fail(f"exited {self.proc.returncode}")
+        print("---- the kernel-free phases, run in a second process beside the phases above: "
+              "its output ----")
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        print(f"---- the second process ran {time.perf_counter() - self.t0:.1f} s; this one "
+              f"waited {time.perf_counter() - t_wait:.1f} s for it [{card}] ----")
+        with open(self.out_path) as f:
+            return json.load(f)
+
+    def stop(self, keep_log: bool = False):
+        """Kills the process if it still runs; removes its files and the
+        shared draws."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        os.environ.pop(SHARED_DRAWS_ENV, None)
+        if not keep_log:
+            import shutil
+
+            shutil.rmtree(self.work, ignore_errors=True)
 
 
 def main() -> int:
@@ -4178,196 +4596,199 @@ def main() -> int:
     import importlib.util  # the evaluator's plots need it (ROADMAP item 6)
     print(f"card machine: matplotlib "
           f"{'installed' if importlib.util.find_spec('matplotlib') else 'not installed'}")
-    drawing = draw_while_building([MAIN_ARGV, TRAIN_ARGV])
-    build_all()
-    clock("build")
+    # the kernel-free phases run in a second process from here on, beside
+    # the build and the attention paths; the kernel checks and the
+    # distributed phase wait for it and run alone
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(side_threads())
+    side = SideProcess()
+    try:
+        paths, fused_by_path, bf16_by_path = {}, {}, {}
+        train_runs = {}
+
+        def tick(step: str):
+            clock(step)
+            side.check()
+
+        # while nvcc builds: the U-Net at bench.py's shape (the evaluate
+        # CLI in fp32, the same rollout in fp32 and bf16, card vs CPU on 2
+        # samples x 2 steps), its training in fp32 and bf16 compute at the
+        # shipped config, and the HEALPix U-Net's user path and rollout; no
+        # attention kernel launches on any of them
+        build_log = []
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            building = pool.submit(build_all, build_log.append)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_unet_eval_") as out_dir:
+                _, paths["unet_evaluate"], ucfg, fused_by_path["unet_evaluate"] = run_eval_path(
+                    "unet evaluate", UNET_EVAL_ARGV, out_dir, card)
+            drive_unet_rollout(ucfg, card)
+            ucfg.data["n_time"] = 1536  # 2 samples need no 256 test inits
+            check_rollout_vs_cpu(ucfg)
+            tick("U-Net evaluate (beside the build)")
+            # the Swin, Pangu, swin_win8 and U-Net training paths and the
+            # bf16 ones below share one build of TRAIN_TAIL's splits
+            # (context 1)
+            syn_splits = train_splits(TRAIN_ARGV)
+            for key, argv in (("unet_train", UNET_TRAIN_ARGV),
+                              ("unet_train_bf16",
+                               [*UNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"])):
+                with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+                    run, _, _ = run_train_path(key.replace("_", " "), argv, run_dir, card,
+                                               datasets=syn_splits)
+                train_runs[key] = run
+                paths[key], fused_by_path[key] = run["launches"], run["fused"]
+            tick("U-Net training, fp32 and bf16 (beside the build)")
+            hpx_unet, paths["hpx_unet_evaluate"] = run_hpx_unet_path(card)
+            train_runs["hpx_unet_train"] = hpx_unet
+            paths["hpx_unet_train"] = hpx_unet["launches"]
+            tick("HEALPix U-Net (beside the build)")
+            drive_hpx_unet_rollout(card)
+            tick("HEALPix U-Net rollout, nside 32 (beside the build)")
+            building.result()
+        for line in build_log:
+            print(line)
+        tick("build (the time past the U-Net paths)")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
+            _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
+                "main path", MAIN_ARGV, out_dir, card)
+        helper = helper_test_split(cfg)
+        check_rollout_vs_cpu(cfg, test_ds=helper)
+        profile_rollout(cfg, card, test_ds=helper)
+        tick("Swin evaluate")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+            train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card,
+                                                   datasets=syn_splits, keep_params=True)
+        paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
+        train_runs["train"] = train
+        swin_ref = {}  # the batch and the CPU's fp32 gradients, for the bf16 check
+        check_train_grads(tcfg, train_ds, card, reference=swin_ref)
+        profile_train_step(tcfg, train_ds, card)
+        tick("Swin train")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_eval_") as out_dir:
+            _, paths["pangu_evaluate"], pcfg, fused_by_path["pangu_evaluate"] = run_eval_path(
+                "pangu evaluate", PANGU_EVAL_ARGV, out_dir, card)
+        profile_rollout(pcfg, card, test_ds=helper)  # the Swin's: the same data config
+        tick("Pangu evaluate")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
+            ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir,
+                                                      card, datasets=syn_splits)
+            pserve = serve_pangu(run_dir, ptcfg, ptrain_ds, card)
+        paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
+        paths["pangu_serve"], fused_by_path["pangu_serve"] = pserve["launches"], pserve["fused"]
+        train_runs["pangu_train"] = ptrain
+        # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64);
+        # the three routes share one CPU reference (and its batch), and so
+        # does the bf16 check's fp32 scale below
+        pangu_ref = {}
+        check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d", reference=pangu_ref)
+        # Pangu's flash route (`use_flash_attention: true`): every block's
+        # windows through the flash forward and backward (N 144, D 32)
+        check_train_grads(ptcfg, ptrain_ds, card, card_route=True, reference=pangu_ref)
+        # Pangu's token-major route (`use_flash_attention: "packed"`): every
+        # block's windows through the token-major forward and backward
+        check_train_grads(ptcfg, ptrain_ds, card, card_route="packed", reference=pangu_ref)
+        profile_train_step(ptcfg, ptrain_ds, card)
+        tick("Pangu train")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
+            s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card,
+                                              datasets=syn_splits)
+        paths["swin_win8_train"], fused_by_path["swin_win8_train"] = s8["launches"], s8["fused"]
+        train_runs["swin_win8_train"] = s8
+        # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
+        check_train_grads(s8cfg, s8_ds, card, card_route="packed")
+        profile_train_step(s8cfg, s8_ds, card)
+        # the prefetch's turns on half the training frames (768: 5 full
+        # batches and one of 18 an epoch; 1,536 until the graph phase
+        # needed the time)
+        prefetch = compare_prefetch(
+            s8cfg, train_splits([*SWIN8_TRAIN_ARGV, "data.n_time=768"])[0], card)
+        paths["swin_win8_prefetch"] = prefetch["launches"]
+        tick("swin_win8 train and the prefetch")
+        paths["packed"], fused_by_path["packed"] = run_packed_path(card)
+        tick("packed path")
+
+        # one epoch each of the Swin and Pangu in bf16 compute beside their
+        # fp32 paths above
+        for key, argv in (
+            ("swin_train_bf16", ["model=swintransformer", *TRAIN_TAIL, "training.epochs=1",
+                                 "training.compute_dtype=bfloat16"]),
+            ("pangu_train_bf16", ["model=panguweather", *TRAIN_TAIL, "training.epochs=1",
+                                  "training.compute_dtype=bfloat16"]),
+        ):
+            with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
+                run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card,
+                                                datasets=syn_splits)
+            train_runs[key] = run
+            paths[key], fused_by_path[key] = run["launches"], run["fused"]
+            if key == "swin_train_bf16":
+                check_train_grads_bf16(rcfg, rds, card, reference=swin_ref)
+            else:
+                check_train_grads_bf16(rcfg, rds, card, card_route="packed5d",
+                                       reference=pangu_ref)
+                profile_train_step(rcfg, rds, card, compute_dtype="bfloat16")
+        for model, fp32_key in (("unet", "unet_train"), ("swin", "train"),
+                                ("pangu", "pangu_train")):
+            a, b = train_runs[fp32_key], train_runs[f"{model}_train_bf16"]
+            print(f"training, fp32 against bf16 compute: {model} {a['seconds_per_step']:.4f} "
+                  f"against {b['seconds_per_step']:.4f} s per step "
+                  f"({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), "
+                  f"{a['samples_per_s']:.2f} against {b['samples_per_s']:.2f} samples/s, peak "
+                  f"{a['peak_gib']:.2f} against {b['peak_gib']:.2f} GiB [{card}]")
+        tick("Swin and Pangu bf16 training")
+
+        # the real-data path: the WeatherBench zarr tree, the native batcher
+        # and decoder, the Swin trained and evaluated with ACC against the
+        # baselines
+        zarr = run_zarr_path(card, (train, tcfg, train_ds))
+        train_runs["zarr_train"] = zarr["train"]
+        paths["zarr_train"], fused_by_path["zarr_train"] = (zarr["train"]["launches"],
+                                                            zarr["train"]["fused"])
+        paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = (zarr["eval_launches"],
+                                                                  zarr["eval_fused"])
+        for label, run in zarr["serving"].items():
+            key = label.replace(" ", "_")
+            paths[key], fused_by_path[key] = run["launches"], run["fused"]
+        tick("zarr path and serving")
+
+        # the HEALPix Swin at the shipped width (flash) and with 8x8 windows
+        # at nside 32 (token-major)
+        hpx_paths, hpx_fused, hpx_runs = run_hpx_swin_paths(card)
+        paths.update(hpx_paths)
+        fused_by_path.update(hpx_fused)
+        train_runs.update(hpx_runs)
+        tick("HEALPix Swin (both)")
+
+        # the second process's paths: the graph families, the ModernUNet
+        # family and diffusion, Navier-Stokes and the recurrent models, the
+        # spectral families
+        side_res = side.join(card)
+        paths.update(side_res["paths"])
+        bf16_by_path.update(side_res["bf16"])
+    finally:
+        side.stop()
+    torch.set_num_threads(n_threads)
+    clock("waiting for the kernel-free phases")
+
     flash = check_flash(card)
     flash_bwd = check_flash_bwd(card)
     window = check_window(card)
     packed = check_packed(card)
     check_packed_vs_5d(card)
-    drawing.join()
     clock("kernel checks")
-
-    paths, fused_by_path = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
-        _, paths["evaluate"], cfg, fused_by_path["evaluate"] = run_eval_path(
-            "main path", MAIN_ARGV, out_dir, card)
-    helper = helper_test_split(cfg)
-    check_rollout_vs_cpu(cfg, test_ds=helper)
-    profile_rollout(cfg, card, test_ds=helper)
-    clock("Swin evaluate")
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
-        # the Swin, Pangu, swin_win8 and U-Net training paths and the bf16
-        # ones below share one build of TRAIN_TAIL's splits (context 1)
-        syn_splits = train_splits(TRAIN_ARGV)
-        train, tcfg, train_ds = run_train_path("train path", TRAIN_ARGV, run_dir, card,
-                                               datasets=syn_splits, keep_params=True)
-    paths["train"], fused_by_path["train"] = train["launches"], train["fused"]
-    check_train_grads(tcfg, train_ds, card)
-    profile_train_step(tcfg, train_ds, card)
-    clock("Swin train")
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_eval_") as out_dir:
-        _, paths["pangu_evaluate"], pcfg, fused_by_path["pangu_evaluate"] = run_eval_path(
-            "pangu evaluate", PANGU_EVAL_ARGV, out_dir, card)
-    profile_rollout(pcfg, card, test_ds=helper)  # the Swin's: the same data config
-    clock("Pangu evaluate")
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pangu_train_") as run_dir:
-        ptrain, ptcfg, ptrain_ds = run_train_path("pangu train", PANGU_TRAIN_ARGV, run_dir, card,
-                                                  datasets=syn_splits)
-        pserve = serve_pangu(run_dir, ptcfg, ptrain_ds, card)
-    paths["pangu_train"], fused_by_path["pangu_train"] = ptrain["launches"], ptrain["fused"]
-    paths["pangu_serve"], fused_by_path["pangu_serve"] = pserve["launches"], pserve["fused"]
-    # at 2 samples stage 2 would take einsum under auto (2 * 3 * 3 < 64);
-    # the three routes share one CPU reference
-    pangu_ref = {}
-    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed5d", reference=pangu_ref)
-    # Pangu's flash route (`use_flash_attention: true`): every block's
-    # windows through the flash forward and backward (N 144, D 32)
-    check_train_grads(ptcfg, ptrain_ds, card, card_route=True, reference=pangu_ref)
-    # Pangu's token-major route (`use_flash_attention: "packed"`): every
-    # block's windows through the token-major forward and backward
-    check_train_grads(ptcfg, ptrain_ds, card, card_route="packed", reference=pangu_ref)
-    profile_train_step(ptcfg, ptrain_ds, card)
-    clock("Pangu train")
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_swin8_train_") as run_dir:
-        s8, s8cfg, s8_ds = run_train_path("swin_win8 train", SWIN8_TRAIN_ARGV, run_dir, card,
-                                          datasets=syn_splits)
-    paths["swin_win8_train"], fused_by_path["swin_win8_train"] = s8["launches"], s8["fused"]
-    # at 2 samples stage 1 would take einsum under auto (2 * 8 < 64)
-    check_train_grads(s8cfg, s8_ds, card, card_route="packed")
-    profile_train_step(s8cfg, s8_ds, card)
-    # the prefetch's turns on half the training frames (768: 5 full batches
-    # and one of 18 an epoch; 1,536 until the graph phase needed the time)
-    prefetch = compare_prefetch(s8cfg, train_splits([*SWIN8_TRAIN_ARGV, "data.n_time=768"])[0],
-                                card)
-    paths["swin_win8_prefetch"] = prefetch["launches"]
-    clock("swin_win8 train and the prefetch")
-    paths["packed"], fused_by_path["packed"] = run_packed_path(card)
-    clock("packed path")
-
-    # the U-Net at bench.py's shape: the evaluate CLI (fp32), the same
-    # rollout in fp32 and bf16, card vs CPU on 2 samples x 2 steps
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_unet_eval_") as out_dir:
-        _, paths["unet_evaluate"], ucfg, fused_by_path["unet_evaluate"] = run_eval_path(
-            "unet evaluate", UNET_EVAL_ARGV, out_dir, card)
-    drive_unet_rollout(ucfg, card)
-    ucfg.data["n_time"] = 1536  # 2 samples need no 256 test inits
-    check_rollout_vs_cpu(ucfg)
-    clock("U-Net evaluate")
-
-    # training in fp32 and with bf16 compute: the U-Net (shipped config),
-    # and one epoch each of the Swin and Pangu in bf16 beside their fp32
-    # paths above
-    train_runs = {"train": train, "pangu_train": ptrain, "swin_win8_train": s8}
-    bf16_runs = (
-        ("unet_train", UNET_TRAIN_ARGV),
-        ("unet_train_bf16", [*UNET_TRAIN_ARGV, "training.compute_dtype=bfloat16"]),
-        ("swin_train_bf16", ["model=swintransformer", *TRAIN_TAIL, "training.epochs=1",
-                             "training.compute_dtype=bfloat16"]),
-        ("pangu_train_bf16", ["model=panguweather", *TRAIN_TAIL, "training.epochs=1",
-                              "training.compute_dtype=bfloat16"]),
-    )
-    for key, argv in bf16_runs:
-        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{key}_") as run_dir:
-            run, rcfg, rds = run_train_path(key.replace("_", " "), argv, run_dir, card,
-                                            datasets=syn_splits)
-        train_runs[key] = run
-        paths[key], fused_by_path[key] = run["launches"], run["fused"]
-        if key == "swin_train_bf16":
-            check_train_grads_bf16(rcfg, rds, card)
-        elif key == "pangu_train_bf16":
-            check_train_grads_bf16(rcfg, rds, card, card_route="packed5d")
-            profile_train_step(rcfg, rds, card, compute_dtype="bfloat16")
-    for model, fp32_key in (("unet", "unet_train"), ("swin", "train"), ("pangu", "pangu_train")):
-        a, b = train_runs[fp32_key], train_runs[f"{model}_train_bf16"]
-        print(f"training, fp32 against bf16 compute: {model} {a['seconds_per_step']:.4f} against "
-              f"{b['seconds_per_step']:.4f} s per step ({a['seconds_per_step'] / b['seconds_per_step']:.2f}x), "
-              f"{a['samples_per_s']:.2f} against {b['samples_per_s']:.2f} samples/s, peak "
-              f"{a['peak_gib']:.2f} against {b['peak_gib']:.2f} GiB [{card}]")
-    clock("U-Net training, bf16 training")
-
-    # the real-data path: the WeatherBench zarr tree, the native batcher and
-    # decoder, the Swin trained and evaluated with ACC against the baselines
-    zarr = run_zarr_path(card, (train, tcfg, train_ds))
-    train_runs["zarr_train"] = zarr["train"]
-    paths["zarr_train"], fused_by_path["zarr_train"] = zarr["train"]["launches"], zarr["train"]["fused"]
-    paths["zarr_evaluate"], fused_by_path["zarr_evaluate"] = zarr["eval_launches"], zarr["eval_fused"]
-    for label, run in zarr["serving"].items():
-        key = label.replace(" ", "_")
-        paths[key], fused_by_path[key] = run["launches"], run["fused"]
-    clock("zarr path and serving")
-
-    # the HEALPix paths: the U-Net's train, baselines and evaluate -c; the
-    # Swin at the shipped width (flash) and with 8x8 windows at nside 32
-    # (token-major); the U-Net's rollout at nside 32 with the pad's share
-    phase_s = {}
-    t0 = time.perf_counter()
-    hpx_unet, paths["hpx_unet_evaluate"] = run_hpx_unet_path(card)
-    train_runs["hpx_unet_train"] = hpx_unet
-    paths["hpx_unet_train"] = hpx_unet["launches"]
-    phase_s["HEALPix U-Net"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hpx_paths, hpx_fused, hpx_runs = run_hpx_swin_paths(card)
-    paths.update(hpx_paths)
-    fused_by_path.update(hpx_fused)
-    train_runs.update(hpx_runs)
-    phase_s["HEALPix Swin (both)"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    drive_hpx_unet_rollout(card)
-    phase_s["HEALPix U-Net rollout, nside 32"] = time.perf_counter() - t0
-    print("HEALPix phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
-          + f" [{card}]")
-
-    # the ModernUNet family: the lat-lon model at its shipped width
-    # (evaluate, fp32 and bf16 training), the HEALPix one's user path, and
-    # both diffusion models' user paths (v-prediction, EMA, evaluate -c on
-    # the EMA weights)
-    phase_s = {}
-    t0 = time.perf_counter()
-    munet_paths, munet_runs = run_modern_unet_paths(card)
-    phase_s["ModernUNet and MUNetHPX"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    diff_paths, diff_runs = run_diffusion_paths(card)
-    phase_s["DiffModernUNet and DiffMUNetHPX"] = time.perf_counter() - t0
-    paths.update(munet_paths)
-    paths.update(diff_paths)
-    train_runs.update(munet_runs)
-    train_runs.update(diff_runs)
-    print("ModernUNet phases, seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
-          + f" [{card}]")
-
-    # Navier-Stokes and the recurrent models: the solver's dataset on the
-    # card, ConvLSTM's and DISTANA's user paths on it, both on HEALPix
-    # faces, the wb_learnable generator
-    ns_paths, ns_runs = run_ns_paths(card)
-    paths.update(ns_paths)
-    train_runs.update(ns_runs)
-
-    # the spectral families: TFNO, FNO, FourCastNet, FourCastNetv2, SFNO and
-    # the ModernUNet's Fourier block through the CLIs, card vs CPU, and the
-    # two fft_impl branches against each other
-    spectral_paths, spectral_runs, _ = run_spectral_paths(card)
-    paths.update(spectral_paths)
-    train_runs.update(spectral_runs)
-
-    # the graph families: GraphCast and MeshGraphNet (its Delaunay edge list
-    # and its 8-stencil) through the CLIs, card vs CPU, and the two movement
-    # forms of a GraphCast processor layer against each other
-    graph_paths, graph_runs, _ = run_graph_paths(card)
-    paths.update(graph_paths)
-    train_runs.update(graph_runs)
 
     # the distributed phase: the Swin's train path with data_parallel=2
     # against the one above, ring attention, the halo, the sharded HEALPix
-    # pad and the partitioned GraphCast on 2 ranks sharing the card (gloo),
-    # the one-rank NCCL collectives
+    # pad, the partitioned GraphCast and the spectral models on 2 ranks
+    # sharing the card (gloo), the one-rank NCCL collectives
     paths.update(run_distributed_paths(card, train))
-    bf16_by_path = {k: r["bf16"] for k, r in train_runs.items()}
+    # the profile entry: the U-Net's rollout and the Swin's train step
+    paths.update(run_profile_paths(card))
+    bf16_by_path.update({k: r["bf16"] for k, r in train_runs.items()})
 
     # Each kernel's times at its path's largest case in fp32 (the paths'
     # dtype); the error is the worst over its fp32 cases.  `launches`

@@ -18,8 +18,18 @@ head; JAX copies that (it declares no such LayerNorm), and so does the port.
 Submodules carry flax's auto-names (`Conv_0`, `pos_embed`, `AFNOBlock_i.
 {LayerNorm_0, AFNO2DFilter_0 | SphericalConv_0 | FNOCore_0, LayerNorm_1,
 Mlp_0}`, `Dense_0`), so `weights.load_flax_params` maps a JAX tree onto
-them name for name.  Not ported: the filters over a device mesh
-(`spmd_mesh`, ROADMAP queue A, item 27) raise."""
+them name for name.
+
+With `spmd_mesh` (a `DeviceMesh`) the whole step runs on token rows
+sharded over the mesh dim `dist_axis` (input through
+`launch.scatter_to_ranks`, output through `launch.gather_from_ranks`):
+the patch conv, the LayerNorms, the MLPs and the head on the local rows,
+the AFNO2D and SFNO filters over the distributed rFFT2 and SHT (JAX hands
+them the mesh, `models/fourcastnet.py:56-90,134,163`).  The token rows
+must split over the ranks.  Each rank's weight gradients are its rows'
+share, summed over `partition_group` (the trainer does it).  The FNO2D
+filter has no distributed form (JAX's runs it under GSPMD on gathered
+rows) and raises with a mesh."""
 
 from __future__ import annotations
 
@@ -27,11 +37,13 @@ import math
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from dlwpbench_tpu_torch.models.base import RolloutModel
-from dlwpbench_tpu_torch.ops.spectral import AFNO2DFilter, no_mesh
+from dlwpbench_tpu_torch.ops.spectral import AFNO2DFilter
+from dlwpbench_tpu_torch.parallel import launch
 
 
 def trunc_normal_init(std: float = 0.02):
@@ -97,25 +109,33 @@ FILTERS = ("AFNO2D", "SFNO", "FNO2D")
 
 class AFNOBlock(nn.Module):
     """One FourCastNet block on a [B, h, w, D] token grid (`grid_shape` is
-    (h, w), which sizes the SFNO and FNO2D filters)."""
+    (h, w), which sizes the SFNO and FNO2D filters).  With `spmd_mesh` the
+    block takes this rank's token rows and its filter runs distributed
+    over the mesh dim `dist_axis` (the filter's `local`)."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, num_blocks: int = 8,
                  sparsity_threshold: float = 0.01, hard_thresholding_fraction: float = 1.0,
                  filter_type: str = "AFNO2D", n_modes: Sequence[int] = (12, 12),
                  exact_gelu: bool = False, fft_impl: str = "matmul",
-                 grid_shape: Sequence[int] = (32, 64)):
+                 grid_shape: Sequence[int] = (32, 64), spmd_mesh: Any = None,
+                 dist_axis: str = "x"):
         super().__init__()
         # the SFNO and FNO2D filters' modules import this one's (as in JAX)
         from dlwpbench_tpu_torch.models.fno import FNOCore
         from dlwpbench_tpu_torch.models.sfno import SphericalConv
 
+        self.sharded = spmd_mesh is not None
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
         if filter_type == "AFNO2D":
             self.AFNO2DFilter_0 = AFNO2DFilter(
                 dim, num_blocks, sparsity_threshold, hard_thresholding_fraction,
-                fft_impl=fft_impl)
+                spmd_mesh=spmd_mesh, dist_axis=dist_axis, fft_impl=fft_impl)
         elif filter_type == "SFNO":  # FourCastNetv2's mixer, the JAX block's default fft_impl
-            self.SphericalConv_0 = SphericalConv(dim, dim, nlat=grid_shape[0], nlon=grid_shape[1])
+            self.SphericalConv_0 = SphericalConv(dim, dim, nlat=grid_shape[0], nlon=grid_shape[1],
+                                                 spmd_mesh=spmd_mesh, dist_axis=dist_axis)
+        elif filter_type == "FNO2D" and self.sharded:
+            raise NotImplementedError("the FNO2D filter has no distributed form: build "
+                                      "FourCastNet with it without spmd_mesh")
         elif filter_type == "FNO2D":  # the reference's FNO mixer, one spectral layer
             self.FNOCore_0 = FNOCore(dim, dim, dim, lifting_channels=dim,
                                      projection_channels=dim, n_modes=tuple(n_modes),
@@ -133,7 +153,8 @@ class AFNOBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.LayerNorm_0(x)
-        y = self.filter(y) if self.filter_type == "AFNO2D" else y + self.filter(y)
+        f = self.filter.local(y) if self.sharded else self.filter(y)
+        y = f if self.filter_type == "AFNO2D" else y + f
         x = y + x  # double skip
         return self.Mlp_0(self.LayerNorm_1(x)) + x
 
@@ -165,6 +186,7 @@ class FourCastNet(RolloutModel):
         n_modes: Sequence[int] = (12, 12),
         mesh: str = "equirectangular",
         spmd_mesh: Any = None,
+        dist_axis: str = "x",
         exact_gelu: bool = False,
         fft_impl: str = "matmul",
         remat: bool = False,
@@ -174,7 +196,6 @@ class FourCastNet(RolloutModel):
         super().__init__(context_size, remat, remat_policy)
         from dlwpbench_tpu_torch.models.fno import init_like_flax_ as init_filter_
 
-        no_mesh(spmd_mesh, "FourCastNet's spectral filters")
         self.mesh = mesh
         ph, pw = self.patch_size = (int(patch_size[0]), int(patch_size[1]))
         h, w = int(img_height) // ph, int(img_width) // pw
@@ -188,7 +209,9 @@ class FourCastNet(RolloutModel):
             setattr(self, f"AFNOBlock_{i}", AFNOBlock(
                 D, mlp_ratio, num_blocks, sparsity_threshold, hard_thresholding_fraction,
                 filter, tuple(n_modes), exact_gelu=exact_gelu, fft_impl=fft_impl,
-                grid_shape=(h, w)))
+                grid_shape=(h, w), spmd_mesh=spmd_mesh, dist_axis=dist_axis))
+        if spmd_mesh is not None:
+            self.partition_group = launch.axis(spmd_mesh, dist_axis)[0]
         self.Dense_0 = nn.Linear(D, self.prognostic_channels * ph * pw, bias=False)
         gen = torch.Generator().manual_seed(int(seed))
         init_like_flax_(self, gen)
@@ -196,14 +219,22 @@ class FourCastNet(RolloutModel):
             init_filter_(getattr(self, f"AFNOBlock_{i}").filter, gen)
 
     def step(self, x: torch.Tensor, state: Any, aux: Any = None):
-        B, H, W, _ = x.shape
         (ph, pw), cq = self.patch_size, self.prognostic_channels
+        group, pos = self.partition_group, self.pos_embed
+        if group is not None:  # this rank's token rows from here to the gather
+            p, r = dist.get_world_size(group), dist.get_rank(group)
+            if (x.shape[1] // ph) % p:
+                raise ValueError(f"{x.shape[1] // ph} token rows do not split over {p} ranks")
+            x = launch.scatter_to_ranks(x, 1, group)
+            if pos is not None:
+                pos = pos.narrow(1, r * (x.shape[1] // ph), x.shape[1] // ph)
+        B, H, W, _ = x.shape
         h, w = H // ph, W // pw
         x = self.Conv_0(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # [B, h, w, D]
-        if self.pos_embed is not None:
-            x = x + self.pos_embed
+        if pos is not None:
+            x = x + pos
         for i in range(self.depth):
             x = getattr(self, f"AFNOBlock_{i}")(x)
         x = self.Dense_0(x)  # [B, h, w, Cq * ph * pw]
         x = x.reshape(B, h, w, ph, pw, cq).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, cq)
-        return x, state
+        return (x if group is None else launch.gather_from_ranks(x, 1, group)), state

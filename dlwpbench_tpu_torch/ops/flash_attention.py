@@ -40,6 +40,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from dlwpbench_tpu_torch.ops import _build
 
@@ -226,6 +227,21 @@ def _(q, k, v, bias):
     return torch.empty_like(q), q.new_empty((B, H, 1, N), dtype=torch.float32)
 
 
+def sdpa_flops(bh: int, nq: int, nk: int, d: int, backward: bool = False) -> int:
+    """FLOPs of softmax(q k^T + bias) v over `bh` (batch x heads) problems
+    of head dim `d`, two a multiply-add: the forward's two products, the
+    backward's five (the scores again, dP, dV, dQ, dK), as
+    `torch.utils.flop_counter` counts scaled_dot_product_attention.  The
+    registered operators' FLOP formulas, so `FlopCounterMode` counts the
+    kernels (it counts nothing inside an operator)."""
+    return (10 if backward else 4) * bh * nq * nk * d
+
+
+@register_flop_formula(torch.ops.dlwpbench_torch.flash_window_attention_fwd)
+def _(q, k, v, bias, out_shape=None, **kwargs):
+    return sdpa_flops(q[0] * q[1], q[2], k[2], q[3])
+
+
 flash_window_attention_fwd.launches = 0
 flash_window_attention_fwd.bf16_launches = 0
 flash_window_attention_fwd.mma_launches = 0
@@ -312,6 +328,11 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch
 def _(q, k, v, bias, out, lse, do, drow):
     return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
             torch.empty_like(bias))
+
+
+@register_flop_formula(torch.ops.dlwpbench_torch.flash_window_attention_bwd)
+def _(q, k, v, bias, out, lse, do, drow, out_shape=None, **kwargs):
+    return sdpa_flops(q[0] * q[1], q[2], k[2], q[3], backward=True)
 
 
 flash_window_attention_bwd.launches = 0

@@ -39,8 +39,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _kernel_fn
+from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _kernel_fn, sdpa_flops
 from dlwpbench_tpu_torch.ops.window_attention import (
     _bwd_chunks,
     _check_cuda,
@@ -187,6 +188,11 @@ def _(q, k, v, bias, mask):
     return torch.empty_like(q), q.new_empty((BW, nh, 1, N), dtype=torch.float32)
 
 
+@register_flop_formula(torch.ops.dlwpbench_torch.packed_window_attention_fwd)
+def _(q, k, v, bias, mask, out_shape=None, **kwargs):
+    return sdpa_flops(q[0] * q[1], q[2], k[2], q[3])
+
+
 packed_window_attention_fwd.launches = 0
 packed_window_attention_fwd.bf16_launches = 0
 packed_window_attention_fwd.fused_launches = 0
@@ -273,6 +279,11 @@ def _packed_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torc
 def _(q, k, v, bias, mask, out, lse, do):
     return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
             torch.empty_like(bias))
+
+
+@register_flop_formula(torch.ops.dlwpbench_torch.packed_window_attention_bwd)
+def _(q, k, v, bias, mask, out, lse, do, out_shape=None, **kwargs):
+    return sdpa_flops(q[0] * q[1], q[2], k[2], q[3], backward=True)
 
 
 packed_window_attention_bwd.launches = 0

@@ -31,8 +31,9 @@ taken in fp32 (JAX promotes an fp32 field times bf16 weights to fp32;
 torch's products refuse mixed dtypes, so the port casts them, exactly),
 and the result is cast back to the field's dtype.
 
-Not ported: the filter over a device mesh (`spmd_mesh`, ROADMAP queue A,
-item 27) raises.
+With `spmd_mesh` the AFNO filter runs over the distributed rFFT2
+(`parallel/spectral_dist.py::dist_afno_filter`) on latitude rows sharded
+over the mesh dim `dist_axis`.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dlwpbench_tpu_torch.parallel import launch
 from dlwpbench_tpu_torch.utils.device import device_constant
 
 FFT_IMPLS = ("matmul", "fft")
@@ -59,14 +61,6 @@ def softshrink(x: torch.Tensor, lambd: float) -> torch.Tensor:
 def check_fft_impl(fft_impl: str) -> None:
     if fft_impl not in FFT_IMPLS:
         raise ValueError(f"fft_impl {fft_impl!r}: expected one of {FFT_IMPLS}")
-
-
-def no_mesh(spmd_mesh, what: str) -> None:
-    """Raise for a device mesh: the distributed transforms are not ported."""
-    if spmd_mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a device mesh (spmd_mesh) is not ported to PyTorch yet "
-            "(ROADMAP queue A, item 27)")
 
 
 # ---------------------------------------------------------------------------
@@ -344,14 +338,20 @@ class AFNO2DFilter(nn.Module):
     a quirk of the reference kept as it is.  Parameters `w1` [2, nb, bs,
     bf], `b1` [2, nb, bf], `w2` [2, nb, bf, bs], `b2` [2, nb, bs] (real and
     imaginary parts on the first axis), flax's names and layouts.
+
+    With `spmd_mesh` the filter runs over the distributed rFFT2 on the
+    mesh dim `dist_axis` (`fft_impl` then unused, as in JAX): `forward`
+    takes and gives the replicated field, `local` this rank's latitude
+    rows (a model whose step is sharded calls it).
     """
 
     def __init__(self, hidden_size: int, num_blocks: int = 8,
                  sparsity_threshold: float = 0.01, hard_thresholding_fraction: float = 1.0,
-                 hidden_size_factor: int = 1, spmd_mesh=None, fft_impl: str = "matmul"):
+                 hidden_size_factor: int = 1, spmd_mesh=None, dist_axis: str = "x",
+                 fft_impl: str = "matmul"):
         super().__init__()
-        no_mesh(spmd_mesh, "the AFNO filter")
         check_fft_impl(fft_impl)
+        self.group = None if spmd_mesh is None else launch.axis(spmd_mesh, dist_axis)[0]
         if hidden_size % num_blocks:
             raise ValueError(f"hidden_size {hidden_size} does not split into {num_blocks} blocks")
         nb = self.num_blocks = int(num_blocks)
@@ -376,7 +376,19 @@ class AFNO2DFilter(nn.Module):
         kept = int(total * self.fraction)
         return total - kept, min(total + kept, H), kept
 
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., H/P, W, C] rows of this rank -> its rows of the filtered
+        field plus the residual."""
+        from dlwpbench_tpu_torch.parallel.spectral_dist import dist_afno_filter  # imports this module
+
+        y = dist_afno_filter(x, self.w1, self.b1, self.w2, self.b2, self.group, self.fraction,
+                             self.sparsity_threshold)
+        return y.to(x.dtype) + x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is not None:
+            y = self.local(launch.scatter_to_ranks(x, x.ndim - 3, self.group))
+            return launch.gather_from_ranks(y, y.ndim - 3, self.group)
         B, H, W, C = x.shape
         nb, bs, Wf = self.num_blocks, self.block_size, W // 2 + 1
         r0, r1, kept = self._band(H)

@@ -47,7 +47,9 @@ from typing import Optional
 
 import torch
 
-from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _kernel_fn
+from torch.utils.flop_counter import register_flop_formula
+
+from dlwpbench_tpu_torch.ops.flash_attention import _DTYPE_CODE, _device_of, _kernel_fn, sdpa_flops
 
 MAX_HEAD_DIM = 128
 MAX_N = 1023
@@ -374,6 +376,12 @@ def _(qkv, bias, mask, nh):
             qkv.new_empty((B, L, nW, nh, N), dtype=torch.float32))
 
 
+@register_flop_formula(torch.ops.dlwpbench_torch.window_attention_qkv_fwd)
+def _(qkv, bias, mask, nh, out_shape=None, **kwargs):
+    B, L, nW, N, C3 = qkv
+    return sdpa_flops(B * L * nW * nh, N, N, C3 // 3 // nh)
+
+
 window_attention_qkv_fwd.launches = 0
 window_attention_qkv_fwd.bf16_launches = 0
 window_attention_qkv_fwd.fused_launches = 0
@@ -412,6 +420,13 @@ def _qkv_bwd_op(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tens
 @_qkv_bwd_op.register_fake
 def _(qkv, bias, mask, out, lse, dout):
     return torch.empty_like(qkv), torch.empty_like(bias)
+
+
+@register_flop_formula(torch.ops.dlwpbench_torch.window_attention_qkv_bwd)
+def _(qkv, bias, mask, out, lse, dout, out_shape=None, **kwargs):
+    B, L, nW, N, C3 = qkv
+    nh = lse[3]
+    return sdpa_flops(B * L * nW * nh, N, N, C3 // 3 // nh, backward=True)
 
 
 window_attention_qkv_bwd.launches = 0
@@ -463,6 +478,13 @@ def _(qkv5, bias, mask, nh, win):
             qkv5.new_empty((B, Lon // win[2], nW, nh, N), dtype=torch.float32))
 
 
+@register_flop_formula(torch.ops.dlwpbench_torch.window_attention_qkv5d_fwd)
+def _(qkv5, bias, mask, nh, win, out_shape=None, **kwargs):
+    B, Pl, Lat, Lon, C3 = qkv5
+    N = win[0] * win[1] * win[2]
+    return sdpa_flops(B * (Pl * Lat * Lon // N) * nh, N, N, C3 // 3 // nh)
+
+
 window_attention_qkv5d_fwd.launches = 0
 window_attention_qkv5d_fwd.bf16_launches = 0
 window_attention_qkv5d_fwd.fused_launches = 0
@@ -503,6 +525,12 @@ def _qkv5d_bwd_op(qkv5: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.T
 @_qkv5d_bwd_op.register_fake
 def _(qkv5, bias, mask, out5, lse, dout5, win):
     return torch.empty_like(qkv5), torch.empty_like(bias)
+
+
+@register_flop_formula(torch.ops.dlwpbench_torch.window_attention_qkv5d_bwd)
+def _(qkv5, bias, mask, out5, lse, dout5, win, out_shape=None, **kwargs):
+    B, nLon, nW, nh, N = lse
+    return sdpa_flops(B * nLon * nW * nh, N, N, qkv5[-1] // 3 // nh, backward=True)
 
 
 window_attention_qkv5d_bwd.launches = 0

@@ -15,8 +15,8 @@ per-rank buckets (static shapes, equal splits):
 `partition_graph_nodewise` is JAX's plan, copied (equal array for
 array).  `gather_src_features` and `partitioned_message_passing` run on
 each rank's own chunk: bucket gather -> all-to-all -> [local || received]
--> edge gather (-> masked per-node sum).  The all-to-all is an
-`autograd.Function` whose backward is the all-to-all the other way (for
+-> edge gather (-> masked per-node sum).  The all-to-all is
+`launch.all_to_all`, whose backward is the all-to-all the other way (for
 equal buckets the same exchange), the adjoint JAX derives and the
 reference hand-codes (`autograd.py:189-254`).
 """
@@ -157,20 +157,6 @@ def rank_table(part: GraphPartition, name: str, rank: int, device) -> torch.Tens
     return device_constant(_plan_array, part, name, device=torch.device(device))[rank]
 
 
-class _AllToAll(torch.autograd.Function):
-    """Slot j of dim 0 goes to rank j, slot i of the result came from rank
-    i; with equal slots the exchange is its own adjoint."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return launch.all_to_all_single(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return launch.all_to_all_single(g, ctx.group), None
-
-
 def gather_src_features(part: GraphPartition, src_feat_local: torch.Tensor,
                         group=None) -> torch.Tensor:
     """This rank's src features [..., src_chunk, F] -> its address space
@@ -183,7 +169,7 @@ def gather_src_features(part: GraphPartition, src_feat_local: torch.Tensor,
     *lead, _, F = src_feat_local.shape
     out = src_feat_local.index_select(-2, send_idx).reshape(*lead, p, part.s_max, F)
     out = out * send_mask.to(out.dtype)
-    recv = _AllToAll.apply(out.movedim(-3, 0).contiguous(), group)  # [P, ..., Smax, F]
+    recv = launch.all_to_all(out.movedim(-3, 0), group)  # [P, ..., Smax, F]
     recv = recv.movedim(0, -3).reshape(*lead, p * part.s_max, F)
     return torch.cat([src_feat_local, recv], dim=-2)
 

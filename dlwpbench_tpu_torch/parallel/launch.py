@@ -240,6 +240,41 @@ def all_to_all_single(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(x.device, non_blocking=True) if staged else out
 
 
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all_single` under autograd: with equal slots the exchange
+    is its own adjoint, so the backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_single(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_single(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`all_to_all_single` (slot j of dim 0 to rank j) that autograd
+    differentiates."""
+    return _AllToAll.apply(x, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Sum `x` over `group` and keep this rank's equal chunk of `dim`
+    (JAX's tiled `psum_scatter`), differentiable.  Built from one
+    `all_to_all` and a sum over the received partials, as gloo has no
+    reduce-scatter of tensors: the same bytes as a reduce-scatter, and the
+    backward (the all-to-all's own, then the sum's broadcast) is the
+    all-gather JAX derives."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    d = dim % x.ndim
+    parts = x.reshape(*x.shape[:d], n, x.shape[d] // n, *x.shape[d + 1:]).movedim(d, 0)
+    return all_to_all(parts, group).sum(0)
+
+
 class Exchange:
     """Point-to-point sends and receives posted together
     (`batch_isend_irecv`).  `recvs` name the tensors to receive into;

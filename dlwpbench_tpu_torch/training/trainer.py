@@ -59,7 +59,7 @@ After the last micro-batch the gradients (and the step's loss) are
 summed over the group in one flat all-reduce per dtype, each rank's
 micro-batch weighted by its rows' share of the global batch, so clipping
 and AdamW see the global-batch gradient on every rank.  A partitioned
-model (`partition_group`, GraphCast with `spmd_mesh`) has its gradients
+model (`partition_group`: GraphCast, SFNO or FourCastNet with `spmd_mesh`) has its gradients
 summed over its partition the same way, one flat all-reduce per dtype.
 The diffusion branch draws the global batch's k and noise on every rank
 from the same generators and keeps its own rows.  Validation runs the

@@ -17,7 +17,9 @@ that submodule's type (the inverse of the mapping at
   for out) -> `DenseGeneral` (a Linear) `weight` [heads*hd, C] or
   [C, heads*hd]; its `bias` [heads, hd] flattened
 - `bias` as is, and parameters declared on a module itself (Swin's
-  `relative_position_bias_table_{i}_{d}`) as is.
+  `relative_position_bias_table_{i}_{d}`; the fused SFNO schedule's
+  `blocks_{i}_*` on the model's root, their kernels kept in flax's [in,
+  out] layout) as is.
 
 Every torch parameter must receive exactly one leaf and every leaf must
 land; anything else raises.  `to_flax_tree` is the inverse: it maps the

@@ -1,6 +1,6 @@
 """One rank of the port's multi-process tests (`tests/test_torch_parallel.py`,
-`tests/test_torch_ring_attention.py`), the counterpart of
-`tests/_distributed_child.py`.
+`tests/test_torch_ring_attention.py`, `tests/test_torch_spectral_dist.py`),
+the counterpart of `tests/_distributed_child.py`.
 
 The parent computes the JAX references in its own process, writes the
 inputs (numpy arrays, flax weights as flat dicts) to `<dir>/inputs.pkl`
@@ -11,9 +11,10 @@ WORLD_SIZE).  Each rank joins a gloo group through
 asserts that no JAX module was imported, and writes its results to
 `<dir>/rank<r>.pkl` for the parent to hold against JAX.
 
-    python tests/_torch_dist_child.py SUITE DIR     (SUITE: ring, mesh, train)
+    python tests/_torch_dist_child.py SUITE DIR  (SUITE: ring, mesh, train, spectral)
 """
 
+import contextlib
 import os
 import pickle
 import socket
@@ -61,6 +62,27 @@ def start_ranks(suite: str, n: int, work_dir: str, inputs: dict, timeout: float 
         return res
 
     return results
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank gloo group in this process and its ("data", "x")
+    `DeviceMesh`, the group destroyed on exit: the `spmd_mesh` branches
+    run every exchange on one rank."""
+    import torch.distributed as dist
+
+    from dlwpbench_tpu_torch.parallel import launch
+
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield launch.global_mesh(data=1, x=1)
+    finally:
+        dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------
@@ -287,7 +309,144 @@ def suite_train(inp, mesh):
     return res
 
 
-SUITES = {"ring": suite_ring, "mesh": suite_mesh, "train": suite_train}
+def suite_spectral(inp, mesh):
+    """The distributed rFFT2 and SHT, the spectral layers and the models
+    with `spmd_mesh` (`tests/test_torch_spectral_dist.py`); weight
+    gradients are each rank's share until summed over the mesh."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from dlwpbench_tpu_torch import weights
+    from dlwpbench_tpu_torch.models import fourcastnet, sfno
+    from dlwpbench_tpu_torch.ops.sht import sht_tables
+    from dlwpbench_tpu_torch.ops.spectral import AFNO2DFilter
+    from dlwpbench_tpu_torch.parallel import fft, launch, sht_dist
+    from dlwpbench_tpu_torch.parallel import spectral_dist as sd
+    from dlwpbench_tpu_torch.training import trainer as ttr
+
+    t = torch.from_numpy
+    group = mesh.get_group("x")
+    res = {}
+
+    def leaf(a):
+        return t(a).clone().requires_grad_()
+
+    def summed(grads, grp=group):  # every rank's share of the weight gradients
+        launch.all_reduce_(grads, grp)
+        return [g.numpy() for g in grads]
+
+    # the rFFT2: the padded spectrum and the round trip, 2D and batched
+    fwd, inv = fft.make_dist_rfft2(mesh)
+    X = fwd(t(inp["fft_x"]))
+    res["fft"] = (X.numpy(), inv(X, inp["fft_x"].shape[-1]).numpy())
+    res["fft_batched"] = inv(fwd(t(inp["fft_xb"])), inp["fft_xb"].shape[-1]).numpy()
+
+    # the SHT on both grids; channel chunks, bf16 exchanges, gradients
+    for grid in ("legendre-gauss", "equiangular"):
+        tab = sht_tables(16, 32, grid=grid)
+        fwd, inv = sht_dist.make_dist_sht(mesh, tab)
+        a = fwd(t(inp["sht_x"]))
+        res[f"sht_{grid}"] = (a.numpy(), inv(a).numpy())
+    tab = sht_tables(16, 32)
+    for k, cd in ((1, None), (2, None), (3, None), (8, None), (2, torch.bfloat16)):
+        fwd, inv = sht_dist.make_dist_sht(mesh, tab, pipeline_chunks=k, comm_dtype=cd)
+        a = fwd(t(inp["sht_xc"]))
+        res[f"sht_chunks_{k}_{'bf16' if cd else 'fp32'}"] = (a.numpy(), inv(a).numpy())
+    for key, x, k in (("sht_grad", inp["sht_xg"], 1), ("sht_grad_c1", inp["sht_xc"], 1),
+                      ("sht_grad_c3", inp["sht_xc"], 3)):
+        x = leaf(x)
+        a = sht_dist.make_dist_sht(mesh, tab, pipeline_chunks=k)[0](x)
+        (a.abs() ** 2).sum().backward()
+        res[key] = x.grad.numpy()
+
+    # the spherical convolution: plain and pipelined, the weight's gradient
+    for key in ("conv", "conv_piped"):
+        c = inp[key]
+        x, w = t(c["x"]), leaf(c["w"])
+        y = sd.make_dist_spherical_conv(mesh, tab, pipeline_chunks=c["chunks"])(
+            x, torch.complex(w[..., 0], w[..., 1]))
+        (y ** 2).sum().backward()
+        res[key] = (y.detach().numpy(), summed([w.grad])[0])
+
+    # the AFNO filter: the function, and the layer with spmd_mesh
+    c = inp["afno"]
+    ws = {n: leaf(c[n]) for n in ("w1", "b1", "w2", "b2")}
+    f = sd.make_dist_afno_filter(mesh, hard_thresholding_fraction=0.7)
+    res["afno_fn"] = f(t(c["x"]), *ws.values()).detach().numpy()
+    layer = AFNO2DFilter(8, 4, hard_thresholding_fraction=0.7, spmd_mesh=mesh)
+    weights.load_flax_params(layer, c["params"])
+    y = layer(t(c["x"]))
+    (y ** 2).sum().backward()
+    res["afno_layer"] = (y.detach().numpy(), dict(zip(
+        ("w1", "b1", "w2", "b2"), summed([p.grad for p in (layer.w1, layer.b1, layer.w2,
+                                                             layer.b2)]))))
+
+    # the fused block stack, 1D and 2D: outputs, bf16 exchanges, gradients
+    mesh2d = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "c"))
+    fz = inp["fused"]
+    x = t(fz["x"])
+    layers = [{k: t(v) for k, v in L.items()} for L in fz["layers"]]
+    for k in (1, 3, 6):
+        res[f"fused_{k}"] = sd.make_dist_sfno_blocks(mesh, tab, pipeline_chunks=k)(
+            x, layers).numpy()
+    res["fused_bf16"] = sd.make_dist_sfno_blocks(mesh, tab, pipeline_chunks=3,
+                                                 comm_dtype=torch.bfloat16)(x, layers).numpy()
+    for k in (1, 3):
+        res[f"fused2d_{k}"] = sd.make_dist_sfno_blocks_2d(mesh2d, tab, pipeline_chunks=k)(
+            x, layers).numpy()
+    for key, make, grp in (("fused_grad", lambda: sd.make_dist_sfno_blocks(
+            mesh, tab, pipeline_chunks=3), group), ("fused2d_grad", lambda: sd.
+            make_dist_sfno_blocks_2d(mesh2d, tab, pipeline_chunks=3), None)):
+        xg = leaf(fz["x"])
+        lg = [{k: leaf(v) for k, v in fz["layers"][0].items()}]
+        (make()(xg, lg) ** 2).sum().backward()
+        names = sorted(lg[0])
+        res[key] = (xg.grad.numpy(), dict(zip(names, summed([lg[0][n].grad for n in names],
+                                                            grp))))
+
+    # the models with spmd_mesh: rollouts and summed gradients
+    for key in ("sfno", "sfno_fused_4", "sfno_fused_1", "fourcastnet", "fourcastnetv2"):
+        m = inp[key]
+        cls = sfno.SFNO2DModule if key.startswith("sfno") else fourcastnet.FourCastNet
+        model = cls(**m["kw"], spmd_mesh=mesh)
+        res[key] = _model_out_and_grads(model, m["params"], m["prog"])
+        if key == "sfno_fused_4":
+            res["fused_tree"] = weights.flatten_tree(weights.to_flax_tree(model))
+
+    # a trainer step of the meshed SFNO (the trainer sums its gradients
+    # over the partition) and of the single-device one
+    m = inp["sfno"]
+    batch = (None, None, t(m["prog"]), t(m["target"]))
+    for key, kw in (("part", {"spmd_mesh": mesh}), ("single", {})):
+        tt = ttr.Trainer(sfno.SFNO2DModule(**m["kw"], **kw), learning_rate=m["lr"], epochs=5,
+                         clip_gradients=False)
+        st = tt.init(params=weights.unflatten_tree(m["params"]))
+        loss = tt.train_step(st, batch, m["lr"]).item()
+        res[f"sfno_step_{key}"] = (loss, _grads_flax(st.model),
+                                   weights.flatten_tree(weights.to_flax_tree(st.model)))
+
+    # shapes that do not split over the ranks raise
+    res["raises"] = {}
+    for name, build in (
+            ("sht_rows", lambda: sht_dist.make_dist_sht(mesh, sht_tables(6, 12))[0](
+                torch.zeros(6, 12))),
+            ("fourcastnet_rows", lambda: fourcastnet.FourCastNet(
+                img_height=6, img_width=8, embed_dim=8, depth=1, num_blocks=4,
+                spmd_mesh=mesh)(None, None, torch.zeros(1, 2, 1, 6, 8))),
+            ("sfno_rows", lambda: sfno.SFNO2DModule(
+                constant_channels=0, prescribed_channels=0, prognostic_channels=1,
+                num_layers=1, embed_dim=4, height=6, width=12, spmd_mesh=mesh)(
+                    None, None, torch.zeros(1, 2, 1, 6, 12)))):
+        try:
+            build()
+            res["raises"][name] = None
+        except ValueError as e:
+            res["raises"][name] = str(e)
+    return res
+
+
+SUITES = {"ring": suite_ring, "mesh": suite_mesh, "train": suite_train,
+          "spectral": suite_spectral}
 
 
 def main(suite: str, work_dir: str) -> None:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_child import one_rank_mesh
 from dlwpbench_tpu.models import build_model as jbuild
 from dlwpbench_tpu_torch import train, weights
 from dlwpbench_tpu_torch.models import fourcastnet as tfcn
@@ -195,8 +196,23 @@ def test_seeded_init_follows_jax_distributions():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tfcn.FourCastNet(embed_dim=16, depth=1, num_blocks=4, spmd_mesh=object())
+    """The AFNO2D and SFNO filters build with a mesh (one rank here, several
+    in `tests/test_torch_spectral_dist.py`) and agree with the
+    single-device model; FNO2D has no distributed form and raises, as does
+    an unknown filter."""
+    kw = dict(img_height=8, img_width=16, embed_dim=16, depth=1, num_blocks=4,
+              constant_channels=0)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 2, 1, 8, 16)).astype(np.float32))
+    with one_rank_mesh() as mesh:
+        for filt in ("AFNO2D", "SFNO"):
+            single = tfcn.FourCastNet(**kw, filter=filt)
+            meshed = tfcn.FourCastNet(**kw, filter=filt, spmd_mesh=mesh)
+            meshed.load_state_dict(single.state_dict())
+            want = single(None, None, x)
+            assert (meshed(None, None, x) - want).abs().max() <= MODEL_TOL * want.abs().max()
+        with pytest.raises(NotImplementedError, match="FNO2D"):
+            tfcn.FourCastNet(**kw, filter="FNO2D", spmd_mesh=mesh)
     with pytest.raises(ValueError, match="unknown filter"):
         tfcn.FourCastNet(embed_dim=16, depth=1, num_blocks=4, filter="GNO")
 

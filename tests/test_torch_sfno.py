@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_child import one_rank_mesh
 from dlwpbench_tpu.models import build_model as jbuild
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import registry
@@ -188,14 +189,35 @@ def test_branches_agree():
 
 
 def test_unported_and_unknown_schedules_raise():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsfno.SFNO2DModule(embed_dim=8, num_layers=1, spmd_mesh=object())
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsfno.SFNO2DModule(embed_dim=8, num_layers=1, dist_schedule="fused")
+    """The mesh branches build on a one-rank mesh and agree with the
+    single-device model (several ranks: `tests/test_torch_spectral_dist.py`);
+    "fused" without a mesh is the per-conv tree, as in JAX; an unknown
+    schedule and a grid the model was not built for raise."""
+    kw = dict(embed_dim=8, num_layers=1, height=8, width=16, constant_channels=0,
+              prescribed_channels=0, prognostic_channels=1)
+    prog = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 2, 1, 8, 16)).astype(np.float32))
+    single = tsfno.SFNO2DModule(**kw)
+    want = single(None, None, prog)
+    with one_rank_mesh() as mesh:
+        for schedule in ("per_conv", "fused"):
+            meshed = tsfno.SFNO2DModule(**kw, spmd_mesh=mesh, dist_schedule=schedule)
+            if schedule == "per_conv":
+                meshed.load_state_dict(single.state_dict())
+            else:
+                assert "blocks_0_spec" in dict(meshed.named_parameters())
+            out = meshed(None, None, prog)
+            assert out.shape == want.shape and torch.isfinite(out).all()
+            if schedule == "per_conv":
+                assert (out - want).abs().max() <= MODEL_TOL * want.abs().max()
+        conv = tsfno.SphericalConv(4, 4, 8, 16, spmd_mesh=mesh)
+        x = torch.randn(2, 8, 16, 4, generator=torch.Generator().manual_seed(0))
+        want_conv = tsfno.SphericalConv(4, 4, 8, 16)(x)
+        assert (conv(x) - want_conv).abs().max() <= MODEL_TOL * want_conv.abs().max()
+    assert ({n for n, _ in tsfno.SFNO2DModule(**kw, dist_schedule="fused").named_parameters()}
+            == {n for n, _ in single.named_parameters()})
     with pytest.raises(ValueError, match="dist_schedule"):
         tsfno.SFNO2DModule(embed_dim=8, num_layers=1, dist_schedule="pipelined")
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsfno.SphericalConv(4, 4, 8, 16, spmd_mesh=object())
     model = tsfno.SFNO2DModule(embed_dim=8, num_layers=1, height=8, width=16,
                                constant_channels=0, prescribed_channels=0,
                                prognostic_channels=1)

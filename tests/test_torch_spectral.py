@@ -21,6 +21,7 @@ import torch
 from flax import linen as fnn
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_dist_child import one_rank_mesh
 from dlwpbench_tpu.ops import spectral as jsp
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.ops import spectral as tsp
@@ -264,8 +265,20 @@ def test_afno_branches_agree_and_band_quirk():
 
 
 def test_afno_raises():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsp.AFNO2DFilter(8, 2, spmd_mesh=object())
+    """With a mesh (one rank here) the filter builds and agrees with the
+    single-device one; a width that does not split into blocks raises."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8, 16, 8)).astype(
+        np.float32))
+    single = tsp.AFNO2DFilter(8, 2)
+    with torch.no_grad():
+        for p in single.parameters():
+            p.mul_(25.0)  # out of softshrink's dead band
+    want = single(x)
+    with one_rank_mesh() as mesh:
+        meshed = tsp.AFNO2DFilter(8, 2, spmd_mesh=mesh)
+        meshed.load_state_dict(single.state_dict())
+        got = meshed(x)
+    assert (got - want).abs().max() <= TOL * (want - x).abs().max()
     with pytest.raises(ValueError, match="blocks"):
         tsp.AFNO2DFilter(8, 3)
 
