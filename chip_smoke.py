@@ -231,6 +231,27 @@ the kernel checks and the distributed phase run alone.
      `--model swin --train` (the trainer's step, the flash kernels), each
      `profile.json` with its steps, median seconds, FLOPs a step and
      achieved rate, the Swin's count holding every block's attention;
+   - the ladder phase (`run_ladder_rows`, `ladder_side_phase`): the
+     reference's parameter ladder through `python -m
+     dlwpbench_tpu_torch.benchmark_ladder`, one row a call (the remat
+     train step at batch 1, 14 rollout steps; 3 steps a row, `--repeats 1
+     --iters 1`, where the entry runs 17): in this process, beside
+     the attention paths, swin@8m (head dim 56, the flash kernels'
+     tensor-core designs), swin@16m and swin@32m (head dims 80 and 120,
+     the row kernels), pangu@8m at batch 1 (einsum under the routing
+     rule: no kernel) and at batch 2 (the 5D kernels at stage 1),
+     swin_win8@2m at 90x180 (the token-major kernels) and swin@8m in bf16
+     compute; in the second process the kernel-free rows unet@8m,
+     graphcast@2m (then `backfill_graph_flops` on JAX's entry for it) and
+     diffusion@2m, the zoo's rollout matrix (`benchmark_models --steps 4
+     --iters 1`) and the training matrix (`benchmark_training --models
+     unet,swin`, batch 32); every row's width and parameter count against JAX's
+     `results/ladder.json`, no row failing, each row's launches by kernel
+     against the kernels it must reach; then `ladder_tables` on both
+     processes' rows; the kernel checks of phase 3 include every shape
+     the ladder's rows give a kernel (the Swin's flash shapes at head dims
+     56, 80 and 120, Pangu's 5D stage 1 at batch 2, the 90x180 token-major
+     stages; `ladder_cases` in the `kernels` line);
 5. the run's seconds, the card line, the `kernels` line (the flash rows'
    `launches_by_path` with the distributed paths, per rank) and, last,
    `{"ok": true, ...}`.
@@ -405,6 +426,16 @@ FLASH_CASES = [
     # rectangle of faces (N 768, shifted bias), and stage 1 (N 192)
     ("hpx stage0 shifted", EVAL_BATCH, 4, 768, 24, 1, "hpx-shift"),
     ("hpx stage1 unshifted", EVAL_BATCH, 4, 192, 48, 0, "random"),
+    # the ladder's Swin rows (batch 1): swin@8m (embed 168, heads 3 and 6),
+    # head dim 56 at both stages, on the tensor-core designs; swin@16m
+    # (embed 240) and swin@32m (embed 360), head dims 80 and 120, past the
+    # tensor-core designs' 64: the row kernels
+    ("ladder swin8m stage0 shifted", 1, 3, 2048, 56, 1, "swin-shift"),
+    ("ladder swin8m stage1 unshifted", 1, 6, 512, 56, 0, "random"),
+    ("ladder swin16m stage0 shifted", 1, 3, 2048, 80, 1, "swin-shift"),
+    ("ladder swin16m stage1 unshifted", 1, 6, 512, 80, 0, "random"),
+    ("ladder swin32m stage0 shifted", 1, 3, 2048, 120, 1, "swin-shift"),
+    ("ladder swin32m stage1 unshifted", 1, 6, 512, 120, 0, "random"),
 ]
 # the global window of each shifted-bias kind: the Swin's 32 x 64 grid and
 # the HEALPix Swin's 24 x 32 rectangle of nside-8 faces
@@ -534,6 +565,12 @@ FLASH_BWD_CASES = [
     ("G=B N=200", 4, 2, 200, 64, 4, "random"),
     ("hpx stage0 shifted", 32, 4, 768, 24, 1, "hpx-shift"),
     ("hpx stage1 unshifted", 32, 4, 192, 48, 0, "random"),
+    ("ladder swin8m stage0 shifted", 1, 3, 2048, 56, 1, "swin-shift"),
+    ("ladder swin8m stage1 unshifted", 1, 6, 512, 56, 0, "random"),
+    ("ladder swin16m stage0 shifted", 1, 3, 2048, 80, 1, "swin-shift"),
+    ("ladder swin16m stage1 unshifted", 1, 6, 512, 80, 0, "random"),
+    ("ladder swin32m stage0 shifted", 1, 3, 2048, 120, 1, "swin-shift"),
+    ("ladder swin32m stage1 unshifted", 1, 6, 512, 120, 0, "random"),
 ]
 # Tolerances, as a share of max|ref| per output.  fp32: the kernel and the
 # plain version sum over up to 2048 keys and 32 members in other orders.
@@ -626,7 +663,7 @@ def check_flash_bwd(card: str):
 # ---------------------------------------------------------------- window attention
 # (label, layout, qkv shape, nh, window, bias kind, mask kind): the shapes
 # the Pangu and Swin-win8 paths give the kernels at batch 32, plus the JAX
-# test's L > 1 shape and an odd N.
+# test's L > 1 shape, an odd N and the ladder rows' shapes.
 WINDOW_CASES = [
     ("pangu stage1 shifted", "5d", (32, 2, 36, 72, 576), 6, (2, 6, 12), "earth", "pangu-shift"),
     ("pangu stage1", "5d", (32, 2, 36, 72, 576), 6, (2, 6, 12), "earth", None),
@@ -639,7 +676,21 @@ WINDOW_CASES = [
     ("odd N 72 hd 24", "token-major", (16, 2, 4, 72, 144), 2, None, "random", "block"),
     # just past the fused backward's region (N 144): the four-pass route
     ("four-pass N 200 hd 32", "token-major", (8, 1, 4, 200, 192), 2, None, "random", "block"),
+    # the ladder's rows: pangu@8m at batch 2 (embed 96, head dim 16; its
+    # stage-1 blocks, the only ones past the routing rule's 64 windows) and
+    # swin_win8@2m at 90x180 (embed 96, head dim 32; the padded 96 x 184
+    # grid's 276 windows at stage 0, 72 at stage 1)
+    ("ladder pangu8m b2 stage1 shifted", "5d", (2, 2, 36, 72, 288), 6, (2, 6, 12), "earth",
+     "pangu-shift"),
+    ("ladder pangu8m b2 stage1", "5d", (2, 2, 36, 72, 288), 6, (2, 6, 12), "earth", None),
+    ("ladder swin_win8 90x180 stage0 shifted", "token-major", (1, 1, 276, 64, 288), 3, None,
+     "swin-shift", None),
+    ("ladder swin_win8 90x180 stage1", "token-major", (1, 1, 72, 64, 576), 6, None,
+     "swin-shared", None),
 ]
+# the padded grid whose 8x8 windows (shifted by 4) give a "swin-shift"
+# case's window count
+SWIN8_SHIFT_GRIDS = {8: (16, 32), 276: (96, 184)}
 # Tolerances.  Forward out: fp32 sums over <= 1023 keys in another order
 # (|out| < 5 here), bf16 one rounding of the fp32 result (half an ulp is
 # 2^-9 of the value); lse is fp32 on both sides.  Backward: a share of
@@ -687,7 +738,8 @@ def _window_inputs(layout, shape, nh, win, bias_kind, mask_kind, dtype, gen):
     elif bias_kind.startswith("swin"):  # 8x8 windows; query-major, swapped as the model does
         rel = expand_relative_bias(randn(15 * 15, nh), 8, 8)
         if bias_kind == "swin-shift":
-            groups = torch.as_tensor(shift_window_groups(16, 32, 8, 8, 4, 4), device="cuda")
+            groups = torch.as_tensor(shift_window_groups(*SWIN8_SHIFT_GRIDS[nW], 8, 8, 4, 4),
+                                     device="cuda")
             rel = rel[None] + torch.where(groups[:, None, :] != groups[:, :, None], -100.0, 0.0)[:, None]
         bias = (rel if rel.ndim == 4 else rel[None]).transpose(-1, -2)
     else:
@@ -3747,6 +3799,238 @@ def run_packed_path(card: str):
     return launches, check_fused("packed path", counters, launches)
 
 
+# ---------------------------------------------------------------- the ladder phase
+# The reference's parameter ladder through `python -m
+# dlwpbench_tpu_torch.benchmark_ladder` (called in-process), one row a
+# call, each the remat train step at batch 1 and sequence length 15 (14
+# rollout steps; the steps timed and counted: `LADDER_TIMING`).  The
+# attention rows run in this process beside the attention paths: the Swin
+# at head dims 56 (the flash kernels' mma designs), 80 and 120 (their row
+# kernels), Pangu at batch 1 and 2 (head dim 16), the 8x8 windowed Swin at
+# 2.0 degrees on the token-major kernels (276 windows >= 64), the Swin in
+# bf16 compute.  The second process runs the kernel-free
+# rows, the graph FLOP backfill and the rollout and training matrices.
+# (family, rung, extra argv, the kernels the row must launch: "mma" all on
+# the tensor-core design, "rows" all on the row kernels, "bf16" all on the
+# bf16 instance, "any" at least once; every other kernel 0 times).  A row
+# at another batch than the ladder's 1 goes to a file of its own, its key
+# being the batch-1 row's.
+LADDER_CARD_ROWS = [
+    ("swin", "8m", [], {"flash_window_attention": "mma", "flash_window_attention_bwd": "mma"}),
+    ("swin", "16m", [], {"flash_window_attention": "rows", "flash_window_attention_bwd": "rows"}),
+    ("swin", "32m", [], {"flash_window_attention": "rows", "flash_window_attention_bwd": "rows"}),
+    # at batch 1 the routing rule (B*nLon*nW >= 64, as JAX's) sends all of
+    # Pangu's windows to einsum (36 at stage 1, 9 at stage 2): no kernel; at
+    # batch 2 its stage-1 blocks (72 windows) take the 5D kernels
+    ("pangu", "8m", [], {}),
+    ("pangu", "8m", ["--batch", "2"],
+     {"window_attention_qkv5d": "any", "window_attention_qkv5d_bwd": "any"}),
+    ("swin_win8", "2m", ["--grid", "90x180"],
+     {"window_attention_qkv": "any", "window_attention_qkv_bwd": "any"}),
+    ("swin", "8m", ["--compute-dtype", "bfloat16"],
+     {"flash_window_attention": "bf16", "flash_window_attention_bwd": "bf16"}),
+]
+LADDER_SIDE_ROWS = [("unet", "8m", [], {}), ("graphcast", "2m", [], {}),
+                    ("diffusion", "2m", [], {})]
+# JAX's ladder on its TPU (`results/ladder.json`, read only): the widths
+# the port's `solve_width` must give for the same keys
+JAX_LADDER = os.path.join(REPO, "results", "ladder.json")
+# the smoke's timing of a row (and of the training matrix): the first call
+# of one step, one timed step and the counted one, where the entry's
+# default of 4 x 3 runs 17 steps (eager steps of 0.3 .. 2 s at batch 1
+# while the two processes share the host and the card): a reading that
+# the row runs, not the row's time
+LADDER_TIMING = ["--repeats", "1", "--iters", "1"]
+
+
+def ladder_key(family: str, rung: str, extra: list) -> tuple[str, str]:
+    """(the row's key in its ladder file, its label: the key and any batch
+    other than 1)."""
+    grid = extra[extra.index("--grid") + 1] if "--grid" in extra else "32x64"
+    key = f"{family}@{rung}@{grid}" + ("@bf16" if "--compute-dtype" in extra else "")
+    batch = extra[extra.index("--batch") + 1] if "--batch" in extra else None
+    return key, key + (f" batch {batch}" if batch else "")
+
+
+def _launch_ok(fn_launches: int, new: int | None, bf16: int, want: str) -> bool:
+    if fn_launches <= 0:
+        return False
+    if want == "mma":
+        return new == fn_launches
+    if want == "rows":
+        return new == 0
+    if want == "bf16":
+        return bf16 == fn_launches
+    return True
+
+
+def run_ladder_rows(card: str, out: str, rows: list) -> dict:
+    """Each row through `benchmark_ladder.main` into `out` (a row at
+    another batch into a file beside it), every launch counter set to 0
+    just before and read just after; prints the row's parameters, width,
+    step ms, epoch(2014) s, peak MB, TFLOP/s and launches by kernel, and
+    checks it: no `error`, JAX's width and parameter count for the key,
+    the kernels `rows` names launched on their designs and no other
+    kernel.  Returns each row's launches, by path ("ladder <label>")."""
+    import torch
+
+    from dlwpbench_tpu_torch import benchmark_ladder
+
+    with open(JAX_LADDER) as f:
+        jax_ladder = json.load(f)
+    counters = counters_of()
+    paths, failures = {}, []
+    for family, rung, extra, want in rows:
+        key, label = ladder_key(family, rung, extra)
+        path = out if label == key else out[:-5] + "_" + label.split()[-1] + ".json"
+        reset_counters(counters)
+        res = benchmark_ladder.main(["--families", family, "--rungs", rung, "--out", path,
+                                     *LADDER_TIMING, *extra])
+        launches = _launches(counters)
+        new = new_design_launches(counters)
+        bf16 = {n: fn.bf16_launches for n, fn in counters.items()}
+        e, ref = res[key], jax_ladder.get(key.removesuffix("@bf16"), {})
+        ok = ("error" not in e and e.get("width") == ref.get("width")
+              and e.get("params") == ref.get("params") and bool(e.get("device"))
+              and all(_launch_ok(launches[n], new.get(n), bf16[n], want[n]) if n in want
+                      else launches[n] == 0 for n in counters))
+        paths[f"ladder {label}"] = launches
+        fired = {n: c for n, c in launches.items() if c}
+        designs = {n: c for n, c in new.items() if launches[n]}
+        bf16_fired = {n: c for n, c in bf16.items() if c}
+        row = (f"FAILED {e['error']}" if "error" in e else
+               f"{e['params']:,} parameters, width {e['width']} (JAX {ref.get('width')}, "
+               f"{ref.get('params', 0):,}), step {e['step_s'] * 1e3:.1f} ms, epoch(2014) "
+               f"{e['epoch_s_2014_protocol']:.2f} s, peak {e.get('peak_mb')} MB, "
+               f"{e.get('achieved_tflops')} TFLOP/s ({e.get('flops_per_step', 0):.4e} FLOP a "
+               f"step, attention {e.get('attention_flops_per_step', 0):.4e}), first call "
+               f"{e['compile_s']} s")
+        print(f"ladder {label}: {row}; launches {fired or 'none'} (tensor-core design "
+              f"{designs}, bf16 {bf16_fired}; want {want or 'none'}) {'ok' if ok else 'FAIL'} "
+              f"[{card}]")
+        if not ok:
+            failures.append(label)
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"ladder rows failed their checks: {failures}")
+    return paths
+
+
+def wait_for_build(timeout_s: float = 900.0):
+    """Waits until every kernel library the first process builds exists
+    (the second process loads them; it never builds)."""
+    from dlwpbench_tpu_torch.ops import _build
+
+    names = [os.path.basename(p)[:-3] for p in glob.glob(os.path.join(_build.CSRC_DIR, "*.cu"))]
+    t0 = time.perf_counter()
+    while not all(os.path.exists(_build.library_path(n)) for n in names):
+        if time.perf_counter() - t0 > timeout_s:
+            raise SystemExit(f"the kernels were not built within {timeout_s:.0f} s")
+        time.sleep(2.0)
+    return time.perf_counter() - t0
+
+
+def ladder_side_phase(card: str) -> dict:
+    """The second process's part of the ladder phase: the kernel-free rows
+    (U-Net, GraphCast, the diffusion model's denoiser step), the graph
+    FLOP backfill on JAX's recorded GraphCast entry for the same key (the
+    port's gather-form count must be its own row's executed one, JAX's
+    one-hot count and times untouched), then the zoo's rollout matrix
+    (`python -m dlwpbench_tpu_torch.benchmark_models`, every model, 4 lead
+    steps, 1 timed group) and the training matrix (`python -m
+    dlwpbench_tpu_torch.benchmark_training --models unet,swin`, batch 32),
+    which reach the attention kernels through the Swin and Pangu (built by
+    the first process: this one waits for the libraries).  Returns the
+    launches by path and the ladder's entries."""
+    from dlwpbench_tpu_torch import backfill_graph_flops, benchmark_models, benchmark_training
+
+    clock = Clock("ladder (second process)", card)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ladder_side_")
+    out = os.path.join(work, "ladder.json")
+    try:
+        paths = run_ladder_rows(card, out, LADDER_SIDE_ROWS)
+        clock("kernel-free rows")
+        gkey = next(ladder_key(*row[:3])[0] for row in LADDER_SIDE_ROWS if row[0] == "graphcast")
+        with open(JAX_LADDER) as f:
+            jax_entry = json.load(f)[gkey]
+        with open(out) as f:
+            own = json.load(f)[gkey]
+        jax_file = os.path.join(work, "jax_ladder.json")
+        with open(jax_file, "w") as f:
+            json.dump({gkey: jax_entry}, f)
+        res = backfill_graph_flops.main(["--ladder", jax_file, "--force", "--training",
+                                         os.path.join(work, "benchmark_training.json")])
+        g = res["ladder"][gkey]
+        ok = (g.get("algorithmic_flops_per_step") == own.get("flops_per_step") > 0
+              and all(g[k] == jax_entry[k] for k in ("flops_per_step", "step_s", "width")))
+        print(f"backfill_graph_flops on JAX's {gkey}: algorithmic "
+              f"{g.get('algorithmic_flops_per_step', 0):.4e} FLOP a step (JAX's recorded "
+              f"{jax_entry.get('algorithmic_flops_per_step', 0):.4e}), the port's row executed "
+              f"{own.get('flops_per_step', 0):.4e} (the gather form both), JAX's one-hot "
+              f"{g['flops_per_step']:.4e} and step {g['step_s']} s kept, "
+              f"{g.get('algorithmic_tflops')} TFLOP/s at JAX's step {'ok' if ok else 'FAIL'} "
+              f"[{card}]")
+        if not ok:
+            raise SystemExit("backfill_graph_flops: the gather form's count is not the port's "
+                             "executed one, or JAX's figures changed")
+        clock("graph FLOP backfill")
+        waited = wait_for_build()
+        counters = counters_of()
+        for label, fn, argv, want in (
+            ("matrix benchmark_models", benchmark_models.main,
+             ["--steps", "4", "--iters", "1", "--out-dir", work],
+             ("flash_window_attention",)),  # Pangu at batch 1: einsum (36 and 9 windows)
+            ("matrix benchmark_training", benchmark_training.main,
+             ["--models", "unet,swin", *LADDER_TIMING, "--out-dir", work],
+             ("flash_window_attention", "flash_window_attention_bwd")),
+        ):
+            reset_counters(counters)
+            payload = fn(argv)
+            paths[label] = launches = _launches(counters)
+            rows = payload["results"]
+            bad = [n for n, r in rows.items() if "error" in r]
+            for name, r in rows.items():
+                if "error" in r:
+                    print(f"{label} {name}: FAILED {r['error']}")
+                    continue
+                rate = (f"rollout {r['rollout_s'] * 1e3:.2f} ms, {r['gridpoints_per_s']:,.1f} "
+                        "grid-points/s" if "rollout_s" in r else
+                        f"step {r['train_step_s'] * 1e3:.1f} ms at batch {payload['batch']}, "
+                        f"epoch equivalent {r['epoch_equivalent_s']:.2f} s, "
+                        f"{r.get('achieved_tflops')} TFLOP/s")
+                print(f"{label} {name}: {r['params']:,} parameters, {rate}, peak "
+                      f"{r.get('peak_mb')} MB [{card}]")
+            fired = {n: c for n, c in launches.items() if c}
+            ok = not bad and all(launches[n] > 0 for n in want)
+            print(f"{label}: {len(rows)} models, launches {fired} (want {list(want)} > 0) "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise SystemExit(f"{label}: failed rows {bad}, launches {fired}")
+            clock(label + (f" (waited {waited:.1f} s for the build first)"
+                           if label.endswith("models") else ""))
+        with open(out) as f:
+            entries = json.load(f)
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    return {"paths": paths, "entries": entries}
+
+
+def ladder_tables_of(card: str, out: str):
+    """`python -m dlwpbench_tpu_torch.ladder_tables` on the phase's ladder
+    file (both processes' rows): prints its tables; the figure is skipped
+    where matplotlib is not installed."""
+    from dlwpbench_tpu_torch import ladder_tables
+
+    lines = ladder_tables.main(["--ladder", out, "--out-md", out[:-5] + "_tables.md",
+                                "--out-png", out[:-5] + "_over_params.png"])
+    tables = [ln for ln in lines if ln.startswith(("|", "## ", "Device:"))]
+    print("\n".join(tables))
+    if not any(ln.startswith("| 8m |") for ln in tables):
+        raise SystemExit("ladder_tables: no 8m row in the phase's tables")
+
+
 # ---------------------------------------------------------------- the distributed phase
 # Two ranks, one process each, share the one card through gloo (NCCL
 # refuses two ranks on one device); the collectives move CUDA tensors
@@ -4496,8 +4780,13 @@ def side_process(out_path: str) -> int:
     t0 = time.perf_counter()
     paths, runs = kernel_free_phases(card)
     print(f"kernel-free phases: {time.perf_counter() - t0:.1f} s in the second process [{card}]")
+    t0 = time.perf_counter()
+    ladder = ladder_side_phase(card)
+    paths.update(ladder["paths"])
+    print(f"ladder phase: {time.perf_counter() - t0:.1f} s in the second process [{card}]")
     with open(out_path, "w") as f:
-        json.dump({"paths": paths, "bf16": {k: r["bf16"] for k, r in runs.items()}}, f)
+        json.dump({"paths": paths, "bf16": {k: r["bf16"] for k, r in runs.items()},
+                   "ladder": ladder["entries"]}, f)
     return 0
 
 
@@ -4763,6 +5052,17 @@ def main() -> int:
         train_runs.update(hpx_runs)
         tick("HEALPix Swin (both)")
 
+        # the ladder's attention rows: the Swin at head dims 56, 80 and 120,
+        # Pangu at batch 1 and 2, the windowed Swin at 2.0 degrees, the Swin
+        # in bf16 compute (the kernel-free rows and the matrices run in the
+        # second process)
+        ladder_dir = tempfile.mkdtemp(prefix="chip_smoke_ladder_")
+        ladder_out = os.path.join(ladder_dir, "ladder.json")
+        t_ladder = time.perf_counter()
+        paths.update(run_ladder_rows(card, ladder_out, LADDER_CARD_ROWS))
+        ladder_s = time.perf_counter() - t_ladder
+        tick("ladder rows")
+
         # the second process's paths: the graph families, the ModernUNet
         # family and diffusion, Navier-Stokes and the recurrent models, the
         # spectral families
@@ -4773,6 +5073,18 @@ def main() -> int:
         side.stop()
     torch.set_num_threads(n_threads)
     clock("waiting for the kernel-free phases")
+    # the tables of the phase's ladder: both processes' rows at batch 1
+    t_ladder = time.perf_counter()
+    with open(ladder_out) as f:
+        entries = json.load(f)
+    with open(ladder_out, "w") as f:
+        json.dump({**entries, **side_res["ladder"]}, f, indent=1, sort_keys=True)
+    ladder_tables_of(card, ladder_out)
+    import shutil
+
+    shutil.rmtree(ladder_dir, ignore_errors=True)
+    print(f"ladder phase: {ladder_s + time.perf_counter() - t_ladder:.1f} s in this process "
+          f"(its rows and tables) [{card}]")
 
     flash = check_flash(card)
     flash_bwd = check_flash_bwd(card)
@@ -4818,9 +5130,11 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=f"{head['case']} q[{head['B']},{head['H']},{head['N']},{head['D']}] {head['dtype']}",
-            hpx_cases=[{k: c[k] for k in ("case", "B", "H", "N", "D", "bias", "dtype", "max_abs_err",
-                                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                       for c in cases if c["case"].startswith("hpx")],
+            **{f"{kind}_cases": [
+                {k: c[k] for k in ("case", "B", "H", "N", "D", "bias", "dtype", "max_abs_err",
+                                   "design", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}
+                for c in cases if c["case"].startswith(kind)] for kind in ("hpx", "ladder")},
         ))
     for name, layout, replaces, slice_path, largest in (
         ("window_attention_qkv", "token-major", f"{pa}:1349", "swin_win8_train", "swin8 stage0"),
@@ -4844,12 +5158,13 @@ def main() -> int:
                 bound_ms=head[f"{pre}bound_ms"], bound_by=head[f"{pre}bound_by"],
                 library_ms=head[f"library_{pre}ms"],
                 shape=f"{head['case']} qkv{head['shape']} nh {head['nh']} {head['dtype']}",
-                hpx_cases=[{"case": c["case"], "shape": c["shape"], "dtype": c["dtype"],
-                            "max_abs_err": c[err], **{k: c[pre + k] for k in (
-                                "ms", "bound_ms", "bound_by")},
-                            "plain_ms": c[f"plain_{pre}ms"], "library_ms": c[f"library_{pre}ms"]}
-                           for c in window if c["case"].startswith("hpx")
-                           and c["layout"] == layout],
+                **{f"{kind}_cases": [
+                    {"case": c["case"], "shape": c["shape"], "dtype": c["dtype"],
+                     "max_abs_err": c[err], **{k: c[pre + k] for k in (
+                         "ms", "bound_ms", "bound_by")},
+                     "plain_ms": c[f"plain_{pre}ms"], "library_ms": c[f"library_{pre}ms"]}
+                    for c in window if c["case"].startswith(kind) and c["layout"] == layout]
+                   for kind in ("hpx", "ladder")},
             ))
     fp32 = [c for c in packed if c["dtype"] == "float32"]
     head = next(c for c in fp32 if c["case"] == "pangu stage1 shifted")

@@ -54,6 +54,7 @@ from dlwpbench_tpu_torch.grids.latlon import LatLonGrid
 from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.training.config import load_config, load_saved_config
 from dlwpbench_tpu_torch.training.trainer import Trainer, load_checkpoint
+from dlwpbench_tpu_torch.utils.device import no_tf32
 
 CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs"
@@ -77,12 +78,6 @@ def _climatology(outputs: np.ndarray):
         f"{outputs.shape}); ACC not computed"
     )
     return None
-
-
-def _no_tf32():
-    """fp32 means fp32: no TF32 in matmuls or cuDNN convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _matplotlib_missing() -> str | None:
@@ -185,7 +180,7 @@ def evaluate(overrides: list[str], weights: str | None = None, batch_size: int =
     """Evaluate a model composed from `configs/` and overrides; returns
     what `_evaluate_model` returns."""
     dev = resolve_device(device)
-    _no_tf32()
+    no_tf32()
     cfg = load_config(CONFIG_DIR, overrides=overrides)
     model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 0)),
                                  grid_shape=registry.data_grid_shape(cfg.data))
@@ -220,7 +215,7 @@ def evaluate_run(run_dir: str, batch_size: int = 8, sequence_length: int = 17,
     """Evaluate the best checkpoint of a training run (a diffusion run's
     EMA weights) into `run_dir/evaluation`; returns what `_evaluate_model`
     returns."""
-    _no_tf32()
+    no_tf32()
     cfg, model, state = restore_run(run_dir, device)
     which = "raw" if state.ema is None else "EMA"
     print(f"Restored {cfg.model.name} (epoch {state.epoch}, {which} weights)")

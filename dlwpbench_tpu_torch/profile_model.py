@@ -39,51 +39,8 @@ import sys
 import numpy as np
 import torch
 
-
-def model_zoo(B: int, H: int, W: int, Cc: int = 4, Cp: int = 1, Cq: int = 8) -> dict:
-    """The JAX benchmark zoo (`scripts/benchmark_models.py:23-80`) at its
-    widths: each entry a function that builds the port's model."""
-    from dlwpbench_tpu_torch.models.convlstm import ConvLSTM
-    from dlwpbench_tpu_torch.models.distana import DISTANA
-    from dlwpbench_tpu_torch.models.fno import FNO2DModule, TFNO2DModule
-    from dlwpbench_tpu_torch.models.fourcastnet import FourCastNet
-    from dlwpbench_tpu_torch.models.graphcast import GraphCastNet
-    from dlwpbench_tpu_torch.models.mgn import MeshGraphNet
-    from dlwpbench_tpu_torch.models.modern_unet import DiffModernUNet, ModernUNet
-    from dlwpbench_tpu_torch.models.pangu import PanguWeather
-    from dlwpbench_tpu_torch.models.sfno import SFNO2DModule
-    from dlwpbench_tpu_torch.models.swin import SwinTransformer
-    from dlwpbench_tpu_torch.models.unet import UNet
-
-    kw = dict(constant_channels=Cc, prescribed_channels=Cp, prognostic_channels=Cq)
-    return {
-        "convlstm": lambda: ConvLSTM(hidden_sizes=(64, 64), **kw),
-        "unet": lambda: UNet(hidden_channels=(64, 128, 256), **kw),
-        "modernunet": lambda: ModernUNet(hidden_channels=(64, 128, 256), norm=True, **kw),
-        "fno2d": lambda: FNO2DModule(hidden_channels=32, n_layers=4, grid_shape=(H, W), **kw),
-        "tfno2d": lambda: TFNO2DModule(hidden_channels=32, n_layers=4, rank=0.8,
-                                       grid_shape=(H, W), **kw),
-        "fourcastnet": lambda: FourCastNet(img_height=H, img_width=W, patch_size=(1, 1),
-                                           embed_dim=128, depth=6, num_blocks=8, **kw),
-        "sfno2d": lambda: SFNO2DModule(embed_dim=128, num_layers=4, height=H, width=W, **kw),
-        # heads chosen so that head_dim is 32 (the flash kernel's) at both stages
-        "swin": lambda: SwinTransformer(img_height=H, img_width=W, embed_dim=96, depths=(4, 4),
-                                        num_heads=(3, 6), use_flash_attention=True, **kw),
-        "pangu": lambda: PanguWeather(embed_dim=96, num_heads=(6, 12, 12, 6), patch_size=(1, 1),
-                                      n_lat=H, n_lon=W, **kw),
-        "mgn": lambda: MeshGraphNet(
-            processor_size=4, hidden_dim_processor=64, hidden_dim_node_encoder=64,
-            hidden_dim_edge_encoder=64, hidden_dim_node_decoder=64, graph_type="delaunay", **kw),
-        "graphcast": lambda: GraphCastNet(input_height=H, input_width=W, mesh_level=3,
-                                          processor_layers=4, hidden_dim=128, **kw),
-        "distana": lambda: DISTANA(hidden_size=64, layers=4, **kw),
-        # the reference's `diffusion_modernunet.yaml` width; its rollout runs
-        # the whole refinement loop (num_refinement_step + 1 forwards a step)
-        "diffusion": lambda: DiffModernUNet(
-            hidden_channels=(64, 128, 256, 1024), context_size=2, num_refinement_step=5,
-            norm=True, use_scale_shift_norm=True, **kw),
-    }
-
+from dlwpbench_tpu_torch.benchmark_models import model_zoo
+from dlwpbench_tpu_torch.utils.device import entry_device, no_tf32, sync
 
 ATTENTION_OPS = ("flash_window_attention", "window_attention_qkv", "packed_window_attention")
 
@@ -115,10 +72,9 @@ def main(argv=None) -> dict:
     from dlwpbench_tpu_torch.training.trainer import Trainer
     from dlwpbench_tpu_torch.utils import profiling
 
-    device = torch.device(args.device)
+    device = entry_device(args.device, "profile_model")
+    no_tf32()
     card = device.type == "cuda"
-    if card and not torch.cuda.is_available():
-        raise SystemExit("profile_model: no CUDA card; pass --device cpu to profile the CPU")
     B, T = args.batch, args.seq
     H, W = (int(x) for x in args.grid.split("x"))
     Cc, Cp, Cq = 4, 1, 8
@@ -130,10 +86,6 @@ def main(argv=None) -> dict:
     r = np.random.default_rng(0)
     const, pres, prog = (torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(device)
                          for s in ((B, 1, Cc, H, W), (B, T, Cp, H, W), (B, T, Cq, H, W)))
-
-    def sync():
-        if card:
-            torch.cuda.synchronize(device)
 
     if args.train:
         if hasattr(model, "remat"):
@@ -147,14 +99,14 @@ def main(argv=None) -> dict:
 
         def run():
             trainer.train_step(state, batch, 1e-3)
-            sync()
+            sync(device)
     else:
         model.eval()
 
         def run():
             with torch.no_grad():
                 model(const, pres, prog)
-            sync()
+            sync(device)
 
     run()  # kernel builds and first-call work outside the trace
 

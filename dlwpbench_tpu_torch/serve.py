@@ -79,14 +79,14 @@ def main(argv=None) -> dict:
 
     from dlwpbench_tpu_torch import resolve_device
     from dlwpbench_tpu_torch.data.sources import build_datasets
-    from dlwpbench_tpu_torch.evaluate import _no_tf32
     from dlwpbench_tpu_torch.evaluation import evaluate as E
     from dlwpbench_tpu_torch.grids.latlon import LatLonGrid
     from dlwpbench_tpu_torch.training.config import load_saved_config
+    from dlwpbench_tpu_torch.utils.device import no_tf32
     from dlwpbench_tpu_torch.utils.export import load_exported
 
     dev = resolve_device(args.device)
-    _no_tf32()
+    no_tf32()
     run, meta = load_exported(args.artifact, device=str(dev))
     cfg = load_saved_config(args.run_dir)
     seq = int(meta["shapes"]["prog"][1])

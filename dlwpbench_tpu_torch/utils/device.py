@@ -1,6 +1,7 @@
 """Geometry tables kept on the device, shared by the grids, the ops and
 the models (it sits below all three, so none of them imports another just
-to reach it), and the models' test for the card's attention routes."""
+to reach it), the models' test for the card's attention routes, and the
+measurement entries' device helpers."""
 
 from __future__ import annotations
 
@@ -40,3 +41,28 @@ def on_card(x: torch.Tensor) -> bool:
     launches the kernels where it is served on the card (on CPU tensors
     the registered operators run their plain versions)."""
     return x.is_cuda or torch.compiler.is_exporting()
+
+
+def entry_device(name: str, entry: str) -> torch.device:
+    """A measurement entry's `--device` as a torch device: the card unless
+    it is `cpu`.  Where the card is asked for and there is none, the entry
+    ends (SystemExit, naming `entry`); no silent fallback to the CPU."""
+    from dlwpbench_tpu_torch import resolve_device
+
+    try:
+        return resolve_device(name)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"{entry}: {e}") from None
+
+
+def no_tf32() -> None:
+    """fp32 means fp32, as in the train and evaluate entries: no TF32 in
+    matmuls or cuDNN convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card's work on `device` (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
