@@ -10,13 +10,15 @@ They run in this order: the card (1); the build (2) in a thread while
 this process drives the U-Net's paths of 4, which launch no attention
 kernel; the attention paths of 4; then, once the second process has
 ended, the kernel checks (3), the distributed phase and the profile
-entry.  A second process of this script (`SideProcess`), started before
+entry.  A second process of this script (`ScriptProcess`), started before
 the build, runs the kernel-free phases of 4 (the graph families, the
 ModernUNet family, Navier-Stokes, the spectral families) beside the
 build and the attention paths: the card waits on the host for most of
-each path, so the two overlap.  The paths' seconds, busy shares and
-rates are taken while the two processes share the card and the host;
-the kernel checks and the distributed phase run alone.
+each path, so the two overlap.  A third, started once the kernels are
+built, runs the analysis entries' ranks beside the attention paths.  The
+paths' seconds, busy shares and rates are taken while the processes
+share the card and the host; the kernel checks and the distributed phase
+run alone.
 
 1. the card: CUDA must be available; prints its name and power limit;
 2. builds every kernel under `dlwpbench_tpu_torch/ops/csrc/` from source,
@@ -252,6 +254,22 @@ the kernel checks and the distributed phase run alone.
      the ladder's rows give a kernel (the Swin's flash shapes at head dims
      56, 80 and 120, Pangu's 5D stage 1 at batch 2, the 90x180 token-major
      stages; `ladder_cases` in the `kernels` line);
+   - the analysis phase (`analysis_process`, `check_analysis`): the
+     multi-device analysis entries, each through its own `-m` ranks, in a
+     third process from the end of the build: `collective_microbench` on 2
+     gloo ranks sharing cuda:0 and on one NCCL rank (the byte audit of the
+     distributed spherical conv's forward and backward within 1% of the
+     model's claim, the all_to_all fit's four rows), `schedule_audit` on 2
+     gloo ranks (the ring attention's round launches the flash forward,
+     all on the mma design, one launch inside its exchange's window; the
+     fused SFNO's collectives, no attention launch; the K 1 and K 8 step
+     times), `benchmark_scaling` on 1 and 2 gloo ranks (the U-Net, no
+     attention launch, both rows timed) and with `--spatial 2` (the U-Net
+     on latitude rows over 2 ranks, halo exchanges between them); then, in
+     this process after the
+     join, `scaling_model` on the ladder phase's ladder and the phase's
+     microbench file; each output's backend and ranks per card printed;
+     the kernel checks of phase 3 include the ring's round (`ring_cases`);
 5. the run's seconds, the card line, the `kernels` line (the flash rows'
    `launches_by_path` with the distributed paths, per rank) and, last,
    `{"ok": true, ...}`.
@@ -436,6 +454,10 @@ FLASH_CASES = [
     ("ladder swin16m stage1 unshifted", 1, 6, 512, 80, 0, "random"),
     ("ladder swin32m stage0 shifted", 1, 3, 2048, 120, 1, "swin-shift"),
     ("ladder swin32m stage1 unshifted", 1, 6, 512, 120, 0, "random"),
+    # one round of the schedule audit's ring attention on 2 ranks (B 2, H
+    # 4, N 512, D 32, one bias group): this rank's 256 queries against one
+    # 256-token kv chunk and its bias columns
+    ("ring round (schedule audit, 2 ranks)", 2, 4, 256, 32, 1, "random"),
 ]
 # the global window of each shifted-bias kind: the Swin's 32 x 64 grid and
 # the HEALPix Swin's 24 x 32 rectangle of nside-8 faces
@@ -1162,18 +1184,9 @@ def build_for(cfg, model_cfg=None, **kwargs):
 
 def counters_of():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from dlwpbench_tpu_torch.ops import flash_attention as fa
-    from dlwpbench_tpu_torch.ops import packed_attention as pk
-    from dlwpbench_tpu_torch.ops import window_attention as wa
+    from dlwpbench_tpu_torch.ops import kernel_wrappers
 
-    return {"flash_window_attention": fa.flash_window_attention_fwd,
-            "flash_window_attention_bwd": fa.flash_window_attention_bwd,
-            "window_attention_qkv": wa.window_attention_qkv_fwd,
-            "window_attention_qkv_bwd": wa.window_attention_qkv_bwd,
-            "window_attention_qkv5d": wa.window_attention_qkv5d_fwd,
-            "window_attention_qkv5d_bwd": wa.window_attention_qkv5d_bwd,
-            "packed_window_attention": pk.packed_window_attention_fwd,
-            "packed_window_attention_bwd": pk.packed_window_attention_bwd}
+    return kernel_wrappers()
 
 
 def new_design_counter(fn):
@@ -4075,21 +4088,15 @@ DP_LOSS_RTOL = 1e-5
 DP_PARAM_ATOL = 1e-3 / 100  # training.learning_rate / 100
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn_ranks(work: str, n: int = DIST_RANKS) -> list:
     """Run `n` ranks (`dist_rank`) on the card, print their output, and
     return each rank's results; a rank that fails or hangs fails the
     script."""
     import pickle
 
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+    from dlwpbench_tpu_torch.parallel import launch
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()),
                WORLD_SIZE=str(n))
     code = "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank(sys.argv[1]))"
     procs = [subprocess.Popen([sys.executable, "-c", code, work], cwd=REPO,
@@ -4457,7 +4464,7 @@ def check_nccl_one_rank(card: str) -> dict:
 
     from dlwpbench_tpu_torch.parallel import launch
 
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
                             world_size=1, rank=0, device_id=torch.device("cuda:0"))
     try:
         x = torch.arange(4096, dtype=torch.float32, device="cuda")
@@ -4655,6 +4662,179 @@ def run_profile_paths(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- the analysis phase
+# The multi-device analysis entries on the card, each through its own `-m`
+# ranks (`launch.spawn_local`): 2 ranks share cuda:0 over gloo (NCCL
+# refuses two ranks on one card), the microbench once more on one NCCL
+# rank.  They run in a process of their own (`analysis_process`), started
+# once the kernels are built, beside this process's attention paths and
+# the second process's phases: each entry's ranks spend most of their
+# seconds reaching the card, which the paths beside them barely feel.
+# Their readings are taken while those paths run.  The scaling model runs
+# here after the join, on the phase's ladder.
+ANALYSIS_RANKS = 2
+BYTE_RATIO_TOL = 0.01  # the byte audit's all-to-all bytes within 1% of the model's claim
+ANALYSIS_TIMEOUT_S = 900
+
+
+def _entry(module: str, argv: list) -> dict:
+    """`dlwpbench_tpu_torch.<module>.main(argv)` in this process (the
+    launcher; its ranks are `python -m` processes of their own)."""
+    import importlib
+
+    return importlib.import_module(f"dlwpbench_tpu_torch.{module}").main(argv)
+
+
+def _attention_launches(launches: dict) -> int:
+    return sum(v for k, v in launches.items() if "." not in k)
+
+
+def analysis_process(out_path: str) -> int:
+    """The analysis phase's card part, in a process of its own
+    (`ScriptProcess`): `collective_microbench` on 2 gloo ranks and on one
+    NCCL rank, `schedule_audit` on 2 gloo ranks, `benchmark_scaling` on 1
+    and 2 gloo ranks and with `--spatial 2`; their outputs to `out_path` as
+    JSON (the microbench
+    file's content among them, for the scaling model)."""
+    sys.path.insert(0, REPO)
+    card = card_line()
+    clock = Clock("analysis", card)
+    t0 = time.perf_counter()
+    work = os.path.dirname(out_path)
+    n = str(ANALYSIS_RANKS)
+    mb_file = os.path.join(work, "collective_microbench.json")
+    res = {}
+    res["mb"] = _entry("collective_microbench", ["--devices", n, "--backend", "gloo",
+                                                 "--out", mb_file])
+    res["mb1"] = _entry("collective_microbench", ["--devices", "1", "--backend", "nccl", "--out",
+                                                  os.path.join(work, "microbench_nccl.json")])
+    clock("collective_microbench, 2 gloo ranks and 1 NCCL rank")
+    res["sa"] = _entry("schedule_audit", ["--devices", n, "--backend", "gloo", "--out", mb_file])
+    clock("schedule_audit, 2 gloo ranks")
+    res["scaling"] = _entry("benchmark_scaling", ["--devices", f"1,{n}", "--backend", "gloo",
+                                                  "--steps", "2", "--out",
+                                                  os.path.join(work, "scaling.json")])
+    clock("benchmark_scaling, 1 and 2 gloo ranks")
+    res["spatial"] = _entry("benchmark_scaling", ["--devices", n, "--spatial", n, "--backend",
+                                                  "gloo", "--steps", "2", "--out",
+                                                  os.path.join(work, "scaling_spatial.json")])
+    clock("benchmark_scaling --spatial 2, 2 gloo ranks")
+    with open(mb_file) as f:
+        res["microbench_json"] = json.load(f)  # the scaling model's input, after the join
+    res["seconds"] = time.perf_counter() - t0
+    print(f"analysis phase: {res['seconds']:.1f} s in its own process [{card}]")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def check_analysis(card: str, res: dict, ladder_file: str) -> dict:
+    """The phase "analysis", its checks in this process: the byte ratio
+    within 1% of 1 on both microbench runs, the fit's rows; the ring's
+    rounds launch the flash forward, all on the mma design, and nothing
+    else launches an attention kernel; both audits' collectives; both
+    scaling rows; then `scaling_model` on the ladder phase's ladder and
+    the phase's microbench file, no row with an error.  Returns each
+    path's launches by kernel."""
+    t0 = time.perf_counter()
+    paths, failures = {}, []
+    for label, r in (("microbench gloo", res["mb"]), ("microbench nccl", res["mb1"])):
+        audit, timing = r["byte_audit"], r["timing"]
+        ok = (abs(audit["ratio_vs_model"] - 1.0) <= BYTE_RATIO_TOL
+              and len(set(audit["all_to_all_bytes_by_rank"])) == 1
+              and [row["payload_mb"] for row in timing["rows"]] == [1, 4, 16, 64]
+              and all(row["time_s"] > 0 for row in timing["rows"])
+              and not _attention_launches(r["attention_launches"]))
+        paths[f"analysis_{label.replace(' ', '_')}"] = r["attention_launches"]
+        bw = timing["effective_bw_gbps"]
+        print(f"collective_microbench ({label}, {r['devices']} rank(s), backend "
+              f"{r['backend']}, ranks_per_card {r['ranks_per_card']}): all-to-all "
+              f"{audit['all_to_all_bytes_per_device']:,} B a rank against the model's "
+              f"{audit['model_claim_bytes_per_device']:,} (ratio {audit['ratio_vs_model']:.6f}, "
+              f"tol {BYTE_RATIO_TOL}), every collective {audit['collective_bytes_per_device']}; "
+              "all_to_all " + ", ".join(f"{row['payload_mb']} MB {row['time_s'] * 1e3:.4f} ms"
+                                        for row in timing["rows"])
+              + f"; fit latency {timing['latency_s'] * 1e3:.4f} ms, bandwidth "
+              f"{'n/a' if bw is None else f'{bw:.4f}'} GB/s, R^2 {timing['r2_linear_in_bytes']}"
+              f" {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(label)
+    sa = res["sa"]
+    ring, sfno = sa["ring_attention"], sa["fused_sfno"]
+    fl = ring["attention_launches"]
+    ring_ok = (fl["flash_window_attention"] > 0
+               and fl["flash_window_attention.mma"] == fl["flash_window_attention"]
+               and _attention_launches(fl) == fl["flash_window_attention"]
+               and ring["n_collectives"] == ANALYSIS_RANKS - 1
+               and ring["n_collectives_with_zero_overlap_window"] == 0)
+    sfno_ok = sfno["n_collectives"] > 0 and not _attention_launches(sfno["attention_launches"])
+    paths["analysis_ring_audit"] = fl
+    paths["analysis_sfno_audit"] = sfno["attention_launches"]
+    for label, a, ok in (("ring attention", ring, ring_ok), ("fused SFNO", sfno, sfno_ok)):
+        windows = "; ".join(
+            f"{w['name']} {w['independent_compute_ops']} launch(es) inside, "
+            f"{w['overlapped_device_us']} device us overlapped" for w in a.get("windows", []))
+        print(f"schedule_audit {label} ({sa['backend']}, ranks_per_card {sa['ranks_per_card']}): "
+              f"{a['n_collectives']} collectives, {a['n_compute_ops']} compute launches, zero "
+              f"windows {a['n_collectives_with_zero_overlap_window']}, min independent "
+              f"{a['min_independent_compute']}, overlapped device "
+              f"{a['overlapped_device_us']} us{'; ' + windows if windows else ''}; launches "
+              f"{ {k: v for k, v in a['attention_launches'].items() if v} } "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"schedule_audit {label}")
+    K = sa["fused_step_time_s"]
+    print(f"fused SFNO step, {ANALYSIS_RANKS} ranks on one card: K1 {K['K1'] * 1e3:.4f} ms, K8 "
+          f"{K['K8'] * 1e3:.4f} ms (K8/K1 {K['K8'] / K['K1']:.3f}; CUDA events) [{card}]")
+    for count in ("1", str(ANALYSIS_RANKS)):
+        row = res["scaling"].get(count, {"error": "missing"})
+        ok = ("error" not in row and row["step_s"] > 0
+              and not _attention_launches(row["attention_launches"]))
+        if "error" in row:
+            print(f"benchmark_scaling {count} rank(s): FAILED {row['error']}")
+        else:
+            paths[f"analysis_scaling_{count}"] = row["attention_launches"]
+            print(f"benchmark_scaling {count} rank(s) ({row['backend']}, ranks_per_card "
+                  f"{row['ranks_per_card']}): {row['step_s'] * 1e3:.2f} ms a step, "
+                  f"{row['gridpoints_per_s']:,.1f} grid-points/s, efficiency "
+                  f"{row['efficiency']:.4f} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"benchmark_scaling {count}")
+    row = res["spatial"].get(str(ANALYSIS_RANKS), {"error": "missing"})
+    base = res["scaling"].get("1", {})
+    ok = ("error" not in row and row["mesh"] == f"1x{ANALYSIS_RANKS}" and row["step_s"] > 0
+          and not _attention_launches(row["attention_launches"]))
+    if "error" in row:
+        print(f"benchmark_scaling --spatial {ANALYSIS_RANKS}: FAILED {row['error']}")
+    else:
+        paths["analysis_scaling_spatial"] = row["attention_launches"]
+        print(f"benchmark_scaling --spatial {ANALYSIS_RANKS} (mesh {row['mesh']}, the U-Net on "
+              f"latitude rows, {row['backend']}, ranks_per_card {row['ranks_per_card']}): "
+              f"{row['step_s'] * 1e3:.2f} ms a step at global batch {row['global_batch']}, "
+              f"{row['gridpoints_per_s']:,.1f} grid-points/s (one rank at batch "
+              f"{base.get('global_batch')}: {base.get('step_s', 0) * 1e3:.2f} ms) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        failures.append("benchmark_scaling --spatial")
+    work = os.path.dirname(ladder_file)
+    mb_file = os.path.join(work, "collective_microbench.json")
+    with open(mb_file, "w") as f:
+        json.dump(res["microbench_json"], f)
+    model = _entry("scaling_model", ["--ladder", ladder_file, "--microbench", mb_file,
+                                     "--training", os.path.join(work, "absent.json"), "--out",
+                                     os.path.join(work, "scaling_model.json")])
+    rows = {k: v for k, v in model.items() if not k.startswith("_")}
+    print(f"scaling_model inputs: {model['_inputs']}; {len(rows)} rows, link "
+          f"{sorted({v['link_source'] for v in rows.values()})}")
+    if not rows or any("error" in v for v in rows.values()):
+        failures.append("scaling_model")
+    print(f"analysis phase: {res['seconds']:.1f} s in its own process beside the paths, "
+          f"{time.perf_counter() - t0:.1f} s here (its checks and the scaling model) [{card}]")
+    if failures:
+        raise SystemExit(f"analysis phase failed: {failures}")
+    return paths
+
+
 SHARED_DRAWS_ENV = "CHIP_SMOKE_SHARED_DRAWS"
 
 
@@ -4766,7 +4946,7 @@ def side_threads() -> int:
 
 
 def side_process(out_path: str) -> int:
-    """The second process of the run (`SideProcess`): `kernel_free_phases`
+    """The second process of the run (`ScriptProcess`): `kernel_free_phases`
     on the card, its results written to `out_path` as JSON (each path's
     launch counts, each training run's bf16-instance launches)."""
     import torch
@@ -4793,35 +4973,43 @@ def side_process(out_path: str) -> int:
 SIDE_TIMEOUT_S = 1100
 
 
-class SideProcess:
-    """`side_process` in a second process of this script, started before the
-    build: the card waits on the host for most of every path (the busy
-    shares printed), so the kernel-free phases and the build and attention
-    paths of this process overlap.  The paths' seconds, busy shares and
-    rates are taken while the two processes share the card and the host;
-    the kernel checks and the distributed phase run after `join`, alone.
-    Its output is kept in a file and printed at `join`."""
+class ScriptProcess:
+    """`entry(out_path)` of this script in a process of its own (its own
+    session, so that `stop` ends it with every rank it started), its
+    output kept in a file and printed at `join`.  The second process
+    (`side_process`) starts before the build: the card waits on the host
+    for most of every path (the busy shares printed), so the kernel-free
+    phases and the build and attention paths of this process overlap.  The
+    analysis process (`analysis_process`) starts once the kernels are
+    built, beside the attention paths.  The paths' seconds, busy shares and
+    rates are taken while the processes share the card and the host; the
+    kernel checks and the distributed phase run after `join`, alone."""
 
-    def __init__(self):
-        self.work = tempfile.mkdtemp(prefix="chip_smoke_side_")
-        self.log_path = os.path.join(self.work, "side.log")
-        self.out_path = os.path.join(self.work, "side.json")
-        os.makedirs(os.path.join(self.work, "draws"))
-        os.environ[SHARED_DRAWS_ENV] = os.path.join(self.work, "draws")
-        code = "import sys, chip_smoke; sys.exit(chip_smoke.side_process(sys.argv[1]))"
+    def __init__(self, entry: str, what: str, timeout_s: float, share_draws: bool = False):
+        self.what, self.timeout_s, self.share_draws = what, timeout_s, share_draws
+        self.work = tempfile.mkdtemp(prefix=f"chip_smoke_{entry}_")
+        self.log_path = os.path.join(self.work, f"{entry}.log")
+        self.out_path = os.path.join(self.work, f"{entry}.json")
+        env = dict(os.environ)
+        if share_draws:
+            os.makedirs(os.path.join(self.work, "draws"))
+            env[SHARED_DRAWS_ENV] = os.environ[SHARED_DRAWS_ENV] = os.path.join(self.work,
+                                                                               "draws")
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}(sys.argv[1]))"
         with open(self.log_path, "w") as log:
             self.proc = subprocess.Popen([sys.executable, "-u", "-c", code, self.out_path],
-                                         cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+                                         cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                         start_new_session=True)
         self.t0 = time.perf_counter()
 
     def _fail(self, why: str):
         self.stop(keep_log=True)
         with open(self.log_path) as f:
             sys.stdout.write(f.read())
-        raise SystemExit(f"the kernel-free phases' process {why}")
+        raise SystemExit(f"the process of {self.what} {why}")
 
     def check(self):
-        """Fails the run at once if the second process has failed."""
+        """Fails the run at once if the process has failed."""
         rc = self.proc.poll()
         if rc not in (None, 0):
             self._fail(f"exited {rc}")
@@ -4829,27 +5017,35 @@ class SideProcess:
     def join(self, card: str) -> dict:
         t_wait = time.perf_counter()
         try:
-            self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT_S - (t_wait - self.t0)))
+            self.proc.wait(timeout=max(1.0, self.timeout_s - (t_wait - self.t0)))
         except subprocess.TimeoutExpired:
-            self._fail(f"was still running after {SIDE_TIMEOUT_S} s")
+            self._fail(f"was still running after {self.timeout_s} s")
         if self.proc.returncode != 0:
             self._fail(f"exited {self.proc.returncode}")
-        print("---- the kernel-free phases, run in a second process beside the phases above: "
+        print(f"---- {self.what}, run in a process of its own beside the phases above: "
               "its output ----")
         with open(self.log_path) as f:
             sys.stdout.write(f.read())
-        print(f"---- the second process ran {time.perf_counter() - self.t0:.1f} s; this one "
+        print(f"---- that process ran {time.perf_counter() - self.t0:.1f} s; this one "
               f"waited {time.perf_counter() - t_wait:.1f} s for it [{card}] ----")
         with open(self.out_path) as f:
             return json.load(f)
 
     def stop(self, keep_log: bool = False):
-        """Kills the process if it still runs; removes its files and the
-        shared draws."""
+        """Ends the process and what it started if it still runs; removes
+        its files (and the shared draws)."""
+        import signal
+
         if self.proc.poll() is None:
-            self.proc.kill()
+            os.killpg(self.proc.pid, signal.SIGKILL)
             self.proc.wait()
-        os.environ.pop(SHARED_DRAWS_ENV, None)
+        else:  # its ranks, should any have outlived it
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if self.share_draws:
+            os.environ.pop(SHARED_DRAWS_ENV, None)
         if not keep_log:
             import shutil
 
@@ -4890,7 +5086,9 @@ def main() -> int:
     # distributed phase wait for it and run alone
     n_threads = torch.get_num_threads()
     torch.set_num_threads(side_threads())
-    side = SideProcess()
+    side = ScriptProcess("side_process", "the kernel-free phases", SIDE_TIMEOUT_S,
+                         share_draws=True)
+    analysis = None
     try:
         paths, fused_by_path, bf16_by_path = {}, {}, {}
         train_runs = {}
@@ -4898,6 +5096,8 @@ def main() -> int:
         def tick(step: str):
             clock(step)
             side.check()
+            if analysis is not None:
+                analysis.check()
 
         # while nvcc builds: the U-Net at bench.py's shape (the evaluate
         # CLI in fp32, the same rollout in fp32 and bf16, card vs CPU on 2
@@ -4936,6 +5136,9 @@ def main() -> int:
             building.result()
         for line in build_log:
             print(line)
+        # the analysis entries, in a process of their own from here on (the
+        # schedule audit's ring needs the flash kernel)
+        analysis = ScriptProcess("analysis_process", "the analysis phase", ANALYSIS_TIMEOUT_S)
         tick("build (the time past the U-Net paths)")
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out_dir:
@@ -5066,11 +5269,14 @@ def main() -> int:
         # the second process's paths: the graph families, the ModernUNet
         # family and diffusion, Navier-Stokes and the recurrent models, the
         # spectral families
+        analysis_res = analysis.join(card)
         side_res = side.join(card)
         paths.update(side_res["paths"])
         bf16_by_path.update(side_res["bf16"])
     finally:
         side.stop()
+        if analysis is not None:
+            analysis.stop()
     torch.set_num_threads(n_threads)
     clock("waiting for the kernel-free phases")
     # the tables of the phase's ladder: both processes' rows at batch 1
@@ -5080,11 +5286,13 @@ def main() -> int:
     with open(ladder_out, "w") as f:
         json.dump({**entries, **side_res["ladder"]}, f, indent=1, sort_keys=True)
     ladder_tables_of(card, ladder_out)
+    print(f"ladder phase: {ladder_s + time.perf_counter() - t_ladder:.1f} s in this process "
+          f"(its rows and tables) [{card}]")
+    # the analysis phase's checks and the scaling model on this run's ladder
+    paths.update(check_analysis(card, analysis_res, ladder_out))
     import shutil
 
     shutil.rmtree(ladder_dir, ignore_errors=True)
-    print(f"ladder phase: {ladder_s + time.perf_counter() - t_ladder:.1f} s in this process "
-          f"(its rows and tables) [{card}]")
 
     flash = check_flash(card)
     flash_bwd = check_flash_bwd(card)
@@ -5134,7 +5342,8 @@ def main() -> int:
                 {k: c[k] for k in ("case", "B", "H", "N", "D", "bias", "dtype", "max_abs_err",
                                    "design", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
-                for c in cases if c["case"].startswith(kind)] for kind in ("hpx", "ladder")},
+                for c in cases if c["case"].startswith(kind)]
+               for kind in ("hpx", "ladder", "ring")},
         ))
     for name, layout, replaces, slice_path, largest in (
         ("window_attention_qkv", "token-major", f"{pa}:1349", "swin_win8_train", "swin8 stage0"),

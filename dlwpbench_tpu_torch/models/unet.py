@@ -16,6 +16,15 @@ Submodules carry the flax auto-names of the JAX model: `GeoConv_k` in
 creation order across the encoder, the decoder and the head, and
 `GeoConvTranspose_k` in decoder order.
 
+With `spmd_mesh` (a `DeviceMesh`, `parallel/launch.py::global_mesh`; the
+equirectangular mesh) every step runs on this rank's block of latitude
+rows over the mesh dim `dist_axis`, between `launch.scatter_to_ranks` and
+`launch.gather_from_ranks`: each 3x3 conv takes the rows above and below
+from the neighbouring ranks (`GeoConv.row_group`), pools and transposed
+convs act on the local rows, which must stay even at every level.  Each
+rank's weight gradients are its rows' share; `partition_group` names the
+group they are summed over, as for the spectral models (the trainer does).
+
 `UNetHPX` is the same network with `mesh="healpix"`: fields are
 [B, 12, n, n, C] inside, every conv pads each face from its neighbours
 (`ops/padding.py::healpix_pad_channels_last`) and runs on the faces folded
@@ -28,11 +37,13 @@ import functools
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import init_like_flax_
 from dlwpbench_tpu_torch.ops.conv import GeoConv, GeoConvTranspose, avg_pool_2x, get_activation
+from dlwpbench_tpu_torch.parallel import launch
 
 
 class UNet(RolloutModel):
@@ -53,6 +64,8 @@ class UNet(RolloutModel):
         remat: bool = False,
         remat_policy: str = "full",
         seed: int = 0,
+        spmd_mesh: Any = None,
+        dist_axis: str = "x",
     ):
         super().__init__(context_size, remat, remat_policy)
         self.mesh = mesh
@@ -97,9 +110,25 @@ class UNet(RolloutModel):
         self.head = f"GeoConv_{convs}"
         setattr(self, self.head, GeoConv(ch, int(prognostic_channels), 1, mesh=mesh))
         init_like_flax_(self, torch.Generator().manual_seed(int(seed)))
+        if spmd_mesh is not None:
+            if mesh != "equirectangular":
+                raise ValueError(f"spmd_mesh splits latitude rows: the equirectangular mesh "
+                                 f"only, not {mesh!r}")
+            self.partition_group = launch.axis(spmd_mesh, dist_axis)[0]
+            for m in self.modules():
+                if isinstance(m, GeoConv):
+                    m.row_group = self.partition_group
 
     def step(self, x: torch.Tensor, state: Any, aux: Any = None):
         n_levels = len(self.hidden_channels)
+        group = self.partition_group
+        if group is not None:  # this rank's latitude rows from here to the gather
+            unit = dist.get_world_size(group) * 2 ** (n_levels - 1)
+            if x.shape[1] % unit:
+                raise ValueError(f"{x.shape[1]} latitude rows do not split into blocks that stay "
+                                 f"even at every level over {dist.get_world_size(group)} ranks "
+                                 f"(a multiple of {unit})")
+            x = launch.scatter_to_ranks(x, 1, group)
         skips = []
         for lvl, names in enumerate(self.enc):
             if lvl > 0:
@@ -123,7 +152,8 @@ class UNet(RolloutModel):
                 x = self.act(getattr(self, name)(x))
             if i < n_levels - 1:
                 x = getattr(self, f"GeoConvTranspose_{i}")(x)
-        return getattr(self, self.head)(x), state
+        out = getattr(self, self.head)(x)
+        return (out if group is None else launch.gather_from_ranks(out, 1, group)), state
 
 
 class UNetHPX(UNet):

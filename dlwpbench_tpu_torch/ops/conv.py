@@ -89,7 +89,15 @@ class GeoConv(nn.Module):
 
     Kernels > 1 are padded by (k // 2) * dilation with the mesh's boundary
     condition and convolved without further padding, as the JAX module's
-    pad-then-VALID; 1x1 convs skip padding."""
+    pad-then-VALID; 1x1 convs skip padding.
+
+    `row_group` (set by a model with `spmd_mesh`; equirectangular only):
+    the field's latitude rows are split over the ranks of that group, and
+    the rows above and below come from the neighbouring ranks
+    (`parallel/halo.py::halo_exchange_rows`, zero rows at the poles) in
+    place of the conv's own zero padding."""
+
+    row_group = None
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  mesh: str = "equirectangular", strides: int = 1, use_bias: bool = True,
@@ -106,6 +114,13 @@ class GeoConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.pad
+        if p and self.row_group is not None:
+            from dlwpbench_tpu_torch.parallel.halo import halo_exchange_rows
+
+            x = _circular(x, p, 2)  # longitude, then the neighbours' rows
+            x = halo_exchange_rows(x.movedim(-1, 1), p, self.row_group).movedim(1, -1)
+            c = self.Conv_0
+            return _nchw(lambda t: F.conv2d(t, c.weight, c.bias, c.stride, 0, c.dilation), x)
         if p and self.mesh == "healpix":
             # pad the faces from their neighbours; one conv over the folded faces
             x = healpix_pad_channels_last(x, p)

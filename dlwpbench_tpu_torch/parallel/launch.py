@@ -26,12 +26,31 @@ copies a CUDA operand to a pinned host buffer, runs the gloo call on it
 and copies the result back to the card (`_staged`).  That is gloo's
 transport for device tensors, chosen by the group's backend; the compute
 around it stays on the card.
+
+The analysis entries (`collective_microbench`, `schedule_audit`,
+`benchmark_scaling`) read two things off these collectives:
+- `count_bytes()`, a tally of the bytes of each call's result on this
+  rank, by collective kind (JAX's HLO kinds: "all-to-all", "all-reduce",
+  "all-gather", "reduce-scatter", and "collective-permute" for an
+  `Exchange`'s receives), the counterpart of summing the result shapes of
+  the per-device HLO (`scripts/collective_microbench.py:48-79`);
+- a `torch.profiler.record_function` range around every collective,
+  `dlwpbench.collective.<kind>`, and two around an `Exchange`, at its
+  post (`...collective-permute.post`) and at its `wait`
+  (`...collective-permute.wait`), so that a trace shows each exchange's
+  window.
+`spawn_local` starts the ranks of such an entry on this host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import socket
+import subprocess
+import sys
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -39,6 +58,9 @@ import torch.distributed as dist
 
 DEFAULT_PORT = "12355"  # the reference's default MASTER_PORT
 TIMEOUT_S = 600.0  # a collective that waits longer raises
+RENDEZVOUS_S = 60.0  # the process-group timeout of a rank that `spawn_local` starts
+CHILD_TIMEOUT_S = 1800.0  # a rank that `spawn_local` starts and that runs longer is killed
+RANGE_PREFIX = "dlwpbench.collective."
 
 
 # ----------------------------------------------------------------------
@@ -159,6 +181,86 @@ def rank_device(device: torch.device) -> torch.device:
     return torch.device("cuda", idx)
 
 
+def free_port() -> int:
+    """A TCP port on this host that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_local(module: str, n: int, argv: Sequence[str], backend: str,
+                timeout_s: float = CHILD_TIMEOUT_S) -> list[str]:
+    """Run `n` ranks of `python -m module *argv --backend backend` on this
+    host, with the torch-style variables on a free port (RANK and
+    LOCAL_RANK r, WORLD_SIZE n), in the caller's working directory; each
+    rank is killed after `timeout_s`.  Returns each rank's output (stdout
+    and stderr) in rank order; raises RuntimeError with a failing rank's
+    output."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(n),
+               PYTHONPATH=os.pathsep.join(filter(None, (root, os.environ.get("PYTHONPATH")))))
+    cmd = [sys.executable, "-m", module, *argv, "--backend", backend]
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{module}: a rank ran longer than {timeout_s:.0f} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{module} rank {r} of {n} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def entry_backend(backend: Optional[str], device: torch.device, n: int) -> str:
+    """The backend of an entry's `n` ranks on `device`: `backend`, or NCCL
+    on the card and gloo on the CPU.  NCCL on the CPU, or NCCL for more
+    ranks than this host has cards, raises ValueError; nothing switches to
+    gloo unasked."""
+    backend = backend or default_backend(device)
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: use nccl or gloo")
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("NCCL needs the card: pass --backend gloo with --device cpu")
+        if n > torch.cuda.device_count():
+            raise ValueError(f"NCCL for {n} ranks needs {n} cards and this host has "
+                             f"{torch.cuda.device_count()}; pass --backend gloo to share a card")
+    return backend
+
+
+def ranks_per_card(backend: str, device: torch.device, n: int) -> Optional[int]:
+    """How many of `n` ranks share each card (None on the CPU): gloo ranks
+    beyond the host's cards share them round-robin, NCCL's one each."""
+    if device.type != "cuda":
+        return None
+    return -(-n // torch.cuda.device_count())
+
+
+def join_entry_ranks(backend: str, device: torch.device) -> tuple[int, int, torch.device]:
+    """Join the job the environment names (a world of one included) as
+    one rank of an analysis entry; (rank, world size, this rank's device:
+    `cuda:{local rank % cards}` on the card)."""
+    spec = discover_spec()
+    if spec is None:
+        raise RuntimeError("no rank in the environment: start the entry's ranks with spawn_local")
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend=backend, timeout=datetime.timedelta(seconds=RENDEZVOUS_S),
+                            **spec)
+    return dist.get_rank(), dist.get_world_size(), device
+
+
 def global_mesh(data: Optional[int] = None, x: int = 1):
     """A `DeviceMesh` over every rank, dims ("data", "x"): data spanning
     hosts, x the model axis (`launch.py:90-98`, `mesh.py:26-38`).  Its
@@ -183,6 +285,59 @@ def axis(mesh, name: str) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# the byte tally
+# ----------------------------------------------------------------------
+
+
+class ByteTally:
+    """Bytes of the collectives' results on this rank, by kind, and the
+    number of calls of each kind."""
+
+    def __init__(self):
+        self.bytes: dict[str, int] = {}
+        self.calls: dict[str, int] = {}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+
+
+# the open tallies: process-wide, not a context variable, because autograd
+# runs a CUDA backward (and its collectives) on a device thread of its own
+_TALLIES: list = []
+_TALLIES_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def count_bytes():
+    """A `ByteTally` of every collective called in this process while the
+    block runs, forward and backward, whatever the thread: `all_reduce_`,
+    `all_gather_cat`, `all_to_all_single` / `all_to_all`, `reduce_scatter`
+    and each `Exchange`'s receives.  Blocks nest; each tally counts what
+    runs inside it."""
+    tally = ByteTally()
+    with _TALLIES_LOCK:
+        _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        with _TALLIES_LOCK:
+            _TALLIES.remove(tally)
+
+
+def _tally(kind: str, *tensors: torch.Tensor) -> None:
+    if _TALLIES:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        with _TALLIES_LOCK:
+            for t in _TALLIES:
+                t.add(kind, nbytes)
+
+
+def _range(kind: str):
+    return torch.profiler.record_function(RANGE_PREFIX + kind)
+
+
+# ----------------------------------------------------------------------
 # collectives (gloo moves CUDA tensors through pinned host memory)
 # ----------------------------------------------------------------------
 
@@ -204,60 +359,72 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group=None) -> None:
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        if _staged(group, flat):
-            host = _to_host(flat)
-            dist.all_reduce(host, group=group)
-            flat.copy_(host)
-        else:
-            dist.all_reduce(flat, group=group)
-        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
-            t.copy_(part.view_as(t))
+        with _range("all-reduce"):
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            if _staged(group, flat):
+                host = _to_host(flat)
+                dist.all_reduce(host, group=group)
+                flat.copy_(host)
+            else:
+                dist.all_reduce(flat, group=group)
+            _tally("all-reduce", flat)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Every rank's `x` (equal shapes) concatenated along `dim` in rank order."""
-    n = dist.get_world_size(group)
-    src = x.contiguous()
-    staged = _staged(group, src)
-    if staged:
-        src = _to_host(src)
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim)
-    return out.to(x.device, non_blocking=True) if staged else out
+    with _range("all-gather"):
+        n = dist.get_world_size(group)
+        src = x.contiguous()
+        staged = _staged(group, src)
+        if staged:
+            src = _to_host(src)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim=dim)
+        _tally("all-gather", out)
+        return out.to(x.device, non_blocking=True) if staged else out
 
 
-def all_to_all_single(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_to_all_single(x: torch.Tensor, group=None,
+                      kind: Optional[str] = "all-to-all") -> torch.Tensor:
     """Equal split of dim 0: slot j of `x` goes to rank j; the result's
-    slot i comes from rank i."""
-    src = x.contiguous()
-    staged = _staged(group, src)
-    if staged:
-        src = _to_host(src)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.to(x.device, non_blocking=True) if staged else out
+    slot i comes from rank i.  `kind` names the call in the byte tally and
+    its profiler range (None: neither, for a caller that tallies the call
+    as part of its own)."""
+    with _range(kind) if kind else contextlib.nullcontext():
+        src = x.contiguous()
+        staged = _staged(group, src)
+        if staged:
+            src = _to_host(src)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        if kind:
+            _tally(kind, out)
+        return out.to(x.device, non_blocking=True) if staged else out
 
 
 class _AllToAll(torch.autograd.Function):
     """`all_to_all_single` under autograd: with equal slots the exchange
-    is its own adjoint, so the backward is the same exchange."""
+    is its own adjoint, so the backward is the same exchange.  `kinds`:
+    the tally's and ranges' kind of the forward and of the backward
+    exchange."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_to_all_single(x, group)
+    def forward(ctx, x, group, kinds):
+        ctx.group, ctx.kind = group, kinds[1]
+        return all_to_all_single(x, group, kinds[0])
 
     @staticmethod
     def backward(ctx, g):
-        return all_to_all_single(g, ctx.group), None
+        return all_to_all_single(g, ctx.group, ctx.kind), None, None
 
 
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """`all_to_all_single` (slot j of dim 0 to rank j) that autograd
     differentiates."""
-    return _AllToAll.apply(x, group)
+    return _AllToAll.apply(x, group, ("all-to-all", "all-to-all"))
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
@@ -266,13 +433,18 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     `all_to_all` and a sum over the received partials, as gloo has no
     reduce-scatter of tensors: the same bytes as a reduce-scatter, and the
     backward (the all-to-all's own, then the sum's broadcast) is the
-    all-gather JAX derives."""
+    all-gather JAX derives.  The tally counts them as JAX's HLO names
+    them: the forward a "reduce-scatter" of its result (this rank's
+    chunk), the backward an "all-gather" of the whole cotangent."""
     n = dist.get_world_size(group)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
     d = dim % x.ndim
-    parts = x.reshape(*x.shape[:d], n, x.shape[d] // n, *x.shape[d + 1:]).movedim(d, 0)
-    return all_to_all(parts, group).sum(0)
+    with _range("reduce-scatter"):
+        parts = x.reshape(*x.shape[:d], n, x.shape[d] // n, *x.shape[d + 1:]).movedim(d, 0)
+        out = _AllToAll.apply(parts, group, (None, "all-gather")).sum(0)
+        _tally("reduce-scatter", out)
+    return out
 
 
 class Exchange:
@@ -280,32 +452,37 @@ class Exchange:
     (`batch_isend_irecv`).  `recvs` name the tensors to receive into;
     they hold the data once `wait()` has returned (on gloo with CUDA
     tensors, after the copy from their pinned host buffers).  Peers are
-    indices in `group`."""
+    indices in `group`.  The post and the wait each run in a profiler
+    range (`dlwpbench.collective.collective-permute.post` / `.wait`); the
+    tally counts the receives' bytes as a "collective-permute"."""
 
     def __init__(self, sends: Sequence[tuple], recvs: Sequence[tuple], group=None):
         """sends: (tensor, peer); recvs: (contiguous out tensor, peer)."""
         peer_of = (lambda i: i) if group is None else (
             lambda i: dist.get_global_rank(group, i))
-        ops, self._keep, self._copies = [], [], []
-        for t, peer in sends:
-            t = _to_host(t) if _staged(group, t) else t.contiguous()
-            self._keep.append(t)
-            ops.append(dist.P2POp(dist.isend, t, peer_of(peer), group))
-        for out, peer in recvs:
-            buf = out
-            if _staged(group, out):
-                buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                self._copies.append((out, buf))
-            ops.append(dist.P2POp(dist.irecv, buf, peer_of(peer), group))
-        self._works = dist.batch_isend_irecv(ops) if ops else []
+        with _range("collective-permute.post"):
+            ops, self._keep, self._copies = [], [], []
+            for t, peer in sends:
+                t = _to_host(t) if _staged(group, t) else t.contiguous()
+                self._keep.append(t)
+                ops.append(dist.P2POp(dist.isend, t, peer_of(peer), group))
+            for out, peer in recvs:
+                buf = out
+                if _staged(group, out):
+                    buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    self._copies.append((out, buf))
+                ops.append(dist.P2POp(dist.irecv, buf, peer_of(peer), group))
+            self._works = dist.batch_isend_irecv(ops) if ops else []
+            _tally("collective-permute", *(out for out, _ in recvs))
 
     def wait(self) -> None:
-        for w in self._works:
-            w.wait()
-        with torch.no_grad():
-            for out, buf in self._copies:
-                out.copy_(buf, non_blocking=True)
-        self._keep, self._copies, self._works = [], [], []
+        with _range("collective-permute.wait"):
+            for w in self._works:
+                w.wait()
+            with torch.no_grad():
+                for out, buf in self._copies:
+                    out.copy_(buf, non_blocking=True)
+            self._keep, self._copies, self._works = [], [], []
 
 
 # ----------------------------------------------------------------------

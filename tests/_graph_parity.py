@@ -74,7 +74,8 @@ def check_against_jax(cfg: dict, jcfg: dict, inputs, seed=0, tol=MODEL_TOL):
     each other."""
     const, pres, prog, target = inputs
     jmodel = jbuild(dict(jcfg))
-    params = perturbed(np_tree(jmodel.init(jax.random.PRNGKey(seed), const, pres, prog)))
+    params = perturbed(np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(seed), const, pres,
+                                                    prog)))
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)

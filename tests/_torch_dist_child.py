@@ -99,6 +99,12 @@ def _grads_flax(model):
 
 def _model_out_and_grads(model, params, prog):
     """The rollout and the flax-path gradients of mean(out^2)."""
+    return _model_out_and_grads_of(model, params, None, None, prog)
+
+
+def _model_out_and_grads_of(model, params, *arrays):
+    """The rollout of (constants, prescribed, prognostic) `arrays` (None for
+    an absent group) and the flax-path gradients of mean(out^2)."""
     import torch
 
     from dlwpbench_tpu_torch import weights
@@ -106,7 +112,7 @@ def _model_out_and_grads(model, params, prog):
     from dlwpbench_tpu_torch.parallel import launch
 
     weights.load_flax_params(model, weights.unflatten_tree(params))
-    out = model(None, None, torch.from_numpy(prog))
+    out = model(*(None if a is None else torch.from_numpy(a) for a in arrays))
     (out ** 2).mean().backward()
     if model.partition_group is not None:  # each rank's nodes' share, summed
         launch.all_reduce_([p.grad for p in model.parameters()], model.partition_group)
@@ -150,14 +156,14 @@ def suite_ring(inp, mesh):
 
 
 def suite_mesh(inp, mesh):
-    """The halo, partitioned message passing, the sharded HEALPix pad and
-    the partitioned GraphCast."""
+    """The halo, partitioned message passing, the sharded HEALPix pad, the
+    partitioned GraphCast and the U-Net on latitude rows."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from dlwpbench_tpu_torch import weights
-    from dlwpbench_tpu_torch.models import graphcast
+    from dlwpbench_tpu_torch.models import graphcast, unet
     from dlwpbench_tpu_torch.parallel import graph_partition as gp
     from dlwpbench_tpu_torch.parallel import halo, healpix_sharded, launch
     from dlwpbench_tpu_torch.training import trainer as ttr
@@ -213,6 +219,17 @@ def suite_mesh(inp, mesh):
     weights.load_flax_params(model, weights.unflatten_tree(gc["params"]))
     with torch.no_grad():
         res["graphcast_rollout"] = model(None, None, torch.from_numpy(gc["prog4"])).numpy()
+
+    # the U-Net on latitude rows; 12 rows do not stay even over 4 ranks
+    u = inp["unet"]
+    res["unet"] = _model_out_and_grads_of(unet.UNet(**u["kw"], spmd_mesh=mesh), u["params"],
+                                          *u["arrays"])
+    try:
+        unet.UNet(**u["kw"], spmd_mesh=mesh)(*(torch.from_numpy(a[..., :12, :])
+                                               for a in u["arrays"]))
+        res["unet_rows"] = None
+    except ValueError as e:
+        res["unet_rows"] = str(e)
 
     # a trainer step of the partitioned GraphCast (the trainer sums its
     # gradients over the partition) and of the single-device one
@@ -312,7 +329,9 @@ def suite_train(inp, mesh):
 def suite_spectral(inp, mesh):
     """The distributed rFFT2 and SHT, the spectral layers and the models
     with `spmd_mesh` (`tests/test_torch_spectral_dist.py`); weight
-    gradients are each rank's share until summed over the mesh."""
+    gradients are each rank's share until summed over the mesh.  Then the
+    analysis entries' audits on these ranks: the spherical conv's byte
+    tally and the ring's schedule audit."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -322,6 +341,10 @@ def suite_spectral(inp, mesh):
     from dlwpbench_tpu_torch.ops.spectral import AFNO2DFilter
     from dlwpbench_tpu_torch.parallel import fft, launch, sht_dist
     from dlwpbench_tpu_torch.parallel import spectral_dist as sd
+    from dlwpbench_tpu_torch.parallel.ring_attention import (
+        ring_window_attention,
+        shard_ring_operands,
+    )
     from dlwpbench_tpu_torch.training import trainer as ttr
 
     t = torch.from_numpy
@@ -424,6 +447,21 @@ def suite_spectral(inp, mesh):
         loss = tt.train_step(st, batch, m["lr"]).item()
         res[f"sfno_step_{key}"] = (loss, _grads_flax(st.model),
                                    weights.flatten_tree(weights.to_flax_tree(st.model)))
+
+    # the byte tally of the spherical conv's forward and backward (the
+    # microbench's audit; the parent holds it against JAX's HLO bytes), and
+    # the schedule audit's ring on these ranks
+    from dlwpbench_tpu_torch import collective_microbench, schedule_audit
+
+    res["bytes"] = {shape: collective_microbench.byte_audit(*shape, mesh, "cpu")
+                    for shape in inp["byte_shapes"]}
+    ring_ops = shard_ring_operands(*(t(a) for a in inp["ring_audit"]), mesh)
+
+    def ring():
+        with torch.no_grad():
+            return ring_window_attention(*ring_ops, group)
+
+    res["ring_audit"] = schedule_audit.audit(ring, torch.device("cpu"))
 
     # shapes that do not split over the ranks raise
     res["raises"] = {}

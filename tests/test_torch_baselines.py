@@ -33,6 +33,19 @@ from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.training.config import load_saved_config
 from dlwpbench_tpu_torch.utils import netcdf3
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "wb_zarr")
 SEQ = 5  # the fixture's 1980 test split holds 32 frames: 5 windows of 5

@@ -196,7 +196,7 @@ def _layer_errors(family):
     cfg = {**BASE, **{**FAMILIES, **LAYER_ONLY}[family]}
     const, pres, prog, _ = next(TDataset(**_arrays()).batches(4))
     jm = jbuild(dict(cfg))
-    params = jm.init(jax.random.PRNGKey(0), *(jnp.asarray(a) for a in (const, pres, prog)))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), *(jnp.asarray(a) for a in (const, pres, prog)))
     last = lambda a: np.moveaxis(a[:, 0], 1, -1)  # [B, T, C, H, W] -> [B, H, W, C]
     x = np.concatenate([last(const), last(pres), last(prog)], -1)
     x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))

@@ -22,11 +22,25 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import modern_unet as jmu
 from dlwpbench_tpu.ops import ddpm as jddpm
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import modern_unet as tmu
 from dlwpbench_tpu_torch.ops import ddpm as tddpm
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 OP_RTOL = 1e-6
 MODEL_TOL = 1e-4
@@ -139,8 +153,8 @@ def _pair(mesh, spatial, sampler="mean"):
     jcls, tcls = ((jmu.DiffMUNetHPX, tmu.DiffMUNetHPX) if mesh == "healpix"
                   else (jmu.DiffModernUNet, tmu.DiffModernUNet))
     jm = jcls(**SMALL, sampler=sampler)
-    params = jm.init(jax.random.PRNGKey(0), const, pres[:, :2], prog[:, :2], prog[:, 2:3],
-                     jnp.zeros((1,), jnp.int32), method=jm.single_forward)
+    params = jax_ref.init(jm, jax.random.PRNGKey(0), const, pres[:, :2], prog[:, :2],
+                          prog[:, 2:3], jnp.zeros((1,), jnp.int32), method=jm.single_forward)
     params = _perturbed(_np_tree(params))
     tm = tcls(**SMALL, sampler=sampler)
     weights.load_flax_params(tm, params)

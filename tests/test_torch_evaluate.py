@@ -33,6 +33,19 @@ from dlwpbench_tpu_torch.data import sources as tsources
 from dlwpbench_tpu_torch.training import config as tconfig
 from dlwpbench_tpu_torch.utils import netcdf3
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
 SMALL = ["model=swintransformer", "data=synthetic", "data.height=8", "data.width=16",
@@ -92,8 +105,8 @@ def test_evaluate_cli_matches_jax(tmp_path):
         cfg.data, cfg.training, cfg.validation, cfg.testing, 1
     )
     const, pres, prog, _ = next(iter(test_ds.batches(1)))
-    params = model.init(jax.random.PRNGKey(3), jnp.asarray(const), jnp.asarray(pres),
-                        jnp.asarray(prog))
+    params = jax.jit(model.init)(jax.random.PRNGKey(3), jnp.asarray(const), jnp.asarray(pres),
+                                 jnp.asarray(prog))
     weights.save_npz(tmp_path / "w.npz", jax.tree_util.tree_map(np.asarray, params))
 
     _, outputs, targets = JE.rollout_dataset(model, params, test_ds, batch_size=8)

@@ -210,7 +210,7 @@ def test_exported_matches_jax_artifact(name, tmp_path):
     common = _common(name, channels, grid)
     arrays = _arrays(len(name), B, T, (channels, grid))
     jmodel = jcls(**common, **jkw)
-    variables = jmodel.init(jax.random.PRNGKey(5), *map(jnp.asarray, arrays))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(5), *map(jnp.asarray, arrays))
     jpath = str(tmp_path / f"{name}.stablehlo")
     jexport.save_exported(jpath, jexport.export_rollout(
         jmodel, variables["params"], *map(_shape, arrays), platforms=("cpu",)))
@@ -237,7 +237,7 @@ def test_jax_artifact_refused(tmp_path):
     model = junet.UNet(constant_channels=0, prescribed_channels=0, prognostic_channels=2,
                        hidden_channels=(4,))
     prog = jnp.zeros((1, 3, 2, 8, 16))
-    variables = model.init(jax.random.PRNGKey(0), None, None, prog)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), None, None, prog)
     path = str(tmp_path / "jax.stablehlo")
     jexport.save_exported(path, jexport.export_rollout(model, variables["params"], None, None,
                                                        prog.shape))

@@ -19,6 +19,19 @@ from dlwpbench_tpu.ops import pallas_attention as pa
 from dlwpbench_tpu_torch.ops import _build
 from dlwpbench_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 2e-5
 B, H = 4, 2
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import build_model as jbuild
 from dlwpbench_tpu_torch import build_baselines, evaluate, train, weights
 from dlwpbench_tpu_torch.models import fno as tfno
@@ -109,13 +110,13 @@ def check_against_jax(cfg: dict, grid, inputs, seed=0):
     without remat."""
     const, pres, prog, target = inputs
     jmodel = jbuild(dict(cfg))
-    params = _perturbed(_np_tree(jmodel.init(jax.random.PRNGKey(seed), const, pres, prog)))
+    params = _perturbed(_np_tree(jax_ref.init(jmodel, jax.random.PRNGKey(seed), const, pres, prog)))
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)
         return jnp.mean((out - target) ** 2), out
 
-    (_, j_out), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (_, j_out), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     want = weights.flatten_tree(_np_tree(j_grads["params"]))
     results = []
     for remat in (True, False):

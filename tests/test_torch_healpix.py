@@ -36,6 +36,19 @@ from dlwpbench_tpu_torch.grids import healpix as thpx
 from dlwpbench_tpu_torch.grids import remap as tremap
 from dlwpbench_tpu_torch.ops import padding as tpad
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REMAP_TOL = 1e-6
 

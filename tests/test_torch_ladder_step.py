@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu_torch import benchmark_ladder as TL
 from dlwpbench_tpu_torch import benchmark_training as TB
 
@@ -102,9 +103,9 @@ def _jax_diffusion_losses(model, arrays, repeats):
     prog_w, pres_w = prog[:, : ctx + 1], pres[:, :ctx]
     target = prog_w[:, ctx:]
     sched = ddpm_ops.make_refiner_schedule(1000, 4e-4)
-    params = model.init(jax.random.PRNGKey(0), const, pres_w, prog_w[:, :ctx],
-                        jnp.zeros_like(target), jnp.zeros((1,), jnp.int32),
-                        method="single_forward")
+    params = jax_ref.init(model, jax.random.PRNGKey(0), const, pres_w, prog_w[:, :ctx],
+                          jnp.zeros_like(target), jnp.zeros((1,), jnp.int32),
+                          method="single_forward")
     tx = optax.adamw(1e-3, weight_decay=1e-5)
     opt_state = tx.init(params)
 
@@ -156,7 +157,7 @@ def test_step_flops_of_unet_50k_against_jax():
     cpu = jax.devices("cpu")[0]
     want = JL.step_flops(jmodel, arrays, cpu, None, trips)
     const, pres, prog = (jnp.asarray(a) for a in arrays[:3])
-    params = jmodel.init(jax.random.PRNGKey(0), const, pres, prog)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog)
     cost = jax.jit(lambda p: jmodel.apply(p, const, pres, prog)).lower(params).compile(
     ).cost_analysis()
     jax_fwd = float((cost[0] if isinstance(cost, (list, tuple)) else cost)["flops"]) * trips

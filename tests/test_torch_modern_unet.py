@@ -26,6 +26,7 @@ import pytest
 import torch
 from flax import linen as fnn
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import build_model as jbuild
 from dlwpbench_tpu.models import modern_unet as jmu
 from dlwpbench_tpu.ops import conv as jconv
@@ -34,6 +35,19 @@ from dlwpbench_tpu_torch.models import modern_unet as tmu
 from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.ops import conv as tconv
 from dlwpbench_tpu_torch.training.config import load_config
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OP_TOL = 1e-5
@@ -208,7 +222,7 @@ def test_modern_unet_rollout_and_grads_match_jax(case):
     jcls, tcls = ((jmu.MUNetHPX, tmu.MUNetHPX) if mesh == "healpix"
                   else (jmu.ModernUNet, tmu.ModernUNet))
     jmodel = jcls(**kw)
-    params = _perturbed(jmodel.init(jax.random.PRNGKey(0), const, pres, prog))
+    params = _perturbed(jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog))
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)
@@ -245,7 +259,7 @@ def test_fourier_modern_unet_rollout_and_grads_match_jax(case):
     prog, target = _randn(3, B, T, 2, *spatial), _randn(4, B, T - 2, 2, *spatial)
     kw = dict(SMALL, variant=variant, use_fourier=True, hidden_channels=hidden)
     jmodel = jmu.ModernUNet(**kw)
-    params = _perturbed(jmodel.init(jax.random.PRNGKey(0), const, pres, prog))
+    params = _perturbed(jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog))
     assert "FourierResidualBlock_0" in params["params"]["ModernUNetCore_0"]
 
     def loss_fn(p):
@@ -336,8 +350,8 @@ def test_attention_weights_round_trip():
     """DenseGeneral and GroupNorm leaves: flax tree -> port -> flax tree is
     the identity, and a leaf that does not land raises."""
     x = _randn(0, 1, 4, 4, 16)
-    params = _np_tree(jmu.ModernUNetCore((16,), 2, attention=True, norm=True).init(
-        jax.random.PRNGKey(0), jnp.asarray(x)))
+    params = _np_tree(jax_ref.init(jmu.ModernUNetCore((16,), 2, attention=True, norm=True),
+                                  jax.random.PRNGKey(0), jnp.asarray(x)))
     tm = tmu.ModernUNetCore(16, (16,), 2, attention=True, norm=True)
     weights.load_flax_params(tm, _perturbed(params))
     back = weights.flatten_tree(weights.to_flax_tree(tm))

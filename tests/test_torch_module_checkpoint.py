@@ -60,8 +60,8 @@ def _jax_archive(name, tmp_path):
     cls, args, channels, grid = MODELS[name]
     model = cls(**args)
     arrays = _inputs(channels, grid)
-    params = model.init(jax.random.PRNGKey(0), *[None if a is None else jnp.asarray(a)
-                                                  for a in arrays])
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), *[None if a is None else jnp.asarray(a)
+                                                           for a in arrays])
     path = str(tmp_path / f"{name}.mdlus.zip")
     jmc.save_module_checkpoint(path, model, params)
     return path, model, params, arrays
@@ -75,8 +75,8 @@ def test_jax_archive_loads_into_the_port(name, tmp_path):
     model, tree = tmc.load_module_checkpoint(path)
     assert type(model).__name__ == type(jmodel).__name__
     assert set(tree) == {"params"}
-    want = np.asarray(jmodel.apply(params, *[None if a is None else jnp.asarray(a)
-                                             for a in arrays]))
+    want = np.asarray(jax.jit(jmodel.apply)(params, *[None if a is None else jnp.asarray(a)
+                                                      for a in arrays]))
     with torch.no_grad():
         got = model.eval()(*[None if a is None else torch.from_numpy(a) for a in arrays]).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())

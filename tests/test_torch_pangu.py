@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import pangu as jpangu
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import pangu as tpangu
@@ -66,13 +67,14 @@ def _jax_reference(name):
     cfg = {"small": SMALL, "odd": ODD}[name]
     const, pres, prog, target = _batch(cfg, seed=len(name))
     model = jpangu.PanguWeather(**cfg)
-    params = model.init(jax.random.PRNGKey(7), const, pres, prog)
+    params = jax_ref.init(model, jax.random.PRNGKey(7), const, pres, prog)
 
     def loss_fn(p):
-        return jnp.mean((model.apply(p, const, pres, prog) - target) ** 2)
+        out = model.apply(p, const, pres, prog)
+        return jnp.mean((out - target) ** 2), out
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
-    out = np.asarray(model.apply(params, const, pres, prog))
+    (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    out = np.asarray(out)
     return (_np_tree(params), (const, pres, prog, target), out, float(loss),
             weights.flatten_tree(_np_tree(grads["params"])))
 

@@ -12,8 +12,9 @@ the rest, each case below reading one rank's results:
   message passing (`:217`), the sharded HEALPix pad at nside 4 with pad 1
   and 2 (`:262`), the partitioned GraphCast's rollout, gradients and
   closed-loop rollout (`:708-790`), each with gradients where JAX has a
-  function to differentiate, and a trainer step of the partitioned
-  GraphCast against the single-device one;
+  function to differentiate, a trainer step of the partitioned
+  GraphCast against the single-device one, and the U-Net on latitude
+  rows (`benchmark_scaling --spatial`) against JAX's single-device one;
 - suite "train", 2 ranks: three data-parallel steps of a small Swin
   against JAX's `Trainer` on the global batch (fp32 with and without
   accumulation, with remat, a batch that does not split evenly, bf16),
@@ -46,10 +47,12 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _graph_parity import MODEL_TOL, assert_grads_close, np_tree, perturbed
 from _torch_dist_child import start_ranks
+import _jax_ref as jax_ref
 from dlwpbench_tpu.data.dataset import WindowedWeatherDataset as JDataset
 from dlwpbench_tpu.models import graphcast as jgc
 from dlwpbench_tpu.models import modern_unet as jmu
 from dlwpbench_tpu.models import swin as jswin
+from dlwpbench_tpu.models import unet as junet
 from dlwpbench_tpu.ops.padding import cylinder_pad, healpix_pad
 from dlwpbench_tpu.parallel.graph_partition import (
     partition_graph_nodewise,
@@ -74,6 +77,10 @@ BF16_LOSS_RTOL = 2e-3
 SWIN_CFG = dict(img_height=4, img_width=8, constant_channels=2, prescribed_channels=1,
                 prognostic_channels=2, embed_dim=8, depths=(2, 2), num_heads=(2, 2),
                 use_flash_attention=False)
+# the U-Net on latitude rows: 16 rows over 4 ranks, 4 a rank at the top
+# level and 2 at the second (`benchmark_scaling --spatial`)
+UNET_KW = dict(constant_channels=1, prescribed_channels=1, prognostic_channels=2,
+               hidden_channels=(8, 16), context_size=1)
 GC_KW = dict(input_height=8, input_width=16, constant_channels=0, prescribed_channels=0,
              prognostic_channels=2, mesh_level=1, processor_layers=2, hidden_dim=16,
              context_size=1)
@@ -278,10 +285,18 @@ def mesh_suite(tmp_path_factory):
     jmodel = jgc.GraphCastNet(**GC_KW)
     prog = np.random.default_rng(13).standard_normal((2, 3, 2, 8, 16)).astype(np.float32)
     prog4 = np.random.default_rng(21).standard_normal((1, 4, 2, 8, 16)).astype(np.float32)
-    params = perturbed(np_tree(jmodel.init(jax.random.PRNGKey(0), None, None, prog)), 3)
+    params = perturbed(np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(0), None, None, prog)),
+                       3)
     target = np.random.default_rng(17).standard_normal((2, 2, 2, 8, 16)).astype(np.float32)
     inp["graphcast"] = dict(kw=GC_KW, params=weights.flatten_tree(params["params"]),
                             prog=prog, prog4=prog4, target=target, lr=LR)
+    urng = np.random.default_rng(23)
+    uarrays = [urng.standard_normal(s).astype(np.float32)
+               for s in ((2, 1, 1, 16, 24), (2, 3, 1, 16, 24), (2, 3, 2, 16, 24))]
+    juinit = perturbed(np_tree(jax.jit(junet.UNet(**UNET_KW).init)(jax.random.PRNGKey(2),
+                                                                     *uarrays)), 4)
+    inp["unet"] = dict(kw=UNET_KW, params=weights.flatten_tree(juinit["params"]),
+                       arrays=uarrays)
     results = start_ranks("mesh", MESH_RANKS, str(tmp_path_factory.mktemp("mesh")), inp)
 
     # the references while the ranks run
@@ -300,7 +315,14 @@ def mesh_suite(tmp_path_factory):
 
     (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     ref["graphcast"] = (np.asarray(out), weights.flatten_tree(np_tree(grads["params"])))
-    ref["graphcast_rollout"] = np.asarray(jmodel.apply(params, None, None, prog4))
+    ref["graphcast_rollout"] = np.asarray(jax.jit(jmodel.apply)(params, None, None, prog4))
+
+    def uloss(p):
+        out = junet.UNet(**UNET_KW).apply(p, *uarrays)
+        return jnp.mean(out ** 2), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(uloss, has_aux=True))(juinit)
+    ref["unet"] = (np.asarray(out), weights.flatten_tree(np_tree(grads["params"])))
     return ref, results()
 
 
@@ -398,6 +420,22 @@ def test_trainer_sums_partitioned_graphcast_gradients(mesh_suite, rank):
         assert np.abs(g - s_params[path]).max() <= PARAM_ATOL, path
 
 
+@pytest.mark.parametrize("rank", range(MESH_RANKS))
+def test_row_sharded_unet_matches_jax_single_device(mesh_suite, rank):
+    """The U-Net with `spmd_mesh` on 4 ranks, each on its latitude rows (the
+    3x3 convs' rows above and below by the halo exchange, the poles zero):
+    the rollout and every parameter gradient summed over the ranks against
+    JAX's single-device U-Net, which JAX's GSPMD-sharded one equals; a row
+    count that does not stay even at every level raises."""
+    ref, results = mesh_suite
+    out, grads = results[rank]["unet"]
+    assert out.shape == ref["unet"][0].shape == (2, 2, 2, 16, 24)
+    assert_grads_close({"out": out}, {"out": ref["unet"][0]}, MODEL_TOL)
+    assert_grads_close(grads, ref["unet"][1], MODEL_TOL)
+    msg = results[rank]["unet_rows"]
+    assert msg is not None and "even at every level" in msg
+
+
 # ---------------------------------------------------------------- train suite
 
 
@@ -416,6 +454,12 @@ DP_CASES = [  # (name, accumulation, batch, compute dtype, remat)
     ("ragged", 1, 5, None, False),
     ("bf16", 1, 4, "bfloat16", False),
 ]
+
+
+def _jax_state(jt, init):
+    """JAX's train state on the shared init: the trainer's own `init`
+    would compile and run the model's init only to be overwritten."""
+    return jtr.TrainState(params=init, opt_state=jt.tx.init(init), ema_params=None)
 
 
 def _jax_steps(jt, jstate, batches, lr):
@@ -443,8 +487,8 @@ def _diffusion_cases():
     arrays = {**_trainer_arrays(24), "context_size": 2, "sequence_length": 3}
     jmodel = jmu.DiffModernUNet(**DIFF_CFG)
     c, p, g, t = next(iter(JDataset(**arrays).batches(1)))
-    params = jmodel.init(jax.random.PRNGKey(0), c, p[:, :2], g[:, :2], t,
-                         jnp.zeros((1,), jnp.int32), method=jmodel.single_forward)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), c, p[:, :2], g[:, :2], t,
+                          jnp.zeros((1,), jnp.int32), method=jmodel.single_forward)
     params = perturbed(np_tree(params), 0)
     refs, inputs = {}, {}
     for name, (accum, rows) in DIFF_CASES.items():
@@ -490,7 +534,7 @@ def train_suite(tmp_path_factory):
     lr = ttr.cosine_lr(0, LR, 5)
     jmodel = jswin.SwinTransformer(**SWIN_CFG)
     jds = JDataset(**_trainer_arrays())
-    init = np_tree(jmodel.init(jax.random.PRNGKey(0), *next(iter(jds.batches(1)))[:3]))
+    init = np_tree(jax_ref.init(jmodel, jax.random.PRNGKey(0), *next(iter(jds.batches(1)))[:3]))
     inp = {"swin_cfg": SWIN_CFG, "swin_init": weights.flatten_tree(init["params"]),
            "lr": LR, "step_lr": lr, "lat_w": _lat_w(), "dp_cases": [], "dir": str(work),
            "tiny": TINY}
@@ -514,15 +558,11 @@ def train_suite(tmp_path_factory):
     for name, accum, dtype, batches in cases:
         jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=accum,
                          lat_weights=_lat_w(), compute_dtype=dtype)
-        jstate = jt.init(next(iter(jds.batches(1))))
-        jstate.params = init
-        jstate.opt_state = jt.tx.init(init)
-        ref[name] = _jax_steps(jt, jstate, batches, lr)
+        ref[name] = _jax_steps(jt, _jax_state(jt, init), batches, lr)
     jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=MH_ACCUM,
                      lat_weights=_lat_w())
-    jstate = jt.init(next(iter(jds.batches(1))))
-    jstate.params, jstate.opt_state = init, jt.tx.init(init)
-    ref["multihost"] = _jax_steps(jt, jstate, [_concat(b) for b in zip(*hosts)], lr)
+    ref["multihost"] = _jax_steps(jt, _jax_state(jt, init), [_concat(b) for b in zip(*hosts)],
+                                  lr)
     for name, case in diffusion.items():
         ref[f"diffusion_{name}"] = _diffusion_ref(*case, lr)
     single = train.main([*TINY, f"run_dir={work / 'single'}", "training.save_model=false",

@@ -26,6 +26,19 @@ import pytest
 
 from dlwpbench_tpu_torch import profile_model
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLOPS_RTOL = 0.01
 KEYS = ("steps", "mean_s", "median_s", "p90_s", "total_s", "flops_per_step", "achieved_tflops")

@@ -48,7 +48,7 @@ def _operands(B=2, H=2, N=256, D=16, G=1, seed=5):
 
 def _weights(jmodel, prog, seed):
     """Perturbed JAX weights (all gradients nonzero)."""
-    return perturbed(np_tree(jmodel.init(jax.random.PRNGKey(0), None, None, prog)), seed)
+    return perturbed(np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(0), None, None, prog)), seed)
 
 
 def _model_ref(jmodel, params, prog):

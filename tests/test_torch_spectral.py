@@ -123,7 +123,7 @@ def _jax_grads(jmod, params, x, loss_w):
         out = jmod.apply(p, xx)
         return (out * loss_w).sum(), out
 
-    (_, out), (g, gx) = jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True)(
+    (_, out), (g, gx) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     return np.asarray(out), {**weights.flatten_tree(_np_tree(g["params"])), "x": np.asarray(gx)}
 
@@ -141,7 +141,7 @@ def test_spectral_conv_matches_jax(H, W, cin, cout, modes, tucker, fft_impl):
     x = _randn(1, 2, H, W, cin)
     loss_w = _randn(2, 2, H, W, cout)
     jmod = jsp.SpectralConv2d(cout, *modes, tucker_rank=tucker, fft_impl=fft_impl)
-    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(0), jnp.asarray(x))
     j_out, j_grads = _jax_grads(jmod, params, x, loss_w)
     tmod = tsp.SpectralConv2d(cin, cout, *modes, tucker_rank=tucker, fft_impl=fft_impl,
                               grid_shape=(H, W))
@@ -233,7 +233,7 @@ def test_afno_filter_matches_jax(H, W, C, nb, frac, fft_impl):
     kw = dict(num_blocks=nb, sparsity_threshold=1e-3, hard_thresholding_fraction=frac,
               fft_impl=fft_impl)
     jmod = jsp.AFNO2DFilter(hidden_size=C, **kw)
-    params = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(1), jnp.asarray(x))
     # larger weights than the 0.02 init, so that the MLP's ReLU and the
     # softshrink cut, and the gradients carry more than the residual
     params = jax.tree_util.tree_map(lambda a: np.asarray(a) * 25.0, params)

@@ -14,6 +14,14 @@ mirrors one of `tests/test_parallel.py`: `TestDistFFT` (`:55`),
 port's result against JAX's distributed function, and against the port's
 single-device layer where JAX's test holds JAX's against its own.
 
+The same ranks run the analysis entries' audits: the port's byte tally
+of the distributed spherical conv's forward and backward
+(`collective_microbench.byte_audit`) equals, as an integer, the
+all-to-all bytes of JAX's per-device HLO of the same program
+(`scripts/collective_microbench.py::hlo_collective_bytes`), and the
+schedule audit's ring (`schedule_audit.audit`) shows P - 1 exchanges,
+each with a compute launch in its window.
+
 Tolerances: fp32 within 1e-4 of each tensor's max (ROADMAP's parity
 harness), outputs and gradients, the weight gradients summed over the
 ranks (each rank holds its rows' share); bf16 exchanges within 1e-2 of
@@ -21,6 +29,9 @@ max against JAX's bf16-exchange result (a coefficient whose fp32 value
 lies at a bf16 rounding boundary rounds one ulp apart, 2^-8 of it) and
 within 3e-2 against fp32 (JAX's bound).
 """
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +72,9 @@ FUSED_KW = dict(SFNO_KW, num_layers=2, dist_schedule="fused")
 FCN_KW = dict(img_height=16, img_width=24, constant_channels=0, prescribed_channels=0,
               prognostic_channels=2, embed_dim=8, depth=1, num_blocks=4, context_size=1)
 FCN2_KW = dict(FCN_KW, img_width=32, filter="SFNO")
+# the byte audit's (channels, nlat, nlon): a small field and the
+# microbench's default
+BYTE_SHAPES = [(16, 16, 32), (256, 32, 64)]
 
 
 def close(got, want, tol=TOL):
@@ -97,7 +111,7 @@ def _inputs():
     inp["conv_piped"] = dict(x=r.standard_normal((2, 6, 16, 32)).astype(np.float32),
                              w=r.standard_normal((6, 4, lmax, 2)).astype(np.float32), chunks=3)
     x = f32(12, 2, 16, 24, 8)
-    p = np_tree(JAFNO(hidden_size=8, num_blocks=4, hard_thresholding_fraction=0.7).init(
+    p = np_tree(jax.jit(JAFNO(hidden_size=8, num_blocks=4, hard_thresholding_fraction=0.7).init)(
         jax.random.PRNGKey(0), jnp.asarray(x))["params"])
     inp["afno"] = dict(x=x, params=p, **p)
     r = rng(21)
@@ -113,9 +127,14 @@ def _inputs():
             ("fourcastnetv2", JFourCastNet, FCN2_KW, 14, (16, 32))):
         prog = f32(seed, 2, 3, 2, *grid)
         jkw = dict(kw, spmd_mesh=_mesh()) if key == "sfno_fused_4" else kw
-        params = perturbed(np_tree(cls(**jkw).init(jax.random.PRNGKey(0), None, None, prog)), 3)
+        params = perturbed(np_tree(jax.jit(cls(**jkw).init)(jax.random.PRNGKey(0), None, None,
+                                                            prog)), 3)
         inp[key] = dict(kw=kw, params=weights.flatten_tree(params["params"]), prog=prog,
                         jparams=params)
+    inp["byte_shapes"] = BYTE_SHAPES
+    r = rng(23)  # the schedule audit's ring geometry: B 2, H 4, N 512, D 32, one bias group
+    inp["ring_audit"] = [r.standard_normal(s).astype(np.float32)
+                         for s in ((2, 4, 512, 32),) * 3 + ((1, 4, 512, 512),)]
     inp["sfno_fused_1"] = dict(inp["sfno_fused_4"],
                                kw=dict(FUSED_KW, dist_pipeline_chunks=1))
     inp["sfno"].update(target=f32(15, 2, 2, 2, 16, 32), lr=LR)
@@ -224,6 +243,26 @@ def _model_refs(inp):
     return ref
 
 
+def _byte_refs():
+    """JAX's per-device HLO collective bytes of the distributed spherical
+    conv's forward and backward (the gradient of sum(conv(x, w)^2) with
+    respect to x, as the microbench compiles it) at each byte shape."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    from collective_microbench import hlo_collective_bytes
+
+    ref, mesh = {}, _mesh()
+    for C, nlat, nlon in BYTE_SHAPES:
+        t = jsht_tables(nlat, nlon, grid="equiangular")
+        x = jax.ShapeDtypeStruct((1, C, nlat, nlon), jnp.float32,
+                                 sharding=NamedSharding(mesh, P(None, None, "x", None)))
+        w = jax.ShapeDtypeStruct((C, C, t.lmax), jnp.complex64)
+        conv = make_dist_spherical_conv(mesh, t, ndim=4)
+        hlo = jax.jit(jax.grad(lambda a, wc, conv=conv: jnp.sum(conv(a, wc) ** 2))).lower(
+            x, w).compile().as_text()
+        ref[(C, nlat, nlon)] = hlo_collective_bytes(hlo)
+    return {"bytes": ref}
+
+
 @pytest.fixture(scope="module")
 def spectral_suite(tmp_path_factory):
     """(inputs, JAX references, each rank's results) of the "spectral"
@@ -232,7 +271,7 @@ def spectral_suite(tmp_path_factory):
     sent = {k: ({kk: vv for kk, vv in v.items() if kk != "jparams"} if isinstance(v, dict)
                 else v) for k, v in inp.items()}
     results = start_ranks("spectral", RANKS, str(tmp_path_factory.mktemp("spectral")), sent)
-    ref = {**_sht_refs(inp), **_layer_refs(inp), **_model_refs(inp)}
+    ref = {**_sht_refs(inp), **_layer_refs(inp), **_model_refs(inp), **_byte_refs()}
     return inp, ref, results()
 
 
@@ -480,3 +519,42 @@ def test_rows_that_do_not_split_raise(spectral_suite, name):
     """6 latitude (or token) rows on 4 ranks: ValueError."""
     msg = spectral_suite[2][0]["raises"][name]
     assert msg is not None and "split" in msg
+
+
+# ---------------------------------------------------------------------------
+# the analysis entries' audits on these ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", BYTE_SHAPES, ids=lambda s: "C{}-{}x{}".format(*s))
+def test_conv_all_to_all_bytes_equal_jax_hlo(spectral_suite, shape):
+    """The port's tallied all-to-all bytes of the conv's forward and
+    backward equal JAX's HLO bytes on every rank, exactly, and the
+    model's claim 4 C nlat m_pad 8 / P (four transposes of the complex
+    spectrum, no other all-to-all)."""
+    _, ref, results = spectral_suite
+    want = ref["bytes"][shape]
+    assert set(want) == {"all-to-all"}
+    for r in range(RANKS):
+        got = results[r]["bytes"][shape]
+        assert got["all_to_all_bytes_per_device"] == want["all-to-all"], (r, got, want)
+        assert got["all_to_all_bytes_per_device"] == got["model_claim_bytes_per_device"]
+        assert got["collective_calls_per_device"]["all-to-all"] == 4
+        assert got["ratio_vs_model"] == 1.0
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_ring_audit_windows(spectral_suite, rank):
+    """The schedule audit's ring on 4 ranks: P - 1 exchanges, each posted
+    before its round's attention launch (one independent launch in every
+    window, the next round's launch its descendant; the last round's has
+    none), no other collective, and no device time on the CPU."""
+    audit = spectral_suite[2][rank]["ring_audit"]
+    assert audit["n_collectives"] == RANKS - 1
+    assert audit["n_collectives_with_zero_overlap_window"] == 0
+    assert audit["n_compute_ops"] == RANKS
+    assert [c["name"] for c in audit["collectives"]] == ["collective-permute"] * (RANKS - 1)
+    assert all(c["independent_compute_ops"] >= 1 for c in audit["collectives"])
+    assert all(c["descendant_compute_ops"] == 1 for c in audit["collectives"])
+    assert audit["overlapped_device_us"] is None
+    assert audit["attention_launches"]["flash_window_attention"] == 0  # CPU: the plain version

@@ -15,18 +15,31 @@ with depth, and a tensor's small entries carry its largest entry's
 absolute error).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import swin as jswin
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import swin as tswin
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the models here are small, and
+    the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _np_tree(params):
@@ -98,8 +111,8 @@ def test_swin_rollout_matches_jax(H, W):
     prog = rng.standard_normal((B, T, Cq, H, W)).astype(np.float32)
 
     jmodel = jswin.SwinTransformer(**cfg)
-    params = jmodel.init(jax.random.PRNGKey(0), const, pres, prog)
-    want = np.asarray(jmodel.apply(params, const, pres, prog))
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog)
+    want = np.asarray(jax_ref.apply(jmodel, params, const, pres, prog))
 
     tmodel = tswin.SwinTransformer(**cfg)
     weights.load_flax_params(tmodel, _np_tree(params))
@@ -153,12 +166,12 @@ def test_swin_loss_and_grads_match_jax(remat):
     unweighted MSE of the 2-step rollout."""
     const, pres, prog, target = _small_batch(5)
     jmodel = jswin.SwinTransformer(**SMALL, remat=remat)
-    params = jmodel.init(jax.random.PRNGKey(3), const, pres, prog)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(3), const, pres, prog)
 
     def loss_fn(p):
         return jnp.mean((jmodel.apply(p, const, pres, prog) - target) ** 2)
 
-    j_loss, j_grads = jax.value_and_grad(loss_fn)(params)
+    j_loss, j_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
 
     tmodel = tswin.SwinTransformer(**SMALL, remat=remat)
     assert tmodel.remat is remat
@@ -208,7 +221,7 @@ def test_registry_keeps_remat():
 def test_to_flax_tree_inverts_the_loader():
     jmodel = jswin.SwinTransformer(**SMALL)
     const, pres, prog, _ = _small_batch(7)
-    params = _np_tree(jmodel.init(jax.random.PRNGKey(1), const, pres, prog))
+    params = _np_tree(jax_ref.init(jmodel, jax.random.PRNGKey(1), const, pres, prog))
     tmodel = tswin.SwinTransformer(**SMALL)
     weights.load_flax_params(tmodel, params)
     back = _flat(weights.to_flax_tree(tmodel))
@@ -221,6 +234,23 @@ def test_to_flax_tree_inverts_the_loader():
 LOCAL = dict(SMALL, use_flash_attention=None, window_size=(4, 4))
 
 
+@functools.lru_cache(maxsize=None)
+def _local_window_reference():
+    """JAX's (params, rollout, loss, gradients) of the LOCAL Swin on batch
+    8, once for the three port routes that are held against it."""
+    const, pres, prog, target = _small_batch(8)
+    jmodel = jswin.SwinTransformer(**LOCAL)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(2), const, pres, prog)
+
+    def loss_fn(p):
+        out = jmodel.apply(p, const, pres, prog)
+        return jnp.mean((out - target) ** 2), out
+
+    (j_loss, want), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    want = np.asarray(want)
+    return params, want, j_loss, j_grads
+
+
 @pytest.mark.parametrize("route", [None, "packed", ("packed", None)],
                          ids=["einsum", "token-major", "per-stage"])
 def test_local_window_swin_matches_jax(route):
@@ -230,14 +260,7 @@ def test_local_window_swin_matches_jax(route):
     its einsum or token-major route (the kernel's plain version), or one
     per stage."""
     const, pres, prog, target = _small_batch(8)
-    jmodel = jswin.SwinTransformer(**LOCAL)
-    params = jmodel.init(jax.random.PRNGKey(2), const, pres, prog)
-
-    def loss_fn(p):
-        return jnp.mean((jmodel.apply(p, const, pres, prog) - target) ** 2)
-
-    j_loss, j_grads = jax.value_and_grad(loss_fn)(params)
-    want = np.asarray(jmodel.apply(params, const, pres, prog))
+    params, want, j_loss, j_grads = _local_window_reference()
 
     tmodel = tswin.SwinTransformer(**{**LOCAL, "use_flash_attention": route})
     assert [(st["wh"], st["ww"]) for st in tmodel.plan] == [(4, 4), (4, 4)]

@@ -21,10 +21,24 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import swin as jswin
 from dlwpbench_tpu_torch import weights
 from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.models import swin as tswin
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
@@ -67,13 +81,13 @@ def test_swin_hpx_rollout_and_grads_match_jax(route):
     jkw, tkw = ROUTES[route]
     const, pres, prog, target = _batch(11)
     jmodel = jswin.SwinTransformerHPX(**SMALL, **jkw)
-    params = jmodel.init(jax.random.PRNGKey(4), const, pres, prog)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(4), const, pres, prog)
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)
         return jnp.mean((out - target) ** 2), out
 
-    (j_loss, j_out), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (j_loss, j_out), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
     tmodel = tswin.SwinTransformerHPX(**SMALL, **tkw)
     assert tmodel.mesh == "healpix"
@@ -98,8 +112,8 @@ def test_swin_hpx_zero_pads_where_lat_lon_wraps():
     kw = dict(SMALL, img_height=3, img_width=3, window_size=(5, 5), use_flash_attention=False)
     const, pres, prog, _ = _batch(12, T=2, n=3)
     jmodel = jswin.SwinTransformerHPX(**kw)
-    params = jmodel.init(jax.random.PRNGKey(5), const, pres, prog)
-    want = np.asarray(jmodel.apply(params, const, pres, prog))
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(5), const, pres, prog)
+    want = np.asarray(jax_ref.apply(jmodel, params, const, pres, prog))
     tmodel = tswin.SwinTransformerHPX(**kw)
     assert [(st["Hp"], st["Wp"]) for st in tmodel.plan] == [(10, 15)]
     weights.load_flax_params(tmodel, _np_tree(params))

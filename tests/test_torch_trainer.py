@@ -19,6 +19,7 @@ Tolerances, fp32:
 - validation errors per lead and channel: rtol 1e-5.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.data.dataset import WindowedWeatherDataset as JDataset
 from dlwpbench_tpu.models import swin as jswin
 from dlwpbench_tpu.training import trainer as jtr
@@ -77,16 +79,24 @@ def _lat_w():
     return latitude_weights(np.linspace(-90 + 180 / h / 2, 90 - 180 / h / 2, h))[:, None]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init():
+    """JAX's trainer init of the Swin (its seed, the first batch), once for
+    the tests that start from it."""
+    jt = jtr.Trainer(jswin.SwinTransformer(**CFG), lat_weights=_lat_w())
+    return _np_tree(jt.init(next(iter(JDataset(**_arrays()).batches(1)))).params)
+
+
 def _pair(accum=1):
     """(JAX trainer, its state, port trainer, its state) from one init."""
     jmodel = jswin.SwinTransformer(**CFG)
     jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=accum,
                      lat_weights=_lat_w())
-    jds = JDataset(**_arrays())
-    jstate = jt.init(next(iter(jds.batches(1))))
+    params = jax.tree_util.tree_map(jnp.asarray, _jax_init())
+    jstate = jtr.TrainState(params=params, opt_state=jt.tx.init(params), ema_params=None)
     tt = ttr.Trainer(tswin.SwinTransformer(**CFG), learning_rate=LR, epochs=5,
                      gradient_accumulation_steps=accum, lat_weights=_lat_w())
-    tstate = tt.init(params=_np_tree(jstate.params))
+    tstate = tt.init(params=_jax_init())
     return jt, jstate, tt, tstate
 
 
@@ -341,6 +351,22 @@ def _diff_arrays(T=24):
     return {**_arrays(T), "context_size": 2, "sequence_length": 3}
 
 
+@functools.lru_cache(maxsize=None)
+def _diff_init():
+    """The diffusion model's JAX init through `single_forward`, perturbed
+    (the zero-initialised convs carry signal), once for the tests that
+    start from it."""
+    from dlwpbench_tpu.models import modern_unet as jmu
+
+    jmodel = jmu.DiffModernUNet(**DCFG)
+    c, p, g, t = next(iter(JDataset(**_diff_arrays()).batches(1)))
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), c, p[:, :2], g[:, :2], t,
+                          jnp.zeros((1,), jnp.int32), method=jmodel.single_forward)
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32), params)
+
+
 def _diff_pair(accum=1, compute_dtype=None):
     """(JAX trainer, its state, port trainer, its state) on one init; the
     JAX params come from an init through `single_forward`."""
@@ -351,18 +377,13 @@ def _diff_pair(accum=1, compute_dtype=None):
     jt = jtr.Trainer(jmodel, learning_rate=LR, epochs=5, gradient_accumulation_steps=accum,
                      training_type="diffusion", num_refinement_steps=1000, seed=SEED,
                      compute_dtype=compute_dtype)
-    c, p, g, t = next(iter(JDataset(**_diff_arrays()).batches(1)))
-    params = jmodel.init(jax.random.PRNGKey(0), c, p[:, :2], g[:, :2], t,
-                         jnp.zeros((1,), jnp.int32), method=jmodel.single_forward)
-    rng = np.random.default_rng(0)  # the zero-initialised convs carry signal
-    params = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32), params)
+    params = jax.tree_util.tree_map(jnp.asarray, _diff_init())
     jstate = jtr.TrainState(params=params, opt_state=jt.tx.init(params),
                             ema_params=jax.tree_util.tree_map(jnp.copy, params))
     tt = ttr.Trainer(tmu.DiffModernUNet(**DCFG), learning_rate=LR, epochs=5,
                      gradient_accumulation_steps=accum, training_type="diffusion",
                      num_refinement_steps=1000, seed=SEED, compute_dtype=compute_dtype)
-    tstate = tt.init(params=_np_tree(params))
+    tstate = tt.init(params=_diff_init())
     return jt, jstate, tt, tstate
 
 

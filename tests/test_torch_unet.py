@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.models import unet as junet
 from dlwpbench_tpu.ops import conv as jconv
 from dlwpbench_tpu.ops import padding as jpad
@@ -31,6 +32,19 @@ from dlwpbench_tpu_torch.models import registry
 from dlwpbench_tpu_torch.models import unet as tunet
 from dlwpbench_tpu_torch.ops import conv as tconv
 from dlwpbench_tpu_torch.ops import padding as tpad
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OP_TOL = 1e-5
@@ -186,13 +200,13 @@ def _assert_close_per_tensor(got: dict, want: dict, tol: float):
 def test_unet_rollout_and_grads_match_jax(cfg, H, W, remat):
     const, pres, prog, target = _batch(H * W, cfg, H, W)
     jmodel = junet.UNet(**cfg)
-    params = jmodel.init(jax.random.PRNGKey(0), const, pres, prog)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog)
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)
         return jnp.mean((out - target) ** 2), out
 
-    (j_loss, j_out), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (j_loss, j_out), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
     tmodel = tunet.UNet(**cfg, remat=remat)
     weights.load_flax_params(tmodel, _np_tree(params))

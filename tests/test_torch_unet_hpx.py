@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_ref as jax_ref
 from dlwpbench_tpu.evaluation import evaluate as JE
 from dlwpbench_tpu.grids.remap import HEALPixRemap as JRemap
 from dlwpbench_tpu.models import unet as junet
@@ -44,6 +45,19 @@ from dlwpbench_tpu_torch.models import unet as tunet
 from dlwpbench_tpu_torch.ops import conv as tconv
 from dlwpbench_tpu_torch.training.config import load_config, load_saved_config
 from dlwpbench_tpu_torch.utils import netcdf3
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OP_TOL = 1e-5
@@ -118,13 +132,13 @@ def test_unet_hpx_rollout_and_grads_match_jax():
     const, pres = f(B, 1, 2, 12, n, n), f(B, T, 1, 12, n, n)
     prog, target = f(B, T, 2, 12, n, n), f(B, T - 1, 2, 12, n, n)
     jmodel = junet.UNetHPX(**HPX)
-    params = jmodel.init(jax.random.PRNGKey(0), const, pres, prog)
+    params = jax_ref.init(jmodel, jax.random.PRNGKey(0), const, pres, prog)
 
     def loss_fn(p):
         out = jmodel.apply(p, const, pres, prog)
         return jnp.mean((out - target) ** 2), out
 
-    (j_loss, j_out), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (j_loss, j_out), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
     tmodel = tunet.UNetHPX(**HPX, remat=True)
     assert tmodel.mesh == "healpix"

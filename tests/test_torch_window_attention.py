@@ -24,6 +24,19 @@ from dlwpbench_tpu.models import pangu as jpangu
 from dlwpbench_tpu.ops import pallas_attention as pa
 from dlwpbench_tpu_torch.ops import window_attention as wa
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -33,6 +33,19 @@ from dlwpbench_tpu_torch.data import sources as tsources
 from dlwpbench_tpu_torch.data import zarr_lite as tzarr
 from dlwpbench_tpu_torch.data.dataset import WindowedWeatherDataset as TDataset
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread per test: the suite's workers share the
+    cores, and a test's extra threads only wait on the other workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "wb_zarr")
 FIXTURE_ARRAYS = sorted(
     os.path.relpath(os.path.dirname(p), FIXTURE)
