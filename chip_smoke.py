@@ -220,8 +220,9 @@ run alone.
      sharded HEALPix pad at nside 32 and one partitioned GraphCast forward
      at `graphcast.yaml`'s width against the single-device results; the
      spectral models with `spmd_mesh` at their shipped widths (SFNO under
-     `dist_schedule` "per_conv" and "fused", FourCastNet, FourCastNetv2)
-     against the single rank on the same weights, forward and every
+     `dist_schedule` "per_conv" and "fused", FourCastNet, FourCastNetv2,
+     FourCastNet with the FNO2D filter) against the single rank on the
+     same weights, forward and every
      parameter gradient summed over the ranks, SFNO in bf16 compute with
      bf16 exchanges too, 0 attention launches; the distributed SHT and
      rFFT2 pairs on [4,256,32,64] against the single-device transforms,
@@ -244,8 +245,9 @@ run alone.
      rule: no kernel) and at batch 2 (the 5D kernels at stage 1),
      swin_win8@2m at 90x180 (the token-major kernels) and swin@8m in bf16
      compute; in the second process the kernel-free rows unet@8m,
-     graphcast@2m (then `backfill_graph_flops` on JAX's entry for it) and
-     diffusion@2m, the zoo's rollout matrix (`benchmark_models --steps 4
+     graphcast@2m (then `backfill_graph_flops` on JAX's entry for it),
+     diffusion@2m, sfno2d@8m and sfno2d@32m in fp32 and bf16 compute (the
+     scaling model's SFNO inputs), the zoo's rollout matrix (`benchmark_models --steps 4
      --iters 1`) and the training matrix (`benchmark_training --models
      unet,swin`, batch 32); every row's width and parameter count against JAX's
      `results/ladder.json`, no row failing, each row's launches by kernel
@@ -264,12 +266,25 @@ run alone.
      all on the mma design, one launch inside its exchange's window; the
      fused SFNO's collectives, no attention launch; the K 1 and K 8 step
      times), `benchmark_scaling` on 1 and 2 gloo ranks (the U-Net, no
-     attention launch, both rows timed) and with `--spatial 2` (the U-Net
-     on latitude rows over 2 ranks, halo exchanges between them); then, in
-     this process after the
-     join, `scaling_model` on the ladder phase's ladder and the phase's
-     microbench file; each output's backend and ranks per card printed;
-     the kernel checks of phase 3 include the ring's round (`ring_cases`);
+     attention launch, both rows timed) and with `--spatial 2` on 2 and 4
+     ranks (the U-Net on latitude rows over 2 ranks, halo exchanges between
+     them; meshes 1x2 and 2x2); then the 2x2 meshes (`run_mesh_paths`): 4
+     ranks of this script (`mesh_rank`) sharing cuda:0 over gloo run the 2D
+     ring attention on a (2, 2) ("x", "h") mesh at the unshifted Swin stage
+     0 and Pangu's flash route (forward and backward against one kernel
+     call, 2 forward and 2 backward launches a rank, all mma), the fused
+     SFNO stack at `sfno.yaml`'s width on a (2, 2) ("x", "c") mesh with fp32
+     and bf16 exchanges (output and every gradient against the single
+     device's), and the Swin's train path under `training.multihost=true
+     training.model_parallel=2` (a (2, 2) ("data", "x") mesh, 16 rows a
+     host; per-step losses and final parameters against the single-rank
+     trainer replayed on the same global batches, each x pair's parameters
+     equal bit for bit), each rank's peak device memory printed; then, in
+     this process after the join, the phase's checks and `scaling_model` on
+     the ladder phase's ladder and the phase's microbench file, with the
+     bf16-exchange rows of every SFNO family; each output's backend and
+     ranks per card printed; the kernel checks of phase 3 include the
+     ring's rounds, 1D and 2D (`ring_cases`);
 5. the run's seconds, the card line, the `kernels` line (the flash rows'
    `launches_by_path` with the distributed paths, per rank) and, last,
    `{"ok": true, ...}`.
@@ -430,6 +445,15 @@ def fused_ptxas(log_path: str):
 
 
 # ---------------------------------------------------------------- flash attention
+# one round of the 2D (sequence x head) ring on the 4-rank (2, 2) mesh
+# (`RING_2D_CASES`): half the heads against one half-sequence kv chunk and
+# its bias columns, for the unshifted Swin stage 0 and Pangu's flash route
+# (a random bias of the round's shape: the round cuts the shift mask's
+# blocks); forward and backward
+RING_2D_ROUNDS = [
+    ("ring 2d round swin stage0 unshifted (4 ranks)", EVAL_BATCH, 2, 1024, 24, 1, "random"),
+    ("ring 2d round pangu flash G=36 (4 ranks)", EVAL_BATCH * 36, 3, 72, 32, 36, "random"),
+]
 FLASH_CASES = [
     # (label, B, H, N, D, G or 0 for a 3D bias, bias kind)
     ("stage0 unshifted", EVAL_BATCH, 4, 2048, 24, 0, "random"),
@@ -458,6 +482,7 @@ FLASH_CASES = [
     # 4, N 512, D 32, one bias group): this rank's 256 queries against one
     # 256-token kv chunk and its bias columns
     ("ring round (schedule audit, 2 ranks)", 2, 4, 256, 32, 1, "random"),
+    *RING_2D_ROUNDS,
 ]
 # the global window of each shifted-bias kind: the Swin's 32 x 64 grid and
 # the HEALPix Swin's 24 x 32 rectangle of nside-8 faces
@@ -593,6 +618,7 @@ FLASH_BWD_CASES = [
     ("ladder swin16m stage1 unshifted", 1, 6, 512, 80, 0, "random"),
     ("ladder swin32m stage0 shifted", 1, 3, 2048, 120, 1, "swin-shift"),
     ("ladder swin32m stage1 unshifted", 1, 6, 512, 120, 0, "random"),
+    *RING_2D_ROUNDS,
 ]
 # Tolerances, as a share of max|ref| per output.  fp32: the kernel and the
 # plain version sum over up to 2048 keys and 32 members in other orders.
@@ -3843,8 +3869,13 @@ LADDER_CARD_ROWS = [
     ("swin", "8m", ["--compute-dtype", "bfloat16"],
      {"flash_window_attention": "bf16", "flash_window_attention_bwd": "bf16"}),
 ]
+# The SFNO rows feed `scaling_model`: its SFNO families' single-card step
+# (sfno2d@8m) and the bf16 / fp32 step ratio of its bf16-exchange rows
+# (sfno2d@32m in both)
 LADDER_SIDE_ROWS = [("unet", "8m", [], {}), ("graphcast", "2m", [], {}),
-                    ("diffusion", "2m", [], {})]
+                    ("diffusion", "2m", [], {}), ("sfno2d", "8m", [], {}),
+                    ("sfno2d", "32m", [], {}),
+                    ("sfno2d", "32m", ["--compute-dtype", "bfloat16"], {})]
 # JAX's ladder on its TPU (`results/ladder.json`, read only): the widths
 # the port's `solve_width` must give for the same keys
 JAX_LADDER = os.path.join(REPO, "results", "ladder.json")
@@ -4076,10 +4107,12 @@ SHARDED_TOL = 1e-4
 # the fp32 output's max (`tests/test_parallel.py`'s bf16-comm bound)
 SPECTRAL_BF16_TOL = 3e-2
 SPECTRAL_BATCH = 4
-SPECTRAL_CASES = [("sfno per_conv", "model=sfno", {}),
-                  ("sfno fused", "model=sfno", {"dist_schedule": "fused"}),
-                  ("fourcastnet", "model=fourcastnet", {}),
-                  ("fourcastnetv2", "model=fourcastnetv2", {})]
+SPECTRAL_CASES = [("sfno per_conv", ["model=sfno"], {}),
+                  ("sfno fused", ["model=sfno"], {"dist_schedule": "fused"}),
+                  ("fourcastnet", ["model=fourcastnet"], {}),
+                  ("fourcastnetv2", ["model=fourcastnetv2"], {}),
+                  # the FNO2D mixer: the token rows gathered for the operator
+                  ("fourcastnet fno2d", ["model=fourcastnet", "model.filter=FNO2D"], {})]
 # the data-parallel training against the single-rank train path, as
 # `tests/test_torch_trainer.py` holds the port's trainer against JAX's:
 # per-step losses rtol 1e-5, final parameters within lr / 100 (Adam moves
@@ -4088,17 +4121,17 @@ DP_LOSS_RTOL = 1e-5
 DP_PARAM_ATOL = 1e-3 / 100  # training.learning_rate / 100
 
 
-def spawn_ranks(work: str, n: int = DIST_RANKS) -> list:
-    """Run `n` ranks (`dist_rank`) on the card, print their output, and
-    return each rank's results; a rank that fails or hangs fails the
-    script."""
+def spawn_ranks(work: str, n: int = DIST_RANKS, entry: str = "dist_rank") -> list:
+    """Run `n` ranks (`entry`: `dist_rank`, or `mesh_rank` for the 2x2
+    meshes) on the card, print their output, and return each rank's
+    results; a rank that fails or hangs fails the script."""
     import pickle
 
     from dlwpbench_tpu_torch.parallel import launch
 
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()),
                WORLD_SIZE=str(n))
-    code = "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank(sys.argv[1]))"
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}(sys.argv[1]))"
     procs = [subprocess.Popen([sys.executable, "-c", code, work], cwd=REPO,
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -4116,7 +4149,7 @@ def spawn_ranks(work: str, n: int = DIST_RANKS) -> list:
         for line in out.splitlines():
             print(f"[rank {r}] {line}")
         if p.returncode != 0:
-            raise SystemExit(f"distributed phase: rank {r} exited {p.returncode}")
+            raise SystemExit(f"{entry}: rank {r} of {n} exited {p.returncode}")
     results = []
     for r in range(n):
         with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
@@ -4385,8 +4418,8 @@ def spectral_suite(rank: int, world: int) -> dict:
         return weights.flatten_tree(weights.to_flax_tree(
             model, {n: p.grad for n, p in model.named_parameters()}))
 
-    for label, override, kw in SPECTRAL_CASES:
-        cfg = load_config(cli.CONFIG_DIR, overrides=[override, "data=synthetic"])
+    for label, overrides, kw in SPECTRAL_CASES:
+        cfg = load_config(cli.CONFIG_DIR, overrides=[*overrides, "data=synthetic"])
         single = build_for(cfg, seed=int(cfg.seed)).cuda()
         want = fwd_bwd(single, inputs)
         want_grads = flax_grads(single)
@@ -4611,6 +4644,310 @@ def run_distributed_paths(card: str, train_ref: dict) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- the 2x2 meshes
+# Four ranks share the one card through gloo, as the distributed phase's
+# two do, in the analysis process after its entries (`run_mesh_paths`):
+# the schedules that need a (2, 2) mesh.
+MESH_RANKS = 4
+# the 2D (sequence x head) ring on a (2, 2) ("x", "h") mesh: each head
+# group's ring over 2 ranks, so each round is half the heads against a
+# half-sequence kv chunk (`RING_2D_ROUNDS`); against one kernel call within
+# RING_TOL, 2 forward and 2 backward launches a rank, all mma
+RING_2D_CASES = RING_CASES[1:]  # the unshifted Swin stage 0, Pangu's flash route
+# the fused SFNO block stack on a (2, 2) ("x", "c") mesh at sfno.yaml's
+# width (embed 256, 4 layers, its equiangular 32 x 64 grid), channels and
+# the MLP's hidden dim split over "c", K = 4 channel chunks; output and
+# every gradient (the input's, and each weight's summed over the 4 ranks)
+# against the single-device stack on the same draws: fp32 exchanges within
+# SHARDED_TOL, bf16 exchanges within SPECTRAL_BF16_TOL, of each tensor's max
+SFNO_2D_BATCH = 4
+SFNO_2D_CHUNKS = 4
+# `training.model_parallel=2` under multihost on the 4 ranks: a (2, 2)
+# ("data", "x") mesh, each x pair one host reading 16 rows a step, so the
+# global batch and the step count are the 2-rank data-parallel check's (32
+# and 12); against the single-rank trainer on the same global batches (the
+# two hosts' rows, host after host: a single-rank run reads another
+# permutation) with DP_LOSS_RTOL and DP_PARAM_ATOL, each x pair's
+# parameters equal bit for bit
+MP_ARGV = [*TRAIN_ARGV, "training.multihost=true", "training.model_parallel=2",
+           "training.batch_size=16"]
+MP_HOSTS = 2
+
+
+def mesh_rank(work: str) -> int:
+    """One rank of the 2x2 meshes: joins the gloo group from the
+    torch-style variables, runs `mesh_suite` on cuda:0, writes its results
+    (its peak device memory among them) to `work/rank<r>.pkl`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # 4 ranks beside the script's three processes
+    from dlwpbench_tpu_torch.parallel import launch
+
+    if not launch.initialize(backend="gloo"):
+        raise SystemExit("no distributed job in the environment")
+    rank, world = launch.host_info()
+    res = mesh_suite(rank, world, work)
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _sfno_blocks_single(x, layers, tables):
+    """The fused SFNO block stack on the whole [B, nlat, nlon, C] field, one
+    device: spherical conv + skip Dense -> gelu -> MLP residual (the
+    schedules' math, `parallel/spectral_dist.py::dist_sfno_blocks`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlwpbench_tpu_torch.ops.sht import isht, sht
+
+    for L in layers:
+        w = torch.complex(L["spec"][..., 0], L["spec"][..., 1])
+        y = isht(torch.einsum("bilm,iol->bolm", sht(x.movedim(-1, -3), tables), w), tables)
+        z = F.gelu(y.movedim(-3, -1) + x @ L["skip_k"] + L["skip_b"], approximate="tanh")
+        h = F.gelu(z @ L["mlp1_k"] + L["mlp1_b"], approximate="tanh")
+        x = z + h @ L["mlp2_k"] + L["mlp2_b"]
+    return x
+
+
+def mesh_suite(rank: int, world: int, work: str) -> dict:
+    """The 2D ring (`RING_2D_CASES`), the 2D fused SFNO (fp32 and bf16
+    exchanges) and the Swin's train path under `MP_ARGV`, on this rank."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.ops import flash_attention as fa
+    from dlwpbench_tpu_torch.ops.sht import sht_tables
+    from dlwpbench_tpu_torch.parallel import launch, ring_attention
+    from dlwpbench_tpu_torch.parallel import spectral_dist as sd
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    counters = counters_of()
+    res = {"ring": [], "seconds": {}}
+    t_start = time.perf_counter()
+    mesh_xh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "h"))
+    for label, B, H, N, D, G, kind in RING_2D_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(7)  # the same inputs on every rank
+        q, k, v, bias = _flash_inputs(B, H, N, D, G, kind, torch.float32, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        reset_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention.ring_attention_sharded(*leaves, mesh_xh, axis="x", head_axis="h")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.backward(do)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, fused = _launches(counters), new_design_launches(counters)
+        ref = [t.clone().requires_grad_() for t in (q, k, v, bias)]  # one call, not counted
+        ref_out = fa.flash_window_attention(*ref)
+        ref_out.backward(do)
+        errs = {"out": _rel(out, ref_out)}
+        errs.update({f"d{n}": _rel(a.grad, b.grad) for n, a, b in zip("qkvb", leaves, ref)})
+        res["ring"].append(dict(case=label, B=B, H=H, N=N, D=D, bias=list(bias.shape),
+                                fwd_s=t1 - t0, bwd_s=t2 - t1, launches=launches, fused=fused,
+                                errors=errs))
+        del q, k, v, bias, do, leaves, out, ref, ref_out
+        torch.cuda.empty_cache()
+    res["seconds"]["ring"] = time.perf_counter() - t_start
+
+    # the fused SFNO stack on the (latitude x channel) mesh
+    t0 = time.perf_counter()
+    cfg = load_config(cli.CONFIG_DIR, overrides=["model=sfno", "data=synthetic"])
+    C, n_layers = int(cfg.model.embed_dim), int(cfg.model.num_layers)
+    tables = sht_tables(int(cfg.data.height), int(cfg.data.width), grid=str(cfg.model.grid))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def draw(shape, scale):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+
+    layers = [dict(spec=draw((C, C, tables.lmax, 2), 1.0 / C), skip_k=draw((C, C), C ** -0.5),
+                   skip_b=draw((C,), 0.1), mlp1_k=draw((C, 2 * C), C ** -0.5),
+                   mlp1_b=draw((2 * C,), 0.1), mlp2_k=draw((2 * C, C), (2 * C) ** -0.5),
+                   mlp2_b=draw((C,), 0.1)) for _ in range(n_layers)]
+    x = draw((SFNO_2D_BATCH, int(cfg.data.height), int(cfg.data.width), C), 1.0)
+
+    def fwd_bwd(fn):
+        xl = x.clone().requires_grad_()
+        ll = [{n: t.clone().requires_grad_() for n, t in L.items()} for L in layers]
+        y = fn(xl, ll)
+        (y ** 2).mean().backward()
+        grads = {f"layer{i}/{n}": t.grad for i, L in enumerate(ll) for n, t in L.items()}
+        return y.detach(), xl.grad, grads
+
+    want, want_dx, want_grads = fwd_bwd(lambda a, ll: _sfno_blocks_single(a, ll, tables))
+    single_ms = _host_ms(lambda: fwd_bwd(lambda a, ll: _sfno_blocks_single(a, ll, tables)),
+                         iters=2)
+    mesh_xc = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "c"))
+    res["sfno"] = []
+    for comm, comm_dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        fn = sd.make_dist_sfno_blocks_2d(mesh_xc, tables, pipeline_chunks=SFNO_2D_CHUNKS,
+                                         comm_dtype=comm_dtype)
+        reset_counters(counters)
+        got, dx, grads = fwd_bwd(fn)
+        launch.all_reduce_(list(grads.values()))  # each rank's share, over the whole mesh
+        grad_err, grad_name = _worst_grad_err({"x": dx, **grads}, {"x": want_dx, **want_grads})
+        res["sfno"].append(dict(comm=comm, err=_rel(got, want), grad_err=grad_err,
+                                grad_name=grad_name, n_grads=1 + len(grads),
+                                launches=_launches(counters),
+                                ms=_host_ms(lambda fn=fn: fwd_bwd(fn), iters=2),
+                                single_ms=single_ms))
+    res["sfno_shape"] = [SFNO_2D_BATCH, int(cfg.data.height), int(cfg.data.width), C, n_layers]
+    del x, layers, want, want_dx, want_grads
+    torch.cuda.empty_cache()
+    res["seconds"]["sfno"] = time.perf_counter() - t0
+
+    # the Swin's train path with training.model_parallel=2 under multihost
+    t0 = time.perf_counter()
+    reset_counters(counters)
+    run = cli.main([*MP_ARGV, f"run_dir={os.path.join(work, 'mp_run')}", "--device", "cuda:0"])
+    res["mp"] = dict(launches=_launches(counters), fused=new_design_launches(counters),
+                     step_losses=run["step_losses"], step_seconds=run["step_seconds"],
+                     train_loss=run["train_loss"], val_loss=run["val_loss"],
+                     params={n: p.detach().cpu() for n, p in run["state"].model.named_parameters()})
+    res["seconds"]["mp"] = time.perf_counter() - t0
+    return res
+
+
+def replay_global_batches(argv: list, n_hosts: int) -> dict:
+    """The single-rank trainer (`train.build_trainer`, the one the train
+    CLI builds for `argv`, TF32 off) stepped on the global batches of a
+    multihost run of `argv` with `n_hosts` hosts: each step the hosts'
+    batches of epoch 0, host after host.  Returns the per-step losses and
+    the final parameters."""
+    import numpy as np
+    import torch
+
+    from dlwpbench_tpu_torch import train as cli
+    from dlwpbench_tpu_torch.training.config import load_config
+    from dlwpbench_tpu_torch.training.trainer import cosine_lr
+
+    cfg = load_config(cli.CONFIG_DIR, overrides=argv)
+    trainer = cli.build_trainer(cfg, torch.device("cuda"))
+    state = trainer.init()
+    state.model.train()
+    train_ds = train_splits(argv)[0]  # no noise: the hosts' shards read no generator
+    lr = cosine_lr(0, trainer.base_lr, trainer.epochs)
+    shards = [train_ds.batches(int(cfg.training.batch_size), shuffle=True, host_id=i,
+                               n_hosts=n_hosts, epoch=0) for i in range(n_hosts)]
+    losses = []
+    for parts in zip(*shards):
+        batch = tuple(None if p[0] is None else np.concatenate(p) for p in zip(*parts))
+        losses.append(trainer.train_step(state, trainer._to_device(batch), lr).item())
+    return dict(step_losses=losses,
+                params={n: p.detach().cpu() for n, p in state.model.named_parameters()})
+
+
+def run_mesh_paths(card: str) -> dict:
+    """The 2x2 meshes, in the analysis process: `MESH_RANKS` ranks of
+    `mesh_rank`, then the single-rank replay of the model-parallel run's
+    global batches; returns what `check_mesh_paths` holds (numbers only:
+    the parameters are compared here)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
+        ranks = spawn_ranks(work, MESH_RANKS, "mesh_rank")
+    t_ranks = time.perf_counter() - t0
+    ref = replay_global_batches(MP_ARGV, MP_HOSTS)
+    ref_losses = torch.tensor(ref["step_losses"], dtype=torch.float64)
+    mp = []
+    for r, res in enumerate(rank["mp"] for rank in ranks):
+        losses = torch.tensor(res["step_losses"], dtype=torch.float64)
+        partner = ranks[r ^ 1]["mp"]["params"]  # the x pairs: ranks (0, 1) and (2, 3)
+        mp.append(dict(
+            steps=len(losses), ref_steps=len(ref_losses),
+            loss_err=((losses - ref_losses).abs().max() / ref_losses.abs().max()).item()
+            if len(losses) == len(ref_losses) else float("inf"),
+            param_err=max((res["params"][n] - p).abs().max().item()
+                          for n, p in ref["params"].items()),
+            pair_equal=all(torch.equal(p, partner[n]) for n, p in res["params"].items()),
+            launches=res["launches"], fused=res["fused"], train_loss=res["train_loss"],
+            val_loss=res["val_loss"],
+            per_step_s=[s for n, s in res["step_seconds"] if n == 16][1:]))
+    for rank in ranks:
+        del rank["mp"]
+    return dict(ranks=ranks, mp=mp, ranks_s=t_ranks, replay_s=time.perf_counter() - t0 - t_ranks)
+
+
+def check_mesh_paths(card: str, res: dict) -> dict:
+    """The 2x2 meshes' checks (see `RING_2D_CASES`, `SFNO_2D_BATCH`,
+    `MP_ARGV`); prints each rank's peak device memory.  Returns each
+    path's launches by kernel."""
+    paths, failures = {}, []
+    print(f"2x2 meshes: {MESH_RANKS} gloo ranks on cuda:0, {res['ranks_s']:.1f} s for the ranks "
+          f"(in each: " + ", ".join(f"{k} {v:.1f} s" for k, v in res["ranks"][0]["seconds"].items())
+          + f"), the single-rank replay {res['replay_s']:.1f} s [{card}]")
+    for r, rank in enumerate(res["ranks"]):
+        for c in rank["ring"]:
+            ok = (c["errors"]["out"] <= RING_TOL["out"]
+                  and all(e <= RING_TOL["grad"] for n, e in c["errors"].items() if n != "out")
+                  and c["launches"]["flash_window_attention"] == 2
+                  and c["launches"]["flash_window_attention_bwd"] == 2
+                  and _attention_launches(c["launches"]) == 4
+                  and all(c["fused"][n] == c["launches"][n] for n in c["fused"]))
+            print(f"2D ring attention (x 2 x h 2) rank {r}, {c['case']} q[{c['B']},{c['H']},"
+                  f"{c['N']},{c['D']}] bias{c['bias']}, rounds q[{c['B']},{c['H'] // 2},"
+                  f"{c['N'] // 2},{c['D']}]: against one kernel call "
+                  + " ".join(f"{n} {e:.3e}" for n, e in c["errors"].items())
+                  + f" (tol {RING_TOL['out']:.0e} out, {RING_TOL['grad']:.0e} gradients, x max); "
+                  f"forward {c['fwd_s'] * 1e3:.1f} ms, backward {c['bwd_s'] * 1e3:.1f} ms (first "
+                  f"calls, host clock); launches {c['launches']}, mma {c['fused']} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                failures.append(f"2D ring rank {r} {c['case']}")
+            paths[f"ring_2d {c['case'].split(' G=')[0]} rank{r}".replace(" ", "_")] = c["launches"]
+        B, H, W, C, L = rank["sfno_shape"]
+        for c in rank["sfno"]:
+            tol = SHARDED_TOL if c["comm"] == "fp32" else SPECTRAL_BF16_TOL
+            ok = (c["err"] <= tol and c["grad_err"] <= tol
+                  and not _attention_launches(c["launches"]))
+            print(f"2D fused SFNO (x 2 x c 2) rank {r}, {c['comm']} exchanges, [{B},{H},{W},{C}] x "
+                  f"{L} blocks, K {SFNO_2D_CHUNKS}: output within {c['err']:.3e} of the single "
+                  f"device's, the {c['n_grads']} gradients (input, and each weight summed over "
+                  f"the ranks) within {c['grad_err']:.3e} (worst {c['grad_name']}; tol {tol:.0e}"
+                  f" x max); forward + backward {c['ms']:.2f} ms against the single device's "
+                  f"{c['single_ms']:.2f} ms; attention launches "
+                  f"{_attention_launches(c['launches'])} (none wanted) {'ok' if ok else 'FAIL'} "
+                  f"[{card}]")
+            if not ok:
+                failures.append(f"2D fused SFNO rank {r} {c['comm']}")
+    for r, m in enumerate(res["mp"]):
+        fl = {n: m["launches"][n] for n in ("flash_window_attention", "flash_window_attention_bwd")}
+        ok = (m["steps"] == m["ref_steps"] > 0 and m["loss_err"] <= DP_LOSS_RTOL
+              and m["param_err"] <= DP_PARAM_ATOL and m["pair_equal"] and all(fl.values())
+              and all(m["fused"][n] == m["launches"][n] for n in m["fused"])
+              and m["launches"] == res["mp"][0]["launches"])
+        step = sum(m["per_step_s"]) / max(1, len(m["per_step_s"]))
+        print(f"model_parallel=2 (multihost, mesh data 2 x x 2) rank {r}: {m['steps']} steps, "
+              f"per-step losses within {m['loss_err']:.3e} of the single-rank trainer on the "
+              f"same global batches (rtol {DP_LOSS_RTOL:.0e}), final parameters within "
+              f"{m['param_err']:.3e} (atol {DP_PARAM_ATOL:.0e}), equal to its x partner's "
+              f"{'bit for bit' if m['pair_equal'] else 'NOT bit for bit'}; train "
+              f"{m['train_loss']}, val {m['val_loss']}; launches {fl}, mma "
+              f"{ {n: m['fused'][n] for n in fl} }; {step:.4f} s per step at 16 rows a rank "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"model_parallel rank {r}")
+        paths[f"mp_train_rank{r}"] = m["launches"]
+    print("2x2 meshes, max_memory_allocated by rank: "
+          + ", ".join(f"{r['max_memory_allocated'] / 2**20:.1f} MiB" for r in res["ranks"])
+          + f" [{card}]")
+    if failures:
+        raise SystemExit(f"the 2x2 meshes failed: {failures}")
+    return paths
+
+
 def run_profile_paths(card: str) -> dict:
     """The profile entry (`python -m dlwpbench_tpu_torch.profile_model`,
     called in this process): the U-Net's rollout and the Swin's train step
@@ -4693,9 +5030,11 @@ def analysis_process(out_path: str) -> int:
     """The analysis phase's card part, in a process of its own
     (`ScriptProcess`): `collective_microbench` on 2 gloo ranks and on one
     NCCL rank, `schedule_audit` on 2 gloo ranks, `benchmark_scaling` on 1
-    and 2 gloo ranks and with `--spatial 2`; their outputs to `out_path` as
-    JSON (the microbench
+    and 2 gloo ranks and with `--spatial 2` on 2 and 4, then the 2x2 meshes
+    (`run_mesh_paths`); their outputs to `out_path` as JSON (the microbench
     file's content among them, for the scaling model)."""
+    import torch
+
     sys.path.insert(0, REPO)
     card = card_line()
     clock = Clock("analysis", card)
@@ -4715,12 +5054,14 @@ def analysis_process(out_path: str) -> int:
                                                   "--steps", "2", "--out",
                                                   os.path.join(work, "scaling.json")])
     clock("benchmark_scaling, 1 and 2 gloo ranks")
-    res["spatial"] = _entry("benchmark_scaling", ["--devices", n, "--spatial", n, "--backend",
-                                                  "gloo", "--steps", "2", "--out",
+    res["spatial"] = _entry("benchmark_scaling", ["--devices", f"{n},{MESH_RANKS}", "--spatial",
+                                                  n, "--backend", "gloo", "--steps", "2", "--out",
                                                   os.path.join(work, "scaling_spatial.json")])
-    clock("benchmark_scaling --spatial 2, 2 gloo ranks")
+    clock(f"benchmark_scaling --spatial 2, 2 and {MESH_RANKS} gloo ranks")
     with open(mb_file) as f:
         res["microbench_json"] = json.load(f)  # the scaling model's input, after the join
+    res["mesh"] = run_mesh_paths(card)
+    clock(f"the 2x2 meshes, {MESH_RANKS} gloo ranks and the single-rank replay")
     res["seconds"] = time.perf_counter() - t0
     print(f"analysis phase: {res['seconds']:.1f} s in its own process [{card}]")
     with open(out_path, "w") as f:
@@ -4733,8 +5074,10 @@ def check_analysis(card: str, res: dict, ladder_file: str) -> dict:
     within 1% of 1 on both microbench runs, the fit's rows; the ring's
     rounds launch the flash forward, all on the mma design, and nothing
     else launches an attention kernel; both audits' collectives; both
-    scaling rows; then `scaling_model` on the ladder phase's ladder and
-    the phase's microbench file, no row with an error.  Returns each
+    scaling rows and both `--spatial` rows (meshes 1x2 and 2x2); the 2x2
+    meshes (`check_mesh_paths`); then `scaling_model` on the ladder
+    phase's ladder and the phase's microbench file, no row with an error,
+    the bf16-exchange rows of every SFNO family present.  Returns each
     path's launches by kernel."""
     t0 = time.perf_counter()
     paths, failures = {}, []
@@ -4800,22 +5143,26 @@ def check_analysis(card: str, res: dict, ladder_file: str) -> dict:
                   f"{row['efficiency']:.4f} {'ok' if ok else 'FAIL'} [{card}]")
         if not ok:
             failures.append(f"benchmark_scaling {count}")
-    row = res["spatial"].get(str(ANALYSIS_RANKS), {"error": "missing"})
     base = res["scaling"].get("1", {})
-    ok = ("error" not in row and row["mesh"] == f"1x{ANALYSIS_RANKS}" and row["step_s"] > 0
-          and not _attention_launches(row["attention_launches"]))
-    if "error" in row:
-        print(f"benchmark_scaling --spatial {ANALYSIS_RANKS}: FAILED {row['error']}")
-    else:
-        paths["analysis_scaling_spatial"] = row["attention_launches"]
-        print(f"benchmark_scaling --spatial {ANALYSIS_RANKS} (mesh {row['mesh']}, the U-Net on "
-              f"latitude rows, {row['backend']}, ranks_per_card {row['ranks_per_card']}): "
-              f"{row['step_s'] * 1e3:.2f} ms a step at global batch {row['global_batch']}, "
-              f"{row['gridpoints_per_s']:,.1f} grid-points/s (one rank at batch "
-              f"{base.get('global_batch')}: {base.get('step_s', 0) * 1e3:.2f} ms) "
-              f"{'ok' if ok else 'FAIL'} [{card}]")
-    if not ok:
-        failures.append("benchmark_scaling --spatial")
+    for count, mesh in ((ANALYSIS_RANKS, f"1x{ANALYSIS_RANKS}"),
+                        (MESH_RANKS, f"{MESH_RANKS // ANALYSIS_RANKS}x{ANALYSIS_RANKS}")):
+        row = res["spatial"].get(str(count), {"error": "missing"})
+        ok = ("error" not in row and row["mesh"] == mesh and row["step_s"] > 0
+              and not _attention_launches(row["attention_launches"]))
+        if "error" in row:
+            print(f"benchmark_scaling --spatial {ANALYSIS_RANKS}, {count} ranks: FAILED "
+                  f"{row['error']}")
+        else:
+            paths[f"analysis_scaling_spatial_{count}"] = row["attention_launches"]
+            print(f"benchmark_scaling --spatial {ANALYSIS_RANKS}, {count} ranks (mesh "
+                  f"{row['mesh']}, the U-Net on latitude rows, {row['backend']}, ranks_per_card "
+                  f"{row['ranks_per_card']}): {row['step_s'] * 1e3:.2f} ms a step at global "
+                  f"batch {row['global_batch']}, {row['gridpoints_per_s']:,.1f} grid-points/s "
+                  f"(one rank at batch {base.get('global_batch')}: "
+                  f"{base.get('step_s', 0) * 1e3:.2f} ms) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            failures.append(f"benchmark_scaling --spatial, {count} ranks")
+    paths.update(check_mesh_paths(card, res["mesh"]))
     work = os.path.dirname(ladder_file)
     mb_file = os.path.join(work, "collective_microbench.json")
     with open(mb_file, "w") as f:
@@ -4828,6 +5175,20 @@ def check_analysis(card: str, res: dict, ladder_file: str) -> dict:
           f"{sorted({v['link_source'] for v in rows.values()})}")
     if not rows or any("error" in v for v in rows.values()):
         failures.append("scaling_model")
+    # the bf16-exchange rows of every SFNO family on both grids: their
+    # single-card step (sfno2d@8m) and bf16 / fp32 step ratio (sfno2d@32m)
+    # are ladder rows read while the card ran the script's other processes
+    want = [f"h100-sxm5:{grid}:{fam}:bf16comm" for grid in ("5.625deg", "1.0deg")
+            for fam in ("sfno2d", "sfno2d_fused", "sfno2d_fused_2d")]
+    for key in want:
+        if key in rows:
+            print(f"scaling_model {key} (shared-card figures: the ladder's sfno2d rows were read "
+                  f"beside the script's other processes on the card): single-card step "
+                  f"{rows[key]['single_chip_step_s']} s, efficiency "
+                  f"{rows[key]['efficiency_by_chips']} [{card}]")
+    if [k for k in want if k not in rows]:
+        failures.append(f"scaling_model bf16-exchange rows missing: "
+                        f"{[k for k in want if k not in rows]}")
     print(f"analysis phase: {res['seconds']:.1f} s in its own process beside the paths, "
           f"{time.perf_counter() - t0:.1f} s here (its checks and the scaling model) [{card}]")
     if failures:

@@ -28,6 +28,7 @@ from torch import nn
 from dlwpbench_tpu_torch.models.base import RolloutModel
 from dlwpbench_tpu_torch.models.fourcastnet import _lecun_normal_
 from dlwpbench_tpu_torch.ops.spectral import SpectralConv2d
+from dlwpbench_tpu_torch.parallel import launch
 
 
 def init_like_flax_(model: nn.Module, generator: torch.Generator) -> None:
@@ -49,14 +50,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class FNOCore(nn.Module):
-    """The operator on [B, H, W, Cin] fields."""
+    """The operator on [B, H, W, Cin] fields.  With `spmd_mesh` (FourCastNet's
+    FNO2D mixer on token rows sharded over the mesh dim `dist_axis`),
+    `local` maps this rank's rows to its rows of the output: JAX runs the
+    operator on its sharded rows and GSPMD gathers them for the FFT."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
                  lifting_channels: int = 256, projection_channels: int = 256,
                  n_modes: Sequence[int] = (12, 12), n_layers: int = 4,
                  tucker_rank: Optional[float] = None, use_bias: bool = True,
-                 fft_impl: str = "matmul", *, grid_shape: Sequence[int]):
+                 fft_impl: str = "matmul", *, grid_shape: Sequence[int],
+                 spmd_mesh: Any = None, dist_axis: str = "x"):
         super().__init__()
+        self.group = None if spmd_mesh is None else launch.axis(spmd_mesh, dist_axis)[0]
         self.n_layers = int(n_layers)
         hidden = int(hidden_channels)
         self.Dense_0 = nn.Linear(int(in_channels), int(lifting_channels))
@@ -78,6 +84,16 @@ class FNOCore(nn.Module):
             x = gelu(y) if i < L - 1 else y
         x = gelu(getattr(self, f"Dense_{2 + L}")(x))
         return getattr(self, f"Dense_{3 + L}")(x)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H/P, W, Cin] rows of this rank -> its rows of the output: the
+        rows gathered into the whole field (`launch.all_gather`, whose
+        backward sums every rank's cotangent of the field, as each rank's
+        rows reach all of it through the FFT), the operator on it, this
+        rank's rows kept.  The weight gradients are this rank's rows'
+        share, summed over the group by the trainer."""
+        r = torch.distributed.get_rank(self.group)
+        return self(launch.all_gather(x, 1, self.group)).narrow(1, r * x.shape[1], x.shape[1])
 
 
 class FNO2DModule(RolloutModel):

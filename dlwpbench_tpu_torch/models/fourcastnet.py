@@ -25,11 +25,12 @@ sharded over the mesh dim `dist_axis` (input through
 `launch.scatter_to_ranks`, output through `launch.gather_from_ranks`):
 the patch conv, the LayerNorms, the MLPs and the head on the local rows,
 the AFNO2D and SFNO filters over the distributed rFFT2 and SHT (JAX hands
-them the mesh, `models/fourcastnet.py:56-90,134,163`).  The token rows
-must split over the ranks.  Each rank's weight gradients are its rows'
-share, summed over `partition_group` (the trainer does it).  The FNO2D
-filter has no distributed form (JAX's runs it under GSPMD on gathered
-rows) and raises with a mesh."""
+them the mesh, `models/fourcastnet.py:56-90,134,163`), the FNO2D filter on
+the whole token grid gathered from the ranks' rows, each rank keeping its
+own (`FNOCore.local`; JAX's GSPMD gathers the rows for the FFT,
+`:87-96`).  The token rows must split over the ranks.  Each rank's weight
+gradients are its rows' share, summed over `partition_group` (the trainer
+does it)."""
 
 from __future__ import annotations
 
@@ -133,13 +134,11 @@ class AFNOBlock(nn.Module):
         elif filter_type == "SFNO":  # FourCastNetv2's mixer, the JAX block's default fft_impl
             self.SphericalConv_0 = SphericalConv(dim, dim, nlat=grid_shape[0], nlon=grid_shape[1],
                                                  spmd_mesh=spmd_mesh, dist_axis=dist_axis)
-        elif filter_type == "FNO2D" and self.sharded:
-            raise NotImplementedError("the FNO2D filter has no distributed form: build "
-                                      "FourCastNet with it without spmd_mesh")
         elif filter_type == "FNO2D":  # the reference's FNO mixer, one spectral layer
             self.FNOCore_0 = FNOCore(dim, dim, dim, lifting_channels=dim,
                                      projection_channels=dim, n_modes=tuple(n_modes),
-                                     n_layers=1, grid_shape=grid_shape)
+                                     n_layers=1, grid_shape=grid_shape, spmd_mesh=spmd_mesh,
+                                     dist_axis=dist_axis)
         else:
             raise ValueError(f"unknown filter {filter_type!r}: expected one of {FILTERS}")
         self.filter_type = filter_type

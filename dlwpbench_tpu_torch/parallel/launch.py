@@ -518,6 +518,17 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, i * m, m).contiguous(), None, None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
 def scatter_to_ranks(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """This rank's chunk of the replicated `x` along `dim` (equal chunks,
     in rank order); the backward all-gathers the chunks' cotangents, so
@@ -538,3 +549,15 @@ def gather_from_ranks(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _Gather.apply(x, dim, group)
+
+
+def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's chunk concatenated along `dim`, for a computation on
+    the whole that each rank then reads only its own part of: the
+    cotangents differ from rank to rank, and the backward sums them over
+    the ranks and keeps this rank's chunk (`reduce_scatter`, the transpose
+    JAX derives for an all-gather).  `gather_from_ranks` is the gather
+    whose cotangent is the same on every rank."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllGather.apply(x, dim, group)

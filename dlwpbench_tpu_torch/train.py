@@ -26,8 +26,13 @@ Several ranks, one process each (`parallel/launch.py`):
 splits each global batch over the N ranks (NCCL on CUDA, gloo on the
 CPU); `training.multihost=true` joins whatever job the environment
 describes (torch-style variables, SLURM, OpenMPI) and gives each rank its
-own shard of every epoch, the global batch being ranks x batch_size.
-Gradients are averaged over the ranks; only rank 0 writes to `run_dir`.
+own shard of every epoch, the global batch being ranks x batch_size;
+with `training.model_parallel=x` the ranks form a ("data", "x") mesh and
+each data coordinate's x ranks read one shard (the step of world / x
+data-parallel ranks).  The gradient all-reduce spans every rank of the
+job, each weighted so that the sum is the mean over the data
+coordinates' shards, and every rank ends each step with the same bits;
+only rank 0 writes to `run_dir`.
 """
 
 from __future__ import annotations
@@ -54,19 +59,34 @@ CONFIG_DIR = os.path.join(
 def _join_job(cfg, device: str):
     """(data group, host_id, n_hosts) of `training.data_parallel` and
     `training.multihost` (JAX `scripts/train.py:18-28`, `:75-110`); (None,
-    0, 1) for a single-process run."""
-    if int(cfg.training.get("model_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            "training.model_parallel > 1: the trainer splits batches over the ranks only; "
-            "a model splits over the mesh's 'x' dim through its own spmd_mesh")
+    0, 1) for a single-process run.
+
+    Under `multihost` the ranks form JAX's `global_mesh(x=model_parallel)`,
+    ("data", "x") in row-major order with `training.model_parallel` ranks
+    on "x".  The batch shards over "data" and replicates over "x", so the
+    ranks of one data coordinate are one host in JAX's sense: they read
+    the same rows (`host_id` the data coordinate, `n_hosts` the data
+    size).  The gradient all-reduce spans the whole mesh at weight 1 /
+    world (the trainer's row shares): every host's gradient arrives x
+    times, so the sum is the mean over "data", and every rank ends the
+    step with the same bits.  (A sum over "data" alone is the same step
+    in exact arithmetic, but on the H100 the x partners' own gradients
+    differ in their last bits, from atomics in the backward of gathers,
+    and the x pairs' parameters then drift apart.)  With one data
+    coordinate (x the world) the trainer splits each batch's rows over
+    the ranks, as under `data_parallel`: the same step.  Without
+    `multihost` JAX ignores `model_parallel`, and so does the port."""
     kind = torch.device(device).type
     if bool(cfg.training.get("multihost", False)):
         launch.initialize(device=kind)
-        host_id, n_hosts = launch.host_info()
-        group = launch.global_mesh().get_group("data") if n_hosts > 1 else None
+        rank, world = launch.host_info()
+        x = int(cfg.training.get("model_parallel", 1) or 1)
+        if world % x:  # where JAX's `global_mesh` raises
+            raise ValueError(f"{world} ranks not divisible by x={x}")
+        group = torch.distributed.group.WORLD if world > 1 else None
         if cfg.verbose:
-            print(f"multihost: process {host_id}/{n_hosts}", flush=True)
-        return group, host_id, n_hosts
+            print(f"multihost: process {rank}/{world}, mesh {world // x}x{x}", flush=True)
+        return group, rank // x, world // x
     n = int(cfg.training.get("data_parallel", 0) or 0)
     if n <= 1:
         return None, 0, 1
@@ -78,30 +98,19 @@ def _join_job(cfg, device: str):
     return launch.global_mesh(data=n).get_group("data"), 0, 1
 
 
-def train(overrides: list[str], device: str = "cuda") -> dict:
-    """Run the training; returns the final `state`, per-epoch `train_loss`
-    and `val_loss`, the per-step `step_seconds` [(samples, seconds)] and
-    `step_losses`, the `device` and this process's `rank`."""
-    cfg = load_config(CONFIG_DIR, overrides=overrides)
-    if not int(cfg.training.sequence_length) > int(cfg.model.context_size):
-        raise ValueError("No time steps to predict, increase the prediction window.")
-    data_group, host_id, n_hosts = _join_job(cfg, device)
-    dev = resolve_device(device)
-    # fp32 means fp32: no TF32 in matmuls or cuDNN convolutions
+def build_trainer(cfg, dev, data_group=None, host_id: int = 0, n_hosts: int = 1) -> Trainer:
+    """The trainer that training on `cfg` steps: the registry's model from
+    the config's seed on `dev` (per-step rematerialisation unless
+    `model.remat=false`), the latitude weights of a lat-lon grid and the
+    `training` settings; turns TF32 off, so that fp32 means fp32 in
+    matmuls and cuDNN convolutions.  `data_group`, `host_id`, `n_hosts`:
+    the job's, as `_join_job` gives them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    # rematerialise rollout steps in training (activation memory O(step)
-    # instead of O(rollout)); override with model.remat=false
     if "remat" not in cfg.model:
         cfg.model["remat"] = True
     model = registry.build_model(cfg.model, seed=int(cfg.get("seed", 1234)),
                                  grid_shape=registry.data_grid_shape(cfg.data)).to(dev)
-    ctx = int(cfg.model.context_size)
-    train_ds, val_ds, _, _ = build_datasets(
-        cfg.data, cfg.training, cfg.validation, cfg.get("testing"), ctx, device=dev
-    )
-
     lat_w = None  # lat-weighted validation on the lat-lon grids
     if (
         cfg.data.get("type") != "NavierStokes"
@@ -111,8 +120,7 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
         h = int(cfg.data.height)
         lats = np.linspace(-90 + 180 / h / 2, 90 - 180 / h / 2, h)
         lat_w = latitude_weights(lats)[:, None]
-
-    trainer = Trainer(
+    return Trainer(
         model,
         learning_rate=float(cfg.training.learning_rate),
         weight_decay=float(cfg.training.optimizer_weight_decay),
@@ -129,6 +137,22 @@ def train(overrides: list[str], device: str = "cuda") -> dict:
         data_group=data_group,
         host_id=host_id,
         n_hosts=n_hosts,
+    )
+
+
+def train(overrides: list[str], device: str = "cuda") -> dict:
+    """Run the training; returns the final `state`, per-epoch `train_loss`
+    and `val_loss`, the per-step `step_seconds` [(samples, seconds)] and
+    `step_losses`, the `device` and this process's `rank`."""
+    cfg = load_config(CONFIG_DIR, overrides=overrides)
+    if not int(cfg.training.sequence_length) > int(cfg.model.context_size):
+        raise ValueError("No time steps to predict, increase the prediction window.")
+    data_group, host_id, n_hosts = _join_job(cfg, device)
+    dev = resolve_device(device)
+    trainer = build_trainer(cfg, dev, data_group, host_id, n_hosts)
+    train_ds, val_ds, _, _ = build_datasets(
+        cfg.data, cfg.training, cfg.validation, cfg.get("testing"),
+        int(cfg.model.context_size), device=dev
     )
     state = trainer.init()
     if cfg.verbose:

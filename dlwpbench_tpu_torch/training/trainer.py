@@ -54,7 +54,9 @@ holds the same parameters and optimizer state.
   not split evenly is computed whole on every rank, as JAX replicates it;
 - `multihost` (`n_hosts > 1`): each rank reads its own shard of the epoch
   (`dataset.batches(host_id=..., n_hosts=..., epoch=...)`), so the global
-  batch is `n_hosts x batch_size` rows.
+  batch is `n_hosts x batch_size` rows; under `training.model_parallel`
+  the group is the whole mesh and the x ranks of one host read the same
+  shard, each weighted 1 / group size, so the sum is the hosts' mean.
 After the last micro-batch the gradients (and the step's loss) are
 summed over the group in one flat all-reduce per dtype, each rank's
 micro-batch weighted by its rows' share of the global batch, so clipping

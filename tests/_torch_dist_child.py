@@ -142,6 +142,11 @@ def suite_ring(inp, mesh):
     mesh2d = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "h"))
     q, k, v, b = map(t, inp["2d"])
     res["2d"] = ring_attention_sharded(q, k, v, b, mesh2d, axis="x", head_axis="h").numpy()
+    # its gradients: the heads' gather and scatter around each head group's ring
+    ops = [t(a).requires_grad_() for a in inp["2d"]]
+    w = torch.cos(torch.arange(ops[0].shape[-1], dtype=torch.float32))
+    (ring_attention_sharded(*ops, mesh2d, axis="x", head_axis="h") * w).sum().backward()
+    res["2d_grads"] = [o.grad.numpy() for o in ops]
     ops = [t(a).requires_grad_() for a in inp["grads"]]
     w = torch.cos(torch.arange(ops[0].shape[-1], dtype=torch.float32))
     (ring_attention_sharded(*ops, mesh, axis="x") * w).sum().backward()
@@ -157,7 +162,8 @@ def suite_ring(inp, mesh):
 
 def suite_mesh(inp, mesh):
     """The halo, partitioned message passing, the sharded HEALPix pad, the
-    partitioned GraphCast and the U-Net on latitude rows."""
+    partitioned GraphCast, the U-Net on latitude rows, and the train CLI
+    under `training.multihost` with `training.model_parallel`."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -241,6 +247,21 @@ def suite_mesh(inp, mesh):
         loss = tt.train_step(st, batch, gc["lr"]).item()
         res[f"graphcast_step_{key}"] = (loss, _grads_flax(st.model),
                                         weights.flatten_tree(weights.to_flax_tree(st.model)))
+
+    # the train CLI under multihost with training.model_parallel=2: a (2, 2)
+    # ("data", "x") mesh, each x pair one host; then an x that does not
+    # divide the ranks
+    from dlwpbench_tpu_torch import train
+
+    mp = inp["model_parallel"]
+    run = train.main([*mp["argv"], "training.model_parallel=2", "--device", "cpu"])
+    res["model_parallel"] = {"step_losses": run["step_losses"], "params": {
+        n: p.detach().numpy().copy() for n, p in run["state"].model.named_parameters()}}
+    try:
+        train.main([*mp["argv"], "training.model_parallel=3", "--device", "cpu"])
+        res["model_parallel_3"] = None
+    except ValueError as e:
+        res["model_parallel_3"] = str(e)
     return res
 
 
@@ -309,7 +330,7 @@ def suite_train(inp, mesh):
     dist.barrier()
     ckpt = os.path.join(run_dir, "checkpoints", "swin_last.ckpt")
     res["cli_first"] = {"rank": first["rank"], "ckpt": os.path.exists(ckpt),
-                        "train_loss": first["train_loss"],
+                        "train_loss": first["train_loss"], "step_losses": first["step_losses"],
                         "params": {n: p.detach().numpy().copy() for n, p
                                    in first["state"].model.named_parameters()}}
     dist.barrier()
@@ -428,7 +449,8 @@ def suite_spectral(inp, mesh):
                                                             grp))))
 
     # the models with spmd_mesh: rollouts and summed gradients
-    for key in ("sfno", "sfno_fused_4", "sfno_fused_1", "fourcastnet", "fourcastnetv2"):
+    for key in ("sfno", "sfno_fused_4", "sfno_fused_1", "fourcastnet", "fourcastnetv2",
+                "fourcastnet_fno2d"):
         m = inp[key]
         cls = sfno.SFNO2DModule if key.startswith("sfno") else fourcastnet.FourCastNet
         model = cls(**m["kw"], spmd_mesh=mesh)

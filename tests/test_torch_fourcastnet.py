@@ -197,23 +197,21 @@ def test_seeded_init_follows_jax_distributions():
 
 
 def test_unported_options_raise():
-    """The AFNO2D and SFNO filters build with a mesh (one rank here, several
-    in `tests/test_torch_spectral_dist.py`) and agree with the
-    single-device model; FNO2D has no distributed form and raises, as does
-    an unknown filter."""
+    """Every filter builds with a mesh (one rank here, several in
+    `tests/test_torch_spectral_dist.py`) and agrees with the single-device
+    model: AFNO2D and SFNO over the distributed transforms, FNO2D on the
+    token rows gathered from the ranks.  An unknown filter raises."""
     kw = dict(img_height=8, img_width=16, embed_dim=16, depth=1, num_blocks=4,
-              constant_channels=0)
+              constant_channels=0, n_modes=(3, 4))
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (1, 2, 1, 8, 16)).astype(np.float32))
     with one_rank_mesh() as mesh:
-        for filt in ("AFNO2D", "SFNO"):
+        for filt in ("AFNO2D", "SFNO", "FNO2D"):
             single = tfcn.FourCastNet(**kw, filter=filt)
             meshed = tfcn.FourCastNet(**kw, filter=filt, spmd_mesh=mesh)
             meshed.load_state_dict(single.state_dict())
             want = single(None, None, x)
             assert (meshed(None, None, x) - want).abs().max() <= MODEL_TOL * want.abs().max()
-        with pytest.raises(NotImplementedError, match="FNO2D"):
-            tfcn.FourCastNet(**kw, filter="FNO2D", spmd_mesh=mesh)
     with pytest.raises(ValueError, match="unknown filter"):
         tfcn.FourCastNet(embed_dim=16, depth=1, num_blocks=4, filter="GNO")
 

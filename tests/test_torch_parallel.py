@@ -13,8 +13,13 @@ the rest, each case below reading one rank's results:
   and 2 (`:262`), the partitioned GraphCast's rollout, gradients and
   closed-loop rollout (`:708-790`), each with gradients where JAX has a
   function to differentiate, a trainer step of the partitioned
-  GraphCast against the single-device one, and the U-Net on latitude
-  rows (`benchmark_scaling --spatial`) against JAX's single-device one;
+  GraphCast against the single-device one, the U-Net on latitude
+  rows (`benchmark_scaling --spatial`) against JAX's single-device one,
+  and the train CLI under `training.multihost=true
+  training.model_parallel=2` (a 2 x 2 ("data", "x") mesh) against JAX's
+  `Trainer` on the two hosts' global batches and against the 2-rank
+  multihost run of the "train" suite, and with an x of 3, which does not
+  divide the 4 ranks;
 - suite "train", 2 ranks: three data-parallel steps of a small Swin
   against JAX's `Trainer` on the global batch (fp32 with and without
   accumulation, with remat, a batch that does not split evenly, bf16),
@@ -28,8 +33,9 @@ Tolerances, fp32: the exchanges within 1e-6 of JAX (they move values, the
 sums are the same few terms); the models within 1e-4 of each tensor's max
 (`_graph_parity.MODEL_TOL`); the trainer as `tests/test_torch_trainer.py`
 holds it: losses rtol 1e-5, every parameter within lr / 100 after three
-steps; bf16 losses within 2e-3 of JAX's bf16 losses and of the port's
-single-process bf16 steps on the same global batches
+steps (and after the CLI's epoch under `model_parallel`); bf16 losses
+within 2e-3 of JAX's bf16 losses and of the port's single-process bf16
+steps on the same global batches
 (`tests/test_torch_bf16.py`'s LOSS_RTOL: a half batch rounds its bf16
 sums at other points, and Adam moves a weight whose gradient rounds to the
 other sign by about the learning rate), the first step's loss within
@@ -297,7 +303,10 @@ def mesh_suite(tmp_path_factory):
                                                                      *uarrays)), 4)
     inp["unet"] = dict(kw=UNET_KW, params=weights.flatten_tree(juinit["params"]),
                        arrays=uarrays)
-    results = start_ranks("mesh", MESH_RANKS, str(tmp_path_factory.mktemp("mesh")), inp)
+    work = tmp_path_factory.mktemp("mesh")
+    inp["model_parallel"] = dict(argv=[*TINY, f"run_dir={work / 'model_parallel'}",
+                                       "training.multihost=true", "training.save_model=false"])
+    results = start_ranks("mesh", MESH_RANKS, str(work), inp)
 
     # the references while the ranks run
     ref = {"halo": _halo_refs(inp), "graph": _graph_refs(inp["graph"]), "hpx": {}}
@@ -323,7 +332,45 @@ def mesh_suite(tmp_path_factory):
 
     (_, out), grads = jax.jit(jax.value_and_grad(uloss, has_aux=True))(juinit)
     ref["unet"] = (np.asarray(out), weights.flatten_tree(np_tree(grads["params"])))
+    ref["model_parallel"] = _cli_jax_steps(inp["model_parallel"]["argv"], MESH_RANKS // 2)
     return ref, results()
+
+
+def _cli_jax_steps(argv, n_hosts):
+    """JAX's `Trainer` (configured as JAX's `scripts/train.py` configures
+    it) stepped on the global batches of a multihost train CLI run of
+    `argv` with `n_hosts` hosts, each step the hosts' epoch-0 batches host
+    after host (JAX's global array), from the port CLI's seeded init:
+    (per-step losses, final parameters by the port's names, the port's
+    model to name them with).  JAX's Swin takes its plain attention path:
+    its flash kernel computes the same function (`tests/test_pallas.py`)
+    and would run here in interpret mode."""
+    import dlwpbench_tpu.models  # noqa: F401  (registers the zoo)
+    from dlwpbench_tpu.models import registry as jregistry
+    from dlwpbench_tpu.training.config import load_config as jload_config
+    from dlwpbench_tpu.training.losses import latitude_weights as jlatitude_weights
+    from dlwpbench_tpu_torch.data.sources import build_datasets
+    from dlwpbench_tpu_torch.training.config import load_config
+
+    cfg = load_config(train.CONFIG_DIR, overrides=argv)
+    model = train.build_trainer(cfg, torch.device("cpu")).model
+    jcfg = jload_config(train.CONFIG_DIR, overrides=[*argv, "model.use_flash_attention=false"])
+    jcfg.model["remat"] = True  # as both CLIs train
+    t, h = jcfg.training, int(jcfg.data.height)
+    lats = np.linspace(-90 + 180 / h / 2, 90 - 180 / h / 2, h)
+    jt = jtr.Trainer(jregistry.build_model(jcfg.model), learning_rate=float(t.learning_rate),
+                     weight_decay=float(t.optimizer_weight_decay), epochs=int(t.epochs),
+                     clip_gradients=bool(t.clip_gradients),
+                     gradient_accumulation_steps=int(t.gradient_accumulation_steps),
+                     lat_weights=jlatitude_weights(lats)[:, None], seed=int(jcfg.seed))
+    train_ds = build_datasets(cfg.data, cfg.training, cfg.validation, cfg.get("testing"),
+                              int(cfg.model.context_size))[0]
+    hosts = [train_ds.batches(int(t.batch_size), shuffle=True, host_id=i, n_hosts=n_hosts,
+                              epoch=0) for i in range(n_hosts)]
+    init = {"params": weights.to_flax_tree(model)}
+    losses, params = _jax_steps(jt, _jax_state(jt, init), [_concat(b) for b in zip(*hosts)],
+                                ttr.cosine_lr(0, float(t.learning_rate), int(t.epochs)))
+    return losses, params, model
 
 
 @pytest.mark.parametrize("rank", range(MESH_RANKS))
@@ -434,6 +481,53 @@ def test_row_sharded_unet_matches_jax_single_device(mesh_suite, rank):
     assert_grads_close(grads, ref["unet"][1], MODEL_TOL)
     msg = results[rank]["unet_rows"]
     assert msg is not None and "even at every level" in msg
+
+
+@pytest.mark.parametrize("rank", range(MESH_RANKS))
+def test_model_parallel_under_multihost_equals_data_parallel(mesh_suite, train_suite, rank):
+    """`training.multihost=true training.model_parallel=2` on 4 ranks: each
+    data coordinate's x pair reads one host's shard, and the gradients
+    summed over the mesh at weight 1 / 4 are the hosts' mean, so the run
+    is the 2-rank data-parallel step of `training.multihost=true` (the
+    "train" suite's first CLI run): its per-step losses (rtol 1e-5) and
+    final parameters (lr / 100), and the x pair's parameters equal bit
+    for bit."""
+    got = mesh_suite[1][rank]["model_parallel"]
+    want = train_suite[1][0]["cli_first"]
+    assert len(got["step_losses"]) == len(want["step_losses"]) > 0
+    np.testing.assert_allclose(got["step_losses"], want["step_losses"], rtol=LOSS_RTOL)
+    partner = mesh_suite[1][rank ^ 1]["model_parallel"]["params"]  # (0, 1) and (2, 3)
+    assert got["params"].keys() == want["params"].keys()
+    for n, p in got["params"].items():
+        assert np.abs(p - want["params"][n]).max() <= PARAM_ATOL, n
+        np.testing.assert_array_equal(p, partner[n], err_msg=n)
+
+
+@pytest.mark.parametrize("rank", range(MESH_RANKS))
+def test_model_parallel_under_multihost_matches_jax(mesh_suite, rank):
+    """The same 4-rank `model_parallel=2` CLI run against JAX's trainer on
+    the global batches (the two hosts' shards concatenated) from the CLI
+    model's seeded init: the per-step losses (rtol 1e-5) and every final
+    parameter (lr / 100)."""
+    ref, results = mesh_suite
+    got = results[rank]["model_parallel"]
+    j_losses, j_params, model = ref["model_parallel"]
+    assert len(got["step_losses"]) == len(j_losses) > 0
+    np.testing.assert_allclose(got["step_losses"], j_losses, rtol=LOSS_RTOL)
+    params = weights.flatten_tree(weights.to_flax_tree(
+        model, {n: torch.from_numpy(p) for n, p in got["params"].items()}))
+    assert params.keys() == j_params.keys()
+    for path, p in params.items():
+        assert np.abs(p - j_params[path]).max() <= PARAM_ATOL, path
+
+
+def test_model_parallel_that_does_not_divide_the_ranks_raises(mesh_suite, tmp_path):
+    """Where JAX's `global_mesh` raises (`launch.py:96-97`): x = 3 on 4
+    ranks, and x = 2 in a single process under multihost."""
+    assert all("not divisible by x=3" in r["model_parallel_3"] for r in mesh_suite[1])
+    with pytest.raises(ValueError, match="not divisible by x=2"):
+        train.main([*TINY, f"run_dir={tmp_path}", "training.multihost=true",
+                    "training.model_parallel=2", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------- train suite
@@ -673,3 +767,16 @@ def test_cli_data_parallel_matches_single_process(train_suite, rank):
     np.testing.assert_allclose(dp["val_loss"], single["val_loss"], rtol=LOSS_RTOL)
     for n, p in single["state"].model.named_parameters():
         assert np.abs(dp["params"][n] - p.detach().numpy()).max() <= PARAM_ATOL, n
+
+
+def test_model_parallel_without_multihost_is_ignored(train_suite, tmp_path):
+    """JAX reads `training.model_parallel` only under multihost: a single
+    process with it trains as without it, bit for bit."""
+    single = train_suite[2]
+    run = train.main([*TINY, f"run_dir={tmp_path}", "training.save_model=false",
+                      "training.model_parallel=2", "--device", "cpu"])
+    assert run["step_losses"] == single["step_losses"]
+    assert run["val_loss"] == single["val_loss"]
+    for n, p in single["state"].model.named_parameters():
+        np.testing.assert_array_equal(run["state"].model.get_parameter(n).detach().numpy(),
+                                      p.detach().numpy(), err_msg=n)

@@ -10,7 +10,8 @@ tensors (the kernels' own tests hold those against the card).
 
 Tolerances, fp32: the outputs within 2e-4 (rtol and atol, as JAX holds
 its ring against its reference); the gradients of q, k, v and the bias
-within 2e-4; the Swin and Pangu rollouts and every parameter gradient
+within 2e-4, of the 1D ring against JAX's single-device gradients and of
+the 2D (sequence x head) ring against JAX's 2D ring's; the Swin and Pangu rollouts and every parameter gradient
 within 1e-4 of each tensor's max (`_graph_parity.MODEL_TOL`).
 """
 
@@ -93,6 +94,11 @@ def ring(tmp_path_factory):
     j = tuple(map(jnp.asarray, inp["2d"]))
     ref["2d"] = (np.asarray(ring_attention_sharded(*j, mesh2d, axis="x", head_axis="h")),
                  np.asarray(reference_attention(*j, j[0].shape[-1] ** -0.5)))
+    w2 = jnp.cos(jnp.arange(16, dtype=jnp.float32))
+    ref["2d_grads"] = [np.asarray(g) for g in jax.jit(jax.grad(
+        lambda q, k, v, b: (ring_attention_sharded(q, k, v, b, mesh2d, axis="x",
+                                                   head_axis="h") * w2).sum(),
+        argnums=(0, 1, 2, 3)))(*j)]
     w = jnp.cos(jnp.arange(16, dtype=jnp.float32))
     ref["grads"] = [np.asarray(g) for g in jax.grad(
         lambda q, k, v, b: (reference_attention(q, k, v, b, 16 ** -0.5) * w).sum(),
@@ -132,6 +138,18 @@ def test_ring_gradients_match_jax(ring, rank):
     every rank, against JAX's single-device gradients."""
     _, ref, results = ring
     for name, got, want in zip("qkvb", results[rank]["grads"], ref["grads"]):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, **TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_2d_ring_gradients_match_jax(ring, rank):
+    """The sequence x head ring (`head_axis="h"` on a 2 x 2 mesh): d(q, k,
+    v, bias) through the heads' scatter and gather around each head
+    group's ring, on every rank, against the gradients of JAX's
+    `ring_attention_sharded(..., head_axis="h")` on its 4 x 2 mesh."""
+    _, ref, results = ring
+    for name, got, want in zip("qkvb", results[rank]["2d_grads"], ref["2d_grads"]):
         assert got.shape == want.shape, name
         np.testing.assert_allclose(got, want, **TOL, err_msg=f"d{name}")
 

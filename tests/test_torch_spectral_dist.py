@@ -10,7 +10,8 @@ computed in this process meanwhile, on 4 of the 8 virtual CPU devices
 mirrors one of `tests/test_parallel.py`: `TestDistFFT` (`:55`),
 `TestDistSHT` (`:91`), `TestDistSHTPipelined` (`:117`),
 `TestDistributedGradients::test_dist_sht_gradient_matches_single_device`
-(`:293`) and `TestDistributedSpectralLayers` (`:375-706`).  Each holds the
+(`:293`) and `TestDistributedSpectralLayers` (`:375-706`), plus
+FourCastNet with the FNO2D filter and a mesh, which JAX runs under GSPMD.  Each holds the
 port's result against JAX's distributed function, and against the port's
 single-device layer where JAX's test holds JAX's against its own.
 
@@ -72,6 +73,7 @@ FUSED_KW = dict(SFNO_KW, num_layers=2, dist_schedule="fused")
 FCN_KW = dict(img_height=16, img_width=24, constant_channels=0, prescribed_channels=0,
               prognostic_channels=2, embed_dim=8, depth=1, num_blocks=4, context_size=1)
 FCN2_KW = dict(FCN_KW, img_width=32, filter="SFNO")
+FCN3_KW = dict(FCN_KW, filter="FNO2D", n_modes=(4, 5))
 # the byte audit's (channels, nlat, nlon): a small field and the
 # microbench's default
 BYTE_SHAPES = [(16, 16, 32), (256, 32, 64)]
@@ -124,7 +126,8 @@ def _inputs():
             ("sfno", JSFNO, SFNO_KW, 9, (16, 32)),
             ("sfno_fused_4", JSFNO, dict(FUSED_KW, dist_pipeline_chunks=4), 5, (16, 32)),
             ("fourcastnet", JFourCastNet, FCN_KW, 10, (16, 24)),
-            ("fourcastnetv2", JFourCastNet, FCN2_KW, 14, (16, 32))):
+            ("fourcastnetv2", JFourCastNet, FCN2_KW, 14, (16, 32)),
+            ("fourcastnet_fno2d", JFourCastNet, FCN3_KW, 16, (16, 24))):
         prog = f32(seed, 2, 3, 2, *grid)
         jkw = dict(kw, spmd_mesh=_mesh()) if key == "sfno_fused_4" else kw
         params = perturbed(np_tree(jax.jit(cls(**jkw).init)(jax.random.PRNGKey(0), None, None,
@@ -229,7 +232,8 @@ def _layer_refs(inp):
 def _model_refs(inp):
     ref, mesh = {}, _mesh()
     for key, cls in (("sfno", JSFNO), ("sfno_fused_4", JSFNO), ("sfno_fused_1", JSFNO),
-                     ("fourcastnet", JFourCastNet), ("fourcastnetv2", JFourCastNet)):
+                     ("fourcastnet", JFourCastNet), ("fourcastnetv2", JFourCastNet),
+                     ("fourcastnet_fno2d", JFourCastNet)):
         m = inp[key]
         model = cls(**m["kw"], spmd_mesh=mesh)
         ps = _put(m["prog"], P(None, None, None, "x", None))
@@ -484,18 +488,23 @@ def test_sfno_fused_tree_round_trips(spectral_suite):
         np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("key", ["fourcastnet", "fourcastnetv2"])
+@pytest.mark.parametrize("key", ["fourcastnet", "fourcastnetv2", "fourcastnet_fno2d"])
 def test_fourcastnet_with_mesh_matches_jax(spectral_suite, key):
-    """FourCastNet (AFNO2D) and FourCastNetv2 (SFNO) with `spmd_mesh`: rollout
-    and gradients against JAX's on the mesh and the port's single-device
-    model."""
+    """FourCastNet (AFNO2D), FourCastNetv2 (SFNO) and FourCastNet with the
+    FNO2D filter (the token rows gathered for the operator, the gather's
+    backward a reduce-scatter) with `spmd_mesh`: rollout and every
+    gradient summed over the ranks against JAX's on the mesh and the
+    port's single-device model."""
     inp, ref, results = spectral_suite
     _check_model(results[0][key], ref[key])
     m = inp[key]
     single = tfcn.FourCastNet(**m["kw"])
     weights.load_flax_params(single, weights.unflatten_tree(m["params"]))
-    out = single(None, None, torch.from_numpy(m["prog"])).detach().numpy()
-    close(results[0][key][0], out)
+    out = single(None, None, torch.from_numpy(m["prog"]))
+    (out ** 2).mean().backward()
+    grads = weights.flatten_tree(weights.to_flax_tree(
+        single, {n: p.grad for n, p in single.named_parameters()}))
+    _check_model(results[0][key], (out.detach().numpy(), grads))
 
 
 @pytest.mark.parametrize("rank", range(RANKS))
