@@ -2755,24 +2755,25 @@ def check_remap_cli(main, field, work: str, card: str):
 
 
 def kernel_us_by_range(prof, names):
-    """({name: us of the kernels that ran inside a range of that name on
-    the card}, us of all kernels), from the device timeline alone: a range
-    (`record_function`) leaves its span there, and the rollout's kernels
-    run one after another on one stream, so each kernel falls in the
-    innermost span that holds its start.  Names without a span on the card
-    are left out.  (The profiler's per-op `device_time_total` counted some
-    kernels twice here: the ranges' shares summed past 100%.)"""
-    spans, kernels = [], []
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            (spans if e.name in names else kernels).append(e)
-    out, total = {s.name: 0.0 for s in spans}, 0.0
-    for k in kernels:
-        us = k.time_range.end - k.time_range.start
-        total += us
-        inside = [s for s in spans if s.time_range.start <= k.time_range.start < s.time_range.end]
-        if inside:
-            out[min(inside, key=lambda s: s.time_range.end - s.time_range.start).name] += us
+    """({name: us of the kernels launched inside a span of that name}, us
+    of all kernels).  Each kernel is charged to the innermost such span
+    around the host operator that launched it (the profiler ties each
+    kernel to its operator by correlation id); names with no span in the
+    trace are left out.  The spans (`profiling.span`) leave nothing on the
+    card's timeline.  (The profiler's per-op `device_time_total` counted
+    some kernels twice here: the ranges' shares summed past 100%.)"""
+    events = prof.events()
+    total = sum(e.time_range.end - e.time_range.start for e in events
+                if str(e.device_type).endswith("CUDA"))
+    out = {e.name: 0.0 for e in events if e.name in names and str(e.device_type).endswith("CPU")}
+    for e in events:
+        if not e.kernels or not str(e.device_type).endswith("CPU"):
+            continue
+        span = e.cpu_parent
+        while span is not None and span.name not in names:
+            span = span.cpu_parent
+        if span is not None:
+            out[span.name] += sum(k.duration for k in e.kernels)
     return out, total
 
 
@@ -2782,7 +2783,7 @@ def drive_hpx_unet_rollout(card: str):
     rollout (CUDA events over 3), grid-points/s, a profile with the
     HEALPix pad's share of device time (its gather, products and tap sum)
     beside the conv modules' and the concatenations', from a second
-    profile with each of them under a `record_function` range; no
+    profile with each of them in a span; no
     attention launch; card against CPU on 2 samples x 2 steps."""
     import torch
 
@@ -2809,7 +2810,7 @@ def drive_hpx_unet_rollout(card: str):
 
     def in_range(name, fn):
         def ranged(*a, **k):
-            with profiling.annotate(name):
+            with profiling.span(name):
                 return fn(*a, **k)
         return ranged
 

@@ -30,6 +30,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from dlwpbench_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass
 class VariableStats:
@@ -168,7 +170,10 @@ class WindowedWeatherDataset:
         epoch) alone (so `epoch` is required when shuffling), and host h
         takes the strided slice order[h::n_hosts], truncated so that all
         hosts yield equally many windows.  The union of the hosts' windows
-        is the single-host epoch; the shards are disjoint."""
+        is the single-host epoch; the shards are disjoint.
+
+        Each batch's build is the span `dlwpbench.input.assemble`
+        (`utils/profiling.span`)."""
         order = np.arange(len(self))
         if shuffle:
             if n_hosts > 1:
@@ -187,12 +192,14 @@ class WindowedWeatherDataset:
             order = order[host_id:usable:n_hosts]
         stop = len(order) - len(order) % batch_size if drop_last else len(order)
         for i in range(0, stop, batch_size):
-            idxs = order[i : i + batch_size]
-            starts = np.asarray([self.window_start(j) for j in idxs], np.int64)
-            if (starts + self.sequence_length + 1 > self.prognostic.shape[0]).any():
-                yield self._batch_items(idxs)  # zero-fill past the data end
-            else:
-                yield self._batch_native(starts)
+            with profiling.span("dlwpbench.input.assemble"):
+                idxs = order[i : i + batch_size]
+                starts = np.asarray([self.window_start(j) for j in idxs], np.int64)
+                if (starts + self.sequence_length + 1 > self.prognostic.shape[0]).any():
+                    batch = self._batch_items(idxs)  # zero-fill past the data end
+                else:
+                    batch = self._batch_native(starts)
+            yield batch
 
     def _batch_items(self, idxs: np.ndarray) -> tuple:
         """A batch stacked item by item in numpy."""

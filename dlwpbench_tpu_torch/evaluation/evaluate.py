@@ -27,7 +27,7 @@ import torch
 from dlwpbench_tpu_torch.evaluation import metrics as M
 from dlwpbench_tpu_torch.evaluation.plots import pyplot
 from dlwpbench_tpu_torch.grids.remap import HEALPixRemap
-from dlwpbench_tpu_torch.utils import netcdf3
+from dlwpbench_tpu_torch.utils import netcdf3, profiling
 
 
 def rollout_dataset(model, dataset, batch_size: int = 8,
@@ -35,26 +35,45 @@ def rollout_dataset(model, dataset, batch_size: int = 8,
     """Roll the model over the whole dataset on the model's device; returns
     (inits, outputs, targets) as numpy [sample, T', C, H, W] arrays in
     normalised units.  With `timings`, appends (samples, seconds) per
-    batch: host to device, the rollout, and device to host."""
+    batch: host to device, the rollout, and device to host.
+
+    Spans (`utils/profiling.span`): `dlwpbench.rollout.batch` around each
+    batch's work after its assembly, holding `.h2d` (the input copies),
+    `.forward` (timed on the device too), `.wait` (while a profiler runs,
+    the wait for the forward that the copy back would do, made its own
+    span) and `.d2h` (the copy back); `dlwpbench.rollout.concat` around
+    the final concatenations."""
     device = next(model.parameters()).device
     outs, tars, inits = [], [], []
     with torch.no_grad():
         for const, pres, prog, target in dataset.batches(batch_size):
-            t0 = time.perf_counter()
-            args = [
-                None if a is None else torch.from_numpy(a).to(device)
-                for a in (const, pres, prog)
-            ]
-            outs.append(model(*args).cpu().numpy())  # .cpu() waits for the device
-            if timings is not None:
-                timings.append((prog.shape[0], time.perf_counter() - t0))
+            with profiling.span("dlwpbench.rollout.batch"):
+                t0 = time.perf_counter()
+                with profiling.span("dlwpbench.rollout.h2d"):
+                    args = [
+                        None if a is None else torch.from_numpy(a).to(device)
+                        for a in (const, pres, prog)
+                    ]
+                with profiling.span("dlwpbench.rollout.forward", device=device):
+                    out = model(*args)
+                with profiling.span("dlwpbench.rollout.wait") as traced:
+                    if traced and out.is_cuda:
+                        done = torch.cuda.Event()
+                        done.record()
+                        done.synchronize()
+                with profiling.span("dlwpbench.rollout.d2h"):
+                    outs.append(out.cpu().numpy())  # .cpu() waits for the device
+                del out  # off the card before the next batch's forward
+                if timings is not None:
+                    timings.append((prog.shape[0], time.perf_counter() - t0))
             tars.append(target)
             inits.append(prog[:, model.context_size - 1])
-    return (
-        np.concatenate(inits, 0),
-        np.concatenate(outs, 0),
-        np.concatenate(tars, 0),
-    )
+    with profiling.span("dlwpbench.rollout.concat"):
+        return (
+            np.concatenate(inits, 0),
+            np.concatenate(outs, 0),
+            np.concatenate(tars, 0),
+        )
 
 
 def to_latlon(data_cfg: dict, *arrays: np.ndarray) -> tuple:

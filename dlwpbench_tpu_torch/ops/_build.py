@@ -10,7 +10,10 @@ Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
 The library lands in `build/cuda/` at the repository root (listed in
 `.gitignore`), named by a hash of its source and of the headers beside it
 (`csrc/*.cuh`) so an edited kernel is never served from a stale build.
-Nothing here runs at import time.
+Nothing here runs at import time.  Two always-on counters
+(`utils/profiling.add`) record the seconds of each nvcc build
+(`build.nvcc`, only where the library was missing) and of each library's
+load (`build.load`, once per library and process).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+
+from dlwpbench_tpu_torch.utils import profiling
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_OPS_DIR, "csrc")
@@ -65,6 +71,7 @@ def build(name: str) -> str:
     lib = library_path(name)
     if os.path.exists(lib):
         return lib
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(lib))
@@ -80,10 +87,15 @@ def build(name: str) -> str:
     with open(lib[:-3] + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    profiling.add("build.nvcc", time.perf_counter() - t0)
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (at first use) and load `csrc/<name>.cu`, once per process."""
-    return ctypes.CDLL(build(name))
+    path = build(name)
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(path)
+    profiling.add("build.load", time.perf_counter() - t0)
+    return lib

@@ -34,7 +34,7 @@ The analysis entries (`collective_microbench`, `schedule_audit`,
   "all-gather", "reduce-scatter", and "collective-permute" for an
   `Exchange`'s receives), the counterpart of summing the result shapes of
   the per-device HLO (`scripts/collective_microbench.py:48-79`);
-- a `torch.profiler.record_function` range around every collective,
+- a span (`utils/profiling.span`) around every collective,
   `dlwpbench.collective.<kind>`, and two around an `Exchange`, at its
   post (`...collective-permute.post`) and at its `wait`
   (`...collective-permute.wait`), so that a trace shows each exchange's
@@ -55,6 +55,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from dlwpbench_tpu_torch.utils import profiling
 
 DEFAULT_PORT = "12355"  # the reference's default MASTER_PORT
 TIMEOUT_S = 600.0  # a collective that waits longer raises
@@ -334,7 +336,7 @@ def _tally(kind: str, *tensors: torch.Tensor) -> None:
 
 
 def _range(kind: str):
-    return torch.profiler.record_function(RANGE_PREFIX + kind)
+    return profiling.span(RANGE_PREFIX + kind)
 
 
 # ----------------------------------------------------------------------
@@ -391,7 +393,7 @@ def all_to_all_single(x: torch.Tensor, group=None,
                       kind: Optional[str] = "all-to-all") -> torch.Tensor:
     """Equal split of dim 0: slot j of `x` goes to rank j; the result's
     slot i comes from rank i.  `kind` names the call in the byte tally and
-    its profiler range (None: neither, for a caller that tallies the call
+    its span (None: neither, for a caller that tallies the call
     as part of its own)."""
     with _range(kind) if kind else contextlib.nullcontext():
         src = x.contiguous()
@@ -452,8 +454,8 @@ class Exchange:
     (`batch_isend_irecv`).  `recvs` name the tensors to receive into;
     they hold the data once `wait()` has returned (on gloo with CUDA
     tensors, after the copy from their pinned host buffers).  Peers are
-    indices in `group`.  The post and the wait each run in a profiler
-    range (`dlwpbench.collective.collective-permute.post` / `.wait`); the
+    indices in `group`.  The post and the wait each run in a span
+    (`dlwpbench.collective.collective-permute.post` / `.wait`); the
     tally counts the receives' bytes as a "collective-permute"."""
 
     def __init__(self, sends: Sequence[tuple], recvs: Sequence[tuple], group=None):

@@ -118,7 +118,7 @@ def main(argv=None) -> dict:
     timer = profiling.StepTimer(skip=0, sync=card)
     with profiling.trace(out_dir):
         for _ in range(args.steps):
-            with timer, profiling.annotate(f"{args.model}_step"):
+            with timer, profiling.span(f"{args.model}_step"):
                 run()
     summary = timer.summary()
     info = {"model": args.model, "batch": B, "seq": T, "grid": args.grid,

@@ -88,6 +88,7 @@ from dlwpbench_tpu_torch import weights as W
 from dlwpbench_tpu_torch.ops import ddpm
 from dlwpbench_tpu_torch.parallel import launch
 from dlwpbench_tpu_torch.training.losses import mse_loss
+from dlwpbench_tpu_torch.utils import profiling
 
 TRAINING_TYPES = ("regular", "diffusion")
 
@@ -302,57 +303,62 @@ class Trainer:
         returns the batch loss (a 0-d tensor on the device).  Diffusion
         training draws the step's timestep and noise unless `k` and
         `noise` (of a micro-batch's target shape) are given."""
-        const, pres, prog, target = batch
-        params = [p for p in state.model.parameters() if p.requires_grad]
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("dlwpbench.train.step", device=self.device):
+            const, pres, prog, target = batch
+            params = [p for p in state.model.parameters() if p.requires_grad]
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.zero_grad(set_to_none=True)
 
-        B = prog.shape[0]
-        n_full = B // self.accum
-        if n_full < 1:
-            raise ValueError(f"batch of {B} is smaller than {self.accum} accumulation steps")
-        chunks = [(i * n_full, (i + 1) * n_full) for i in range(self.accum)]
-        if n_full * self.accum < B:
-            chunks.append((n_full * self.accum, B))
-        if self.diffusion and k is None:
-            k = self._draw_k()
-        noises = {} if noise is None else {tuple(noise.shape): noise}
-        total = torch.zeros((), device=self.device)
-        for lo, hi in chunks:
-            # the chunk's share of the batch; each rank's gradient is
-            # summed over the group (a chunk computed whole on every rank
-            # counts 1 / dp_size on each)
-            w = (hi - lo) / B / self.dp_size
-            rows, n_global = self._my_rows(hi - lo)
-            if self.split_batch:
-                lo, hi = lo + rows.start, lo + rows.stop
-            part = [None if x is None else x[lo:hi] for x in batch]
-            if self.diffusion:  # the global micro-batch's noise, this rank's rows
-                shape = (n_global, *part[3].shape[1:])
-                if shape not in noises:
-                    if noise is not None:
-                        raise ValueError(f"noise of shape {tuple(noise.shape)} for a micro-batch "
-                                         f"target of {shape}")
-                    noises[shape] = self._draw_noise(shape)
-            with self._compute_params(state.model):
-                loss = (self._diffusion_loss(*part, k, noises[shape][rows]) if self.diffusion
-                        else self._loss(*part))
-                (w * loss).backward()
-            total = total + w * loss.detach()
+            B = prog.shape[0]
+            n_full = B // self.accum
+            if n_full < 1:
+                raise ValueError(f"batch of {B} is smaller than {self.accum} accumulation steps")
+            chunks = [(i * n_full, (i + 1) * n_full) for i in range(self.accum)]
+            if n_full * self.accum < B:
+                chunks.append((n_full * self.accum, B))
+            if self.diffusion and k is None:
+                k = self._draw_k()
+            noises = {} if noise is None else {tuple(noise.shape): noise}
+            total = torch.zeros((), device=self.device)
+            for lo, hi in chunks:
+                # the chunk's share of the batch; each rank's gradient is
+                # summed over the group (a chunk computed whole on every rank
+                # counts 1 / dp_size on each)
+                w = (hi - lo) / B / self.dp_size
+                rows, n_global = self._my_rows(hi - lo)
+                if self.split_batch:
+                    lo, hi = lo + rows.start, lo + rows.stop
+                part = [None if x is None else x[lo:hi] for x in batch]
+                if self.diffusion:  # the global micro-batch's noise, this rank's rows
+                    shape = (n_global, *part[3].shape[1:])
+                    if shape not in noises:
+                        if noise is not None:
+                            raise ValueError(f"noise of shape {tuple(noise.shape)} for a "
+                                             f"micro-batch target of {shape}")
+                        noises[shape] = self._draw_noise(shape)
+                with self._compute_params(state.model):
+                    with profiling.span("dlwpbench.train.forward", device=self.device):
+                        loss = (self._diffusion_loss(*part, k, noises[shape][rows])
+                                if self.diffusion else self._loss(*part))
+                    with profiling.span("dlwpbench.train.backward", device=self.device):
+                        (w * loss).backward()
+                total = total + w * loss.detach()
 
-        for p in params:  # optax decays every parameter, gradient or not
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.dp_size > 1:  # the global batch's gradient and loss on every rank
-            launch.all_reduce_([*(p.grad for p in params), total], self.data_group)
-        partition = getattr(state.model, "partition_group", None)
-        if partition is not None:  # each rank's nodes' share of every gradient
-            launch.all_reduce_([p.grad for p in params], partition)
-        if self.clip_gradients:
-            clip_grads_to([p.grad for p in params], lr)
-        state.optimizer.step()
-        return total
+            for p in params:  # optax decays every parameter, gradient or not
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.dp_size > 1:  # the global batch's gradient and loss on every rank
+                launch.all_reduce_([*(p.grad for p in params), total], self.data_group)
+            partition = getattr(state.model, "partition_group", None)
+            if partition is not None:  # each rank's nodes' share of every gradient
+                launch.all_reduce_([p.grad for p in params], partition)
+            if self.clip_gradients:
+                with profiling.span("dlwpbench.train.clip", device=self.device):
+                    clip_grads_to([p.grad for p in params], lr)
+            with profiling.span("dlwpbench.train.optimizer", device=self.device):
+                state.optimizer.step()
+            return total
 
     def train_epoch(self, state: TrainState, dataset, batch_size: int,
                     shuffle: bool = True) -> float:
@@ -515,22 +521,34 @@ def prefetch_to_device(batches, device, depth: int = 2):
     allocator, which reuses a buffer only after the copy recorded on it
     has run.  Pinning or copying raises on failure; nothing falls back to
     a pageable copy.  On the CPU the batches pass through as tensors, in
-    the same order."""
+    the same order.
+
+    Spans (`utils/profiling.span`): `dlwpbench.input.pin` around each
+    batch's pinning and the launch of its copy (on the CPU, the tensors'
+    making), and `dlwpbench.input.stall` around the hand-over, timed on the compute
+    stream: the device time by which the batch's copy ends after the
+    compute stream reaches it, 0 when the copy ended first (on the CPU
+    there is no copy to wait for)."""
     device = torch.device(device)
     if device.type != "cuda":
         for batch in batches:
-            yield tuple(None if x is None else torch.as_tensor(x) for x in batch)
+            with profiling.span("dlwpbench.input.pin"):
+                staged = tuple(None if x is None else torch.as_tensor(x) for x in batch)
+            with profiling.span("dlwpbench.input.stall", device=device):
+                pass  # no copy to wait for
+            yield staged
         return
     copy_stream = torch.cuda.Stream(device)
     compute = torch.cuda.current_stream(device)
     in_flight = collections.deque()  # (pinned host tensors, device tensors, copied event)
     for batch in batches:
-        host = [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
-                for x in batch]
-        with torch.cuda.stream(copy_stream):
-            dev = tuple(None if h is None else h.to(device, non_blocking=True) for h in host)
-            copied = torch.cuda.Event()
-            copied.record(copy_stream)
+        with profiling.span("dlwpbench.input.pin"):
+            host = [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+                    for x in batch]
+            with torch.cuda.stream(copy_stream):
+                dev = tuple(None if h is None else h.to(device, non_blocking=True) for h in host)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
         in_flight.append((host, dev, copied))
         if len(in_flight) >= depth:
             yield _hand_over(in_flight.popleft(), compute)
@@ -540,7 +558,8 @@ def prefetch_to_device(batches, device, depth: int = 2):
 
 def _hand_over(staged, compute):
     _, dev, copied = staged
-    compute.wait_event(copied)
+    with profiling.span("dlwpbench.input.stall", device=compute.device):
+        compute.wait_event(copied)
     for t in dev:
         if t is not None:
             t.record_stream(compute)

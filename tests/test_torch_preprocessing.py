@@ -262,7 +262,7 @@ def test_trace_writes_a_trace_with_the_annotation(tmp_path):
     from dlwpbench_tpu_torch.utils import profiling
 
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("rollout_step"):
+        with profiling.span("rollout_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     names = {e.key for e in prof.key_averages()}
     assert "rollout_step" in names and "aten::mm" in names
