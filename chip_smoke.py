@@ -619,6 +619,7 @@ FLASH_BWD_CASES = [
     ("ladder swin32m stage0 shifted", 1, 3, 2048, 120, 1, "swin-shift"),
     ("ladder swin32m stage1 unshifted", 1, 6, 512, 120, 0, "random"),
     *RING_2D_ROUNDS,
+    ("ring audit round (2 ranks)", 2, 4, 256, 32, 1, "random"),
 ]
 # Tolerances, as a share of max|ref| per output.  fp32: the kernel and the
 # plain version sum over up to 2048 keys and 32 members in other orders.
@@ -657,11 +658,13 @@ def check_flash_bwd(card: str):
             out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
             drow = (do.float() * out.float()).sum(-1)[:, :, None, :]
             args = (q, k, v, bias, out, lse, do, drow)
-            mma0 = fa.flash_window_attention_bwd.mma_launches
+            bwd = fa.flash_window_attention_bwd
+            wg0, mma0 = bwd.wgmma_launches, bwd.mma_launches
             got = fa.flash_window_attention_bwd(*args)
             again = fa.flash_window_attention_bwd(*args)
             torch.cuda.synchronize()
-            design = "mma" if fa.flash_window_attention_bwd.mma_launches - mma0 == 2 else "rows"
+            design = ("wgmma" if bwd.wgmma_launches - wg0 == 2
+                      else "mma" if bwd.mma_launches - mma0 == 2 else "rows")
             identical = all(torch.equal(a, b) for a, b in zip(got, again))
             ref = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
             errs, ok = {}, identical and design == fa.bwd_route(N, D)
@@ -671,10 +674,15 @@ def check_flash_bwd(card: str):
                 ok = ok and errs[name] <= FLASH_BWD_TOL[dname] * scale
                 errs[name + "_ref_max"] = scale
             del again, ref
-            ms = cuda_ms(lambda: fa.flash_window_attention_bwd(*args), 10)
-            old_ms = None  # the old design at an mma case: the row passes
-            if design == "mma":
-                old_ms = cuda_ms(lambda: fa._launch_bwd(*args, route="rows"), 10)
+            # small cases are host-bound: more calls average the host's jitter
+            iters = 10 if B * H * N * N * D > 2 ** 30 else 100
+            ms = cuda_ms(lambda: fa.flash_window_attention_bwd(*args), iters)
+            # the design each one replaced, timed beside it: the mma passes
+            # beside the wgmma ones, the row passes beside the mma ones
+            old_design = {"wgmma": "mma", "mma": "rows"}.get(design)
+            old_ms = None
+            if old_design is not None:
+                old_ms = cuda_ms(lambda: fa._launch_bwd(*args, route=old_design), iters)
             plain_ms = cuda_ms(lambda: fa.flash_window_attention_bwd_plain(*args), 3)
             lib_fn = _sdpa_backward(q, k, v, bias, B, G)
             library_ms = cuda_ms(lib_fn, 10)
@@ -683,7 +691,8 @@ def check_flash_bwd(card: str):
             rec = dict(case=label, dtype=dname, B=B, H=H, N=N, D=D, bias=list(bias.shape),
                        errors=errs, max_abs_err=max(errs[n] for n in ("dq", "dk", "dv", "dbias")),
                        tol=FLASH_BWD_TOL[dname], bit_identical=identical, design=design,
-                       ms=ms, old_ms=old_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       old_design=old_design, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
             checks.append(rec)
             print(
@@ -694,7 +703,7 @@ def check_flash_bwd(card: str):
                 + f" (tol {FLASH_BWD_TOL[dname]:.0e} x max|ref|), design {design}, two calls "
                 f"{'bit-identical' if identical else 'DIFFER'} {'ok' if ok else 'FAIL'}; "
                 f"kernel {ms:.4f} ms"
-                + (f" (row passes {old_ms:.4f})" if old_ms is not None else "")
+                + (f" ({old_design} passes {old_ms:.4f})" if old_ms is not None else "")
                 + f", plain {plain_ms:.4f} ms, sdpa bwd (q, k, v, mask) "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{flops / ms / 1e9:.1f} TFLOP/s) [{card}]"
@@ -1218,8 +1227,10 @@ def counters_of():
 def new_design_counter(fn):
     """The attribute counting a two-design kernel's launches of its new
     design ("fused_launches": window and B5 kernels; "mma_launches": the
-    flash forward and backward), or None for a kernel with one design."""
-    return next((a for a in ("fused_launches", "mma_launches") if hasattr(fn, a)), None)
+    flash forward; "wgmma_launches": the flash backward), or None for a
+    kernel with one design."""
+    return next((a for a in ("fused_launches", "wgmma_launches", "mma_launches")
+                 if hasattr(fn, a)), None)
 
 
 def new_design_launches(counters):
@@ -1228,11 +1239,12 @@ def new_design_launches(counters):
 
 
 def reset_counters(counters):
-    """Every launch counter to 0, the new-design and bf16 counters too."""
+    """Every launch counter to 0, each design's and the bf16 ones too."""
     for fn in counters.values():
         fn.launches = fn.bf16_launches = 0
-        if attr := new_design_counter(fn):
-            setattr(fn, attr, 0)
+        for attr in ("fused_launches", "wgmma_launches", "mma_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def check_fused(label: str, counters, launches):
@@ -1241,7 +1253,7 @@ def check_fused(label: str, counters, launches):
     and backward) took the new design: the paths' shapes (window N 64 and
     144 at hd 24, 32, 48; flash D 24, 32 and 48) all lie in its region."""
     fused = new_design_launches(counters)
-    print(f"{label} new-design launches (fused, or mma for the flash kernels) {fused} of "
+    print(f"{label} new-design launches (fused; mma and wgmma for the flash kernels) {fused} of "
           f"{({n: launches[n] for n in fused})}")
     if any(fused[n] != launches[n] for n in fused):
         raise SystemExit(f"{label}: new-design launches {fused}, want all of "
@@ -3933,6 +3945,9 @@ def run_ladder_rows(card: str, out: str, rows: list) -> dict:
                                      *LADDER_TIMING, *extra])
         launches = _launches(counters)
         new = new_design_launches(counters)
+        # a row that names "mma" reads that design's own counter (the flash
+        # backward's new design is wgmma; the ladder's D 56 takes the mma)
+        new.update({n: counters[n].mma_launches for n, d in want.items() if d == "mma"})
         bf16 = {n: fn.bf16_launches for n, fn in counters.items()}
         e, ref = res[key], jax_ladder.get(key.removesuffix("@bf16"), {})
         ok = ("error" not in e and e.get("width") == ref.get("width")

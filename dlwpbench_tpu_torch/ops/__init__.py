@@ -5,7 +5,8 @@ movements, and the wrappers of the hand-written attention kernels."""
 def kernel_wrappers() -> dict:
     """Every hand-written kernel's wrapper, by kernel name; each counts
     its launches in `.launches` (and its bf16 ones in `.bf16_launches`, its
-    tensor-core design's in `.mma_launches` or `.fused_launches`).
+    tensor-core designs' in `.wgmma_launches`, `.mma_launches` or
+    `.fused_launches`).
     Importing the wrappers builds nothing."""
     from dlwpbench_tpu_torch.ops import flash_attention as fa
     from dlwpbench_tpu_torch.ops import packed_attention as pk
@@ -24,11 +25,12 @@ def kernel_wrappers() -> dict:
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count so far, by kernel name, with the
     launches of the tensor-core designs beside them (`<name>.mma` for the
-    flash kernels, `<name>.fused` for the window and packed ones)."""
+    flash kernels and `<name>.wgmma` for the flash backward, `<name>.fused`
+    for the window and packed ones)."""
     out = {}
     for name, fn in kernel_wrappers().items():
         out[name] = fn.launches
-        for attr in ("mma_launches", "fused_launches"):
+        for attr in ("wgmma_launches", "mma_launches", "fused_launches"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.split('_')[0]}"] = getattr(fn, attr)
     return out

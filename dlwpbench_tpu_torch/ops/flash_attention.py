@@ -20,18 +20,19 @@ launchers are registered operators
 (`torch.ops.dlwpbench_torch.flash_window_attention_fwd` and `_bwd`,
 `torch.library.custom_op`) with fake implementations that give the output
 shapes, so `torch.export` keeps each call as one node whatever device it
-traces on; the wrappers call them.  Each has two designs,
-chosen from the head dim by `fwd_route` and `bwd_route`: on the tensor
-cores (3xTF32 `mma.sync`; the forward in one pass, the backward in three)
-for D <= 64, every model path, and on the fp32 CUDA cores (one row of
-queries or keys a thread) for the rest.  The plain versions run
+traces on; the wrappers call them.  The designs are chosen from the head
+dim by `fwd_route` and `bwd_route`: the forward on the tensor cores
+(3xTF32 `mma.sync`, one pass) for D <= 64, every model path; the backward
+in three passes of 3xTF32 `wgmma` on TMA-staged tiles for D <= 48, every
+model path, and of `mma.sync` up to D 64; both on the fp32 CUDA cores (one
+row of queries or keys a thread) for the rest.  The plain versions run
 only for tensors on the CPU.  `flash_window_attention` and
 `flash_window_attention_lse` are `torch.autograd.Function`s whose backward
 goes through `flash_window_attention_bwd`; the raw
 `flash_window_attention_fwd` is not differentiable on CUDA tensors.
-Each wrapper counts its launches in `.launches`, those of the tensor-core
-design in `.mma_launches` and those of the bf16 instance in
-`.bf16_launches`.
+Each wrapper counts its launches in `.launches`, those of each
+tensor-core design in `.mma_launches` (and the backward's `.wgmma_launches`)
+and those of the bf16 instance in `.bf16_launches`.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from dlwpbench_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MMA_MAX_HEAD_DIM = 64  # the tensor-core designs (`fwd_route`, `bwd_route`)
+WGMMA_MAX_HEAD_DIM = 48  # the backward's Hopper design (`bwd_route`)
 
 
 def _check_shapes(q, k, v, bias) -> int:
@@ -248,19 +250,31 @@ flash_window_attention_fwd.mma_launches = 0
 
 
 def bwd_route(N, D):
-    """Which backward design takes q [.., N, D]: "mma" (three passes on the
-    tensor cores, 3xTF32, for head dims up to MMA_MAX_HEAD_DIM at any N:
-    four operand tiles of 64 x (D + 4) {big, small} pairs in shared memory,
-    139 KB at D 64, and the dK/dV accumulators in registers) or "rows"
-    (three passes on the fp32 CUDA cores, head dims up to MAX_HEAD_DIM).
-    Decided from the shape before the launch, never as a retry; N does not
-    enter the choice."""
+    """Which backward design takes q [.., N, D]: "wgmma" (three passes of
+    `wgmma` 3xTF32 products on tiles that TMA stages in shared memory, for
+    head dims up to WGMMA_MAX_HEAD_DIM at any N: warpgroups of 64 rows and
+    a producer warp a block), "mma" (three passes of `mma.sync` 3xTF32
+    products, head dims up to MMA_MAX_HEAD_DIM: four operand tiles of
+    64 x (D + 4) {big, small} pairs in shared memory, 139 KB at D 64) or
+    "rows" (three passes on the fp32 CUDA cores, head dims up to
+    MAX_HEAD_DIM).  Decided from the shape before the launch, never as a
+    retry; N does not enter the choice (the wgmma passes were the faster
+    at every N timed, down to 32 blocks of 64 rows)."""
     del N
+    if D <= WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
     return "mma" if D <= MMA_MAX_HEAD_DIM else "rows"
 
 
+_BWD_SYMBOL = {
+    "wgmma": "flash_window_attention_bwd_wgmma",
+    "mma": "flash_window_attention_bwd_mma",
+    "rows": "flash_window_attention_bwd",
+}
+
+
 def _launch_bwd(q, k, v, bias, out, lse, do, drow, route=None):
-    """Launches the backward of `route` ("mma" or "rows"; by default the one
+    """Launches the backward of `route` ("wgmma", "mma" or "rows"; by default the one
     `bwd_route` names, as the public wrapper takes it) on checked CUDA
     tensors; returns (dq, dk, dv, dbias, route)."""
     B, H, N, D = q.shape
@@ -268,8 +282,7 @@ def _launch_bwd(q, k, v, bias, out, lse, do, drow, route=None):
     route = route or bwd_route(N, D)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
-    symbol = "flash_window_attention_bwd_mma" if route == "mma" else "flash_window_attention_bwd"
-    fn = _kernel_fn("flash_window_attention_bwd", symbol, 11, 6)
+    fn = _kernel_fn("flash_window_attention_bwd", _BWD_SYMBOL[route], 11, 6)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
@@ -293,8 +306,8 @@ def flash_window_attention_bwd(q, k, v, bias, out, lse, do, drow):
     CPU tensors take the plain version; CUDA tensors the kernels of
     `csrc/flash_window_attention_bwd.cu` in the design `bwd_route` names:
     one counted launch in `flash_window_attention_bwd.launches` runs all its
-    passes, and `flash_window_attention_bwd.mma_launches` counts those of
-    the "mma" design."""
+    passes, and `flash_window_attention_bwd.wgmma_launches` and
+    `.mma_launches` count those of the "wgmma" and "mma" designs."""
     _check_shapes(q, k, v, bias)
     B, H, N, D = q.shape
     if tuple(do.shape) != tuple(q.shape):
@@ -320,6 +333,7 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch
                                            drow.contiguous())
     flash_window_attention_bwd.launches += 1
     flash_window_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
+    flash_window_attention_bwd.wgmma_launches += route == "wgmma"
     flash_window_attention_bwd.mma_launches += route == "mma"
     return dq, dk, dv, dbias
 
@@ -337,6 +351,7 @@ def _(q, k, v, bias, out, lse, do, drow, out_shape=None, **kwargs):
 
 flash_window_attention_bwd.launches = 0
 flash_window_attention_bwd.bf16_launches = 0
+flash_window_attention_bwd.wgmma_launches = 0
 flash_window_attention_bwd.mma_launches = 0
 
 

@@ -73,7 +73,12 @@ def _bwd_inputs(cuda, dtype, Bq, Hq, N, D, G, seed):
 @pytest.mark.parametrize(
     "Bq, Hq, N, D, G",
     [(2, 2, 128, 8, 0), (4, 2, 60, 24, 2), (3, 3, 1, 16, 0), (2, 1, 200, 128, 1),
-     (2, 2, 65, 72, 0), (4, 1, 129, 40, 4), (6, 2, 100, 48, 3)],
+     (2, 2, 65, 72, 0), (4, 1, 129, 40, 4), (6, 2, 100, 48, 3),
+     # the Swin's own shapes: stage 0 with a [H,N,N] and a [1,H,N,N] bias,
+     # stage 1, the ladder's D 56 (the mma design)
+     (32, 4, 2048, 24, 0), (32, 4, 2048, 24, 1), (32, 4, 512, 48, 0), (1, 6, 512, 56, 0),
+     # N across the 64-row tiles' edges
+     (4, 2, 2047, 24, 1), (4, 2, 129, 48, 0), (2, 1, 65, 32, 1)],
 )
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, Bq, Hq, N, D, G):
     args = _bwd_inputs(cuda, dtype, Bq, Hq, N, D, G, N * D + 1)
@@ -540,31 +545,36 @@ def _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("label, B, H, N, D, G, kind", FLASH_DESIGN_CASES)
 def test_flash_backward_mma_design_on_card(cuda, dtype, label, B, H, N, D, G, kind):
-    """The backward at these shapes takes the mma design (its counter moves
-    with it), matches the plain version and the row design on the same
-    inputs, lse cotangent included, and repeats bit for bit."""
+    """The backward at these shapes takes the tensor-core design `bwd_route`
+    names (wgmma up to D 48, mma past it; its counter moves with it),
+    matches the plain version, the row design and the mma design on the
+    same inputs, lse cotangent included, and repeats bit for bit."""
     args = _flash_design_inputs(cuda, dtype, B, H, N, D, G, kind, seed=N + D + G)
     bwd = fa.flash_window_attention_bwd
-    before = (bwd.launches, bwd.mma_launches)
+    route = fa.bwd_route(N, D)
+    before = (bwd.launches, bwd.wgmma_launches, bwd.mma_launches)
     got = bwd(*args)
     again = bwd(*args)
     torch.cuda.synchronize()
-    assert fa.bwd_route(N, D) == "mma"
-    assert (bwd.launches - before[0], bwd.mma_launches - before[1]) == (2, 2)
+    assert route in ("wgmma", "mma")
+    assert (bwd.launches - before[0], bwd.wgmma_launches - before[1],
+            bwd.mma_launches - before[2]) == (2, 2 * (route == "wgmma"), 2 * (route == "mma"))
     for a, b in zip(got, again):  # no atomics: bit-identical
         assert torch.equal(a, b)
     want = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
     rows = fa._launch_bwd(*args, route="rows")
+    mma = fa._launch_bwd(*args, route="mma")
     torch.cuda.synchronize()
-    assert rows[4] == "rows"
+    assert (rows[4], mma[4]) == ("rows", "mma")
     # a share of max|ref|: fp32 sums over up to 2048 keys and 32 members in
     # other orders; bf16 rounds the fp32 result once
     share = 1e-4 if dtype == torch.float32 else 1e-2
-    for name, a, w, r in zip(("dq", "dk", "dv", "dbias"), got, want, rows[:4]):
+    for name, a, w, r, m in zip(("dq", "dk", "dv", "dbias"), got, want, rows[:4], mma[:4]):
         assert a.dtype == args[0].dtype and a.shape == w.shape, name
         tol = share * w.abs().max().item()
         torch.testing.assert_close(a.float(), w, rtol=0, atol=tol, msg=name)
         torch.testing.assert_close(a.float(), r.float(), rtol=0, atol=2 * tol, msg=name)
+        torch.testing.assert_close(a.float(), m.float(), rtol=0, atol=2 * tol, msg=name)
 
 
 @pytest.mark.cuda
@@ -572,10 +582,11 @@ def test_flash_backward_past_the_mma_design_takes_the_rows(cuda):
     """D 72 is past the mma design: the row passes, counted as such."""
     args = _flash_design_inputs(cuda, torch.float32, 2, 2, 100, 72, 2, "random", seed=3)
     bwd = fa.flash_window_attention_bwd
-    before = (bwd.launches, bwd.mma_launches)
+    before = (bwd.launches, bwd.wgmma_launches, bwd.mma_launches)
     got = bwd(*args)
     torch.cuda.synchronize()
-    assert (bwd.launches - before[0], bwd.mma_launches - before[1]) == (1, 0)
+    assert (bwd.launches - before[0], bwd.wgmma_launches - before[1],
+            bwd.mma_launches - before[2]) == (1, 0, 0)
     want = fa.flash_window_attention_bwd_plain(*(a.float() for a in args))
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * w.abs().max().item(), msg=name)

@@ -129,9 +129,9 @@ def test_plain_backward_direct_call():
     out, lse = fa.flash_window_attention_fwd(q, k, v, bias)
     drow = (g_out * out).sum(-1)[:, :, None, :]
     counter = fa.flash_window_attention_bwd
-    before = (counter.launches, counter.mma_launches)
+    before = (counter.launches, counter.wgmma_launches, counter.mma_launches)
     got = fa.flash_window_attention_bwd(q, k, v, bias, out, lse, g_out, drow)
-    assert (counter.launches, counter.mma_launches) == before
+    assert (counter.launches, counter.wgmma_launches, counter.mma_launches) == before
     want = fa.flash_window_attention_bwd_plain(q, k, v, bias, out, lse, g_out, drow)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -149,12 +149,15 @@ def test_backward_checks_shapes():
 
 
 @pytest.mark.parametrize("N, D, route", [
-    (2048, 24, "mma"),   # Swin stage 0
-    (512, 48, "mma"),    # Swin stage 1
-    (1000, 32, "mma"),   # the tail case, G 4
-    (200, 64, "mma"),    # G = B at the largest head dim the design takes
-    (1, 8, "mma"),
-    (200, 72, "rows"),   # the first head dim past it
+    (2048, 24, "wgmma"),  # Swin stage 0
+    (512, 48, "wgmma"),   # Swin stage 1, the largest head dim the wgmma design takes
+    (1000, 32, "wgmma"),  # the tail case, G 4
+    (2047, 40, "wgmma"),
+    (72, 32, "wgmma"),    # Pangu's flash route in the 2D ring
+    (1, 8, "wgmma"),
+    (2048, 56, "mma"),    # the ladder's swin@8m: past the wgmma design
+    (200, 64, "mma"),     # G = B at the largest head dim the mma design takes
+    (200, 72, "rows"),    # the first head dim past it
     (65, 128, "rows"),
 ])
 def test_backward_route_is_chosen_by_shape(N, D, route):
@@ -174,21 +177,25 @@ def _fake_card(monkeypatch):
 
 
 @pytest.mark.parametrize("N, D, G, route", [
-    (128, 24, 0, "mma"), (60, 48, 2, "mma"), (40, 64, 4, "mma"), (40, 72, 1, "rows"),
+    (128, 24, 0, "wgmma"), (60, 48, 2, "wgmma"), (65, 8, 1, "wgmma"), (40, 56, 0, "mma"),
+    (40, 64, 4, "mma"), (40, 72, 1, "rows"),
 ])
 def test_wrapper_launches_the_design_bwd_route_names(monkeypatch, N, D, G, route):
     """On a (faked) CUDA tensor the wrapper calls the C entry of the design
     `bwd_route` names, once, and counts it: `.launches` always,
-    `.mma_launches` on the mma design only."""
+    `.wgmma_launches` and `.mma_launches` on their designs only."""
     calls = _fake_card(monkeypatch)
     counter = fa.flash_window_attention_bwd
     monkeypatch.setattr(counter, "launches", 0)
+    monkeypatch.setattr(counter, "wgmma_launches", 0)
     monkeypatch.setattr(counter, "mma_launches", 0)
     q = torch.zeros(4, 2, N, D)
     bias = torch.zeros((2, N, N) if G == 0 else (G, 2, N, N))
     lse = torch.zeros(4, 2, 1, N)
     dq, dk, dv, dbias = fa.flash_window_attention_bwd(q, q, q, bias, q, lse, q, lse)
-    assert calls == ["flash_window_attention_bwd_mma" if route == "mma"
-                     else "flash_window_attention_bwd"]
-    assert (counter.launches, counter.mma_launches) == (1, int(route == "mma"))
+    symbol = {"wgmma": "flash_window_attention_bwd_wgmma", "mma": "flash_window_attention_bwd_mma",
+              "rows": "flash_window_attention_bwd"}[route]
+    assert calls == [symbol]
+    assert (counter.launches, counter.wgmma_launches, counter.mma_launches) == (
+        1, int(route == "wgmma"), int(route == "mma"))
     assert dq.shape == q.shape and dbias.shape == bias.shape
